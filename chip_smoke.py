@@ -1,0 +1,307 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Drives ``pylrbms_tpu_torch`` (never JAX) on the card and fails unless every
+phase passes:
+
+1. device: CUDA present; prints the card's name and power limit;
+2. build: compiles the CUDA kernels from ``pylrbms_tpu_torch/csrc`` (nvcc,
+   sm_90a) and prints the build time and the compiler's resource report;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the serving shapes (G=2, K=64, N=384, B=1 and 256; f64, f32, bf16
+   matrices) and at a tail shape (K=4, N=24), with the tolerances stated
+   below; kernel time beside plain time (CUDA events, median of 20);
+4. entry config (2x2 subdomains, half 1, nref 1), one query on the card in
+   f64 and in f32, against the port's own CPU f64 run;
+5. serving config (8x8 subdomains, half 2, nref 2: 24 576 dofs; affine
+   apply, harvested coarse space with 12 modes, tol 1e-6, f32, default
+   bf16 Jacobi storage), B=256 queries mu = linspace(0.1, 1, 256) in one
+   call: finite non-negative indicators, lane 0 equal to the single query,
+   4 lanes against a scipy sparse LU solve, and both kernels launched on
+   that path; prints per-query and single-query times, PCG iterations and
+   peak device memory.
+
+Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
+summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
+without that last line if CUDA is unavailable or any phase fails.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+SEED = 0
+ENTRY = {"num_subdomains": [2, 2],
+         "half_num_fine_elements_per_subdomain_and_dim": 1,
+         "num_refinements": 1}
+SERVING = {"num_subdomains": [8, 8],
+           "half_num_fine_elements_per_subdomain_and_dim": 2,
+           "num_refinements": 2}
+B_SERVE = 256
+# kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
+# f64: rounding of a different summation order over N <= 384 terms;
+# f32 (and bf16 matrices, whose elements widen exactly to f32 on both
+# sides): the normwise form of the tests/test_pallas.py bounds (rtol 2e-5 on
+# the products, 2e-4 on the per-subdomain dots rz).
+TOL = {"f64": (1e-12, 1e-12), "f32": (2e-5, 2e-4)}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rel(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def cuda_ms(fn, reps=20) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def kernel_phase(hk, torch, dev):
+    """Kernel vs plain on the card; returns the summary of the serving-shape
+    cases per kernel (f32 vectors, B=256: the main path's dtypes)."""
+    rng = np.random.default_rng(SEED)
+    dt_name = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+    summary = {}
+
+    def case(kind, G, K, N, B, mdt, vdt):
+        A = torch.as_tensor(rng.standard_normal((G, K, N, N)), device=dev).to(mdt)
+        x = torch.as_tensor(rng.standard_normal((B, K, N)), device=dev).to(vdt)
+        tol = TOL["f64" if vdt == torch.float64 else "f32"]
+        if kind == "block_matvec":
+            coef = (torch.as_tensor(rng.standard_normal((B, G)), device=dev).to(vdt)
+                    if G > 1 else None)
+            run = lambda: hk.block_matvec(A, x, coef)            # noqa: E731
+            plain = lambda: hk.block_matvec_plain(A, x, coef)    # noqa: E731
+            y, yp = run(), plain()
+            torch.cuda.synchronize()
+            errs = [rel(y.cpu(), yp.cpu())]
+            abs_err = float((y - yp).abs().max())
+            ok = errs[0] <= tol[0]
+        else:
+            F = A[0].contiguous()
+            run = lambda: hk.precond_dot(F, x)                   # noqa: E731
+            plain = lambda: hk.precond_dot_plain(F, x)           # noqa: E731
+            (z, rz), (zp, rzp) = run(), plain()
+            torch.cuda.synchronize()
+            errs = [rel(z.cpu(), zp.cpu()), rel(rz.cpu(), rzp.cpu())]
+            abs_err = float(max((z - zp).abs().max(), (rz - rzp).abs().max()))
+            ok = errs[0] <= tol[0] and errs[1] <= tol[1]
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        label = (f"{kind} G={G} K={K} N={N} B={B} "
+                 f"{dt_name[mdt]} x {dt_name[vdt]}")
+        log(f"kernel {label}: max rel err {', '.join(f'{e:.3e}' for e in errs)} "
+            f"(tol {tol[0]:.0e}{'/' + format(tol[1], '.0e') if len(errs) > 1 else ''}) "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    for B in (1, 256):
+        for mdt, vdt in ((f64, f64), (f32, f32)):
+            r = case("block_matvec", 2, 64, 384, B, mdt, vdt)
+            if B == B_SERVE and vdt == f32:
+                summary["block_matvec"] = r
+        for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32), (bf16, f64)):
+            r = case("precond_dot", 1, 64, 384, B, mdt, vdt)
+            if B == B_SERVE and mdt == bf16 and vdt == f32:
+                summary["precond_dot"] = r
+    case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape
+    for B in (1, 4, 13):
+        for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
+            case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
+            case("precond_dot", 1, 4, 24, B, mdt, vdt)
+    return summary
+
+
+def entry_phase(torch, dev):
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+
+    mu = 0.5
+    args = (np.array([1.0, mu]), np.array([1.0]))
+
+    def run(device, dtype, tol):
+        d, _ = discretize(init_grid_and_problem(ENTRY), device=device, dtype=dtype)
+        step = make_online_step(d, tol=tol, maxiter=500)
+        U, ind = step(*args, {"diffusion": torch.tensor([mu])})
+        return U.cpu().double().numpy(), ind.cpu().double().numpy()
+
+    U_ref, ind_ref = run("cpu", torch.float64, 1e-10)
+    U64, ind64 = run(dev, torch.float64, 1e-10)
+    # f32 at the bench tolerance (1e-6): a tighter tol is below f32
+    # resolution and only runs the solve to maxiter
+    U32, ind32 = run(dev, torch.float32, 1e-6)
+    checks = [("f64 U", rel(U64, U_ref), 1e-8), ("f64 indicators", rel(ind64, ind_ref), 1e-8),
+              ("f32 U", rel(U32, U_ref), 1e-3), ("f32 indicators", rel(ind32, ind_ref), 1e-3)]
+    for name, err, tol in checks:
+        log(f"entry config {name} vs CPU f64: rel err {err:.3e} (tol {tol:.0e}) "
+            f"{'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError(f"entry config {name} off by {err:.3e}")
+
+
+def serving_phase(hk, torch, dev, smi):
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    d, _ = discretize(init_grid_and_problem(SERVING), device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    log(f"serving config: K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
+        f"discretize {time.perf_counter() - t0:.2f} s")
+    mus = np.linspace(0.1, 1.0, B_SERVE)
+    thetas = np.stack([np.ones(B_SERVE), mus], 1)
+    theta_fs = np.ones((B_SERVE, 1))
+    mus_b = {"diffusion": torch.as_tensor(mus[:, None], dtype=f32, device=dev)}
+    mu0 = {"diffusion": torch.as_tensor(mus[:1], dtype=f32, device=dev)}
+
+    # ---- the main path: build the step, one single query, one batched call
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn = make_online_step(d, tol=1e-6, maxiter=400, coarse_space="harvested",
+                          coarse_modes=12, matrix_free="affine")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    U1, ind1 = fn(thetas[0], theta_fs[0], mu0)
+    Ub, indb = fn(thetas, theta_fs, mus_b)
+    torch.cuda.synchronize()
+    launches = hk.launch_counts()
+    log(f"serving main path (step build {t_build:.2f} s + 1 single + 1 batched "
+        f"B={B_SERVE} call): kernel launches {launches}")
+
+    ind_np = indb.double().cpu().numpy()
+    if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
+        raise AssertionError("serving indicators not finite and non-negative")
+    U1_np = U1.double().cpu().numpy()
+    Ub_np = Ub.double().cpu().numpy()
+    err0 = rel(Ub_np[0], U1_np)
+    log(f"serving lane 0 vs single query: rel err {err0:.3e} (tol 1e-03) "
+        f"{'ok' if err0 <= 1e-3 else 'FAIL'}")
+    if not err0 <= 1e-3:
+        raise AssertionError("batched lane 0 differs from the single query")
+    for i in (0, B_SERVE // 3, 2 * B_SERVE // 3, B_SERVE - 1):
+        mu_i = {"diffusion": torch.tensor([mus[i]])}
+        A = to_scipy_csr(d.assemble(mu_i))
+        b = d.rhs(mu_i).double().cpu().numpy().reshape(-1)
+        u = spla.splu(A.tocsc()).solve(b)
+        err = rel(Ub_np[i].reshape(-1), u)
+        log(f"serving lane {i} (mu={mus[i]:.4f}) vs scipy splu (f64): rel err "
+            f"{err:.3e} (tol 1e-03) {'ok' if err <= 1e-3 else 'FAIL'}")
+        if not err <= 1e-3:
+            raise AssertionError(f"serving lane {i} off the sparse LU solution")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
+
+    # ---- measurements (launches here are not counted in the summary)
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_query = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ib = fn(thetas, theta_fs, mus_b)
+        torch.cuda.synchronize()
+        per_query.append((time.perf_counter() - t0) / B_SERVE)
+    peak = torch.cuda.max_memory_allocated(dev)
+    single = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(thetas[0], theta_fs[0], mu0)
+        torch.cuda.synchronize()
+        single.append(time.perf_counter() - t0)
+    it_b = fn.iters_probe(thetas, theta_fs)
+    it_1 = fn.iters_probe(thetas[0], theta_fs[0])
+    log(f"serving per-query {np.median(per_query) * 1e3:.4f} ms (median of 5 batched "
+        f"B={B_SERVE} calls), single-query {np.median(single) * 1e3:.3f} ms (median of 5); "
+        f"PCG iterations {it_b} (batched, lock-step max) / {it_1} (single); "
+        f"peak device memory {peak / 2**20:.1f} MiB [{smi}]")
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        smi = smi_line()
+        log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+            f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
+        dev = torch.device("cuda", 0)
+        from pylrbms_tpu_torch.ops import hopper_kernels as hk
+        from pylrbms_tpu_torch.utils.precision import pin_precision
+        pin_precision()
+
+        t0 = time.perf_counter()
+        report = hk.build()
+        hk.load()
+        log(f"kernel build (nvcc sm_90a): {time.perf_counter() - t0:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+        summary = kernel_phase(hk, torch, dev)
+        entry_phase(torch, dev)
+        launches = serving_phase(hk, torch, dev, smi)
+
+        replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
+                    "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}
+        kernels = [{"name": name, "route": "cuda",
+                    "source": "pylrbms_tpu_torch/csrc/block_kernels.cu",
+                    "replaces": replaces[name], "launches": launches[name],
+                    **summary[name]} for name in ("block_matvec", "precond_dot")]
+    except Exception:                                    # noqa: BLE001 — report and fail
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,198 @@
+"""Localized a-posteriori error estimator (elliptic, 2D, order 1).
+
+The port of the elliptic part of ``pylrbms_tpu/estimators.py`` — the
+OS2015/RS2017 localized estimator
+
+  eta_nc_sq[ii] = || u - I_os(u) ||^2_{lambda_bar, ii}
+  eta_r_sq[ii]  = (C_P / lambda_min,ii) H_ii^2 * int (f(mu) - div t)^2
+  eta_df_sq[ii] = int (lam(mu) k grad u + t) . (lam_hat k)^{-1} (...)
+  eta = (1/sqrt(alpha(mu,mu_bar))) * ( sqrt(gamma(mu,mu_bar)) ||eta_nc_sq||
+        + (1/sqrt(alpha(mu,mu_hat))) ||eta_r_sq + eta_df_sq|| )
+
+with the reference's as-executed quirks (alpha from the first component
+only; squared locals entering the norms).  U may carry a leading lane axis
+and mu lane-batched leaves; theta and theta_f then carry the lane axis too
+(``[B, Q]``), which is what the batched online step feeds in.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from .parameters import evaluate_coefficients
+from .ops.oswald import OswaldOperator
+from .ops.fluxreco import FluxReconstructor, rt_tab_any_order
+from .ops import assembly as asm
+
+
+@dataclass
+class EstimatorData:
+    """All precomputed per-subdomain tensors the estimator needs."""
+    E_bar: torch.Tensor         # [K, N, N] elliptic product at lambda_bar
+    L2: torch.Tensor            # [K, N, N]
+    M_aa: torch.Tensor          # [Q, Q, K, N, N]   (None on lean models)
+    BB: torch.Tensor            # [K, Nrt, Nrt]     (None on lean models)
+    M_ab: torch.Tensor          # [Q, K, N, Nrt]    (None on lean models)
+    A_div: torch.Tensor         # [N, Nrt]
+    R_dd: torch.Tensor          # [K, Nrt, Nrt]     (None on lean models)
+    d_vec: torch.Tensor         # [Qf, K, Nrt]
+    rf_qq: torch.Tensor         # [Qf, Qf, K]
+    min_ev: torch.Tensor        # [K]
+    diam: torch.Tensor          # [K]
+    oswald: OswaldOperator
+    flux: FluxReconstructor
+    lambda_funcs: list
+    lambda_coeffs: list
+    f_coeffs: list
+    mu_bar: dict
+    mu_hat: dict
+    parameter_type: Optional[dict]
+    f_funcs: list = None
+    lambda_hat: object = None
+
+
+def _contract(theta, stacked):
+    """sum_q theta[..., q] * stacked[q, ...] with theta [Q] or [B, Q]."""
+    return torch.tensordot(theta, stacked, dims=([-1], [0]))
+
+
+def aggregate_eta(est, mu, eta_nc, eta_r, eta_df, decompose: bool = False,
+                  paper_convention: bool = False):
+    """Aggregate the squared local quantities [B, K] into eta (and with
+    ``decompose`` the [K, B] triples and marking indicators) for one mu."""
+    a_bar = est.alpha(mu, est.data.mu_bar)
+    g_bar = est.gamma(mu, est.data.mu_bar)
+    a_hat = est.alpha(mu, est.data.mu_hat)
+    if paper_convention:
+        eta_nc = torch.sqrt(torch.clamp(eta_nc, min=0.0))
+        eta_r = torch.sqrt(torch.clamp(eta_r, min=0.0))
+        eta_df = torch.sqrt(torch.clamp(eta_df, min=0.0))
+
+    def norm(v):
+        return torch.sqrt(torch.sum(v * v))
+
+    eta = (torch.sqrt(g_bar) * norm(eta_nc)
+           + (1.0 / torch.sqrt(a_hat)) * norm(eta_r + eta_df)) / torch.sqrt(a_bar)
+    if not decompose:
+        return eta
+    nc, r, df = (torch.movedim(v, 0, -1) for v in (eta_nc, eta_r, eta_df))
+    indicators = (2.0 / a_bar) * (g_bar * nc ** 2 + (1.0 / a_hat) * (r + df) ** 2)
+    return eta, (nc, r, df), indicators
+
+
+class EllipticEstimator:
+    poincare_constant = 1.0 / math.pi ** 2      # C_P
+
+    def __init__(self, data: EstimatorData, alpha_first_component_only: bool = True):
+        self.data = data
+        self.alpha_first_component_only = alpha_first_component_only
+
+    def _ratios(self, mu, mu_ref):
+        th = evaluate_coefficients(self.data.lambda_coeffs, mu)
+        th_ref = evaluate_coefficients(self.data.lambda_coeffs, mu_ref,
+                                       device=th.device)
+        return th / th_ref
+
+    def alpha(self, mu, mu_ref):
+        r = self._ratios(mu, mu_ref)
+        if self.alpha_first_component_only:
+            return r[..., 0]     # reference early-return quirk
+        return torch.min(r, dim=-1).values
+
+    def gamma(self, mu, mu_ref):
+        return torch.max(self._ratios(mu, mu_ref), dim=-1).values
+
+    def reconstruct_flux(self, U, mu=None, per_component: bool = False):
+        """Affine flux reconstruction; [..., K, Nrt] (or [Q, ..., K, Nrt])."""
+        d = self.data
+        t_q = torch.stack([d.flux.apply(lf, U) for lf in d.lambda_funcs])
+        if per_component:
+            return t_q
+        theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=t_q.dtype,
+                                      device=t_q.device)           # [Q] | [B, Q]
+        th = theta.movedim(-1, 0)                                  # [Q(, B)]
+        th = th.reshape(th.shape + (1,) * (t_q.ndim - th.ndim))
+        return (th * t_q).sum(0)
+
+    def local_quantities(self, U, mu, tensors: dict | None = None):
+        """Matrix-form squared local quantities; U [..., K, N] -> each
+        [..., K] (needs the non-lean estimator tensors)."""
+        d = self.data
+        g = (tensors or {}).get
+        dtype, dev = U.dtype, U.device
+        theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
+        theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
+        t = self.reconstruct_flux(U, mu)
+        U_o = d.oswald.apply(U)
+        eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, g("E_bar", d.E_bar), U_o)
+        rf = torch.einsum("...p,...r,prk->...k", theta_f, theta_f, g("rf_qq", d.rf_qq))
+        r_fd = torch.einsum("...p,pkn,...kn->...k", theta_f, g("d_vec", d.d_vec), t)
+        r_dd = torch.einsum("...kn,knm,...km->...k", t, g("R_dd", d.R_dd), t)
+        scale = (self.poincare_constant / g("min_ev", d.min_ev)) * g("diam", d.diam) ** 2
+        eta_r = (rf - 2.0 * r_fd + r_dd) * scale
+        aa = torch.einsum("...p,...r,prknm,...kn,...km->...k",
+                          theta, theta, g("M_aa", d.M_aa), U, U)
+        bb = torch.einsum("...kn,knm,...km->...k", t, g("BB", d.BB), t)
+        ab = torch.einsum("...p,pknm,...kn,...km->...k", theta, g("M_ab", d.M_ab), U, t)
+        return eta_nc, eta_r, aa + bb + 2.0 * ab
+
+    def local_quantities_positive(self, U, mu, tensors: dict | None = None):
+        """Cancellation-free evaluation of the squared local quantities as
+        manifestly non-negative integrals (kappa = I):
+
+          eta_r_sq  ~ int (f(mu) - div t)^2,
+          eta_df_sq = int (lam(mu) k grad u + t) . (lam_hat k)^{-1} (...).
+        """
+        d = self.data
+        sp = d.flux.space
+        dtype, dev = U.dtype, U.device
+        theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
+        theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
+
+        E_bar = (tensors or {}).get("E_bar", d.E_bar).to(dtype)
+        t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
+        U_o = d.oswald.apply(U)
+        eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
+
+        xq = asm.tensor(asm.vol_points(sp), dtype, dev)        # [K,s,s,T,nq,2]
+        w = asm.tensor(sp.vol_w, dtype, dev)
+        area = sp.hx * sp.hy
+        lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
+        lam_mu = _contract(theta, lam_q)                       # [..., K,s,s,T,nq]
+        lam_hat_v = d.lambda_hat(xq).to(dtype)
+
+        dphi = asm.tensor(sp.vol_dphi, dtype, dev)             # [T,nq,nb,2]
+        Uc = U.reshape(U.shape[:-2] + (sp.K, sp.s, sp.s, sp.T, sp.nb))
+        gu = torch.einsum("...kyxtj,tqja->...kyxtqa", Uc, dphi)
+        chi, idx, div_q, _nrt = rt_tab_any_order(sp)
+        nf = idx.shape[-1]
+        t_cell = t_loc[..., torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
+            t_loc.shape[:-1] + (sp.s, sp.s, sp.T, nf))
+        t_q = torch.einsum("...kyxte,tqea->...kyxtqa", t_cell, asm.tensor(chi, dtype, dev))
+        z = lam_mu[..., None] * gu + t_q                       # kappa = I
+        df_int = (z * z).sum(-1) / lam_hat_v
+        eta_df = area * torch.einsum("tq,...kyxtq->...k", w, df_int)
+
+        f_q = torch.stack([ff(xq).to(dtype) for ff in d.f_funcs])
+        f_mu = _contract(theta_f, f_q)
+        div_t = torch.einsum("...kyxte,tqe->...kyxtq", t_cell,
+                             asm.tensor(div_q, dtype, dev))
+        res = f_mu - div_t
+        scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
+        eta_r = area * torch.einsum("tq,...kyxtq->...k", w, res * res) * scale
+        return eta_nc, eta_r, eta_df
+
+    def estimate(self, U, mu, decompose: bool = False,
+                 paper_convention: bool = False):
+        """U [K, N] or [B, K, N] at one mu.  Returns eta and, with
+        ``decompose``, the local triples [K, B] and indicators [K, B]."""
+        Ub = U[None] if U.ndim == 2 else U
+        if self.data.M_aa is None:
+            eta_nc, eta_r, eta_df = self.local_quantities_positive(Ub, mu)
+        else:
+            eta_nc, eta_r, eta_df = self.local_quantities(Ub, mu)
+        return aggregate_eta(self, mu, eta_nc, eta_r, eta_df, decompose,
+                             paper_convention=paper_convention)

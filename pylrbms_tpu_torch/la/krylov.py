@@ -1,0 +1,59 @@
+"""Preconditioned CG with per-lane select-frozen state and chunked
+convergence checks.
+
+The port of ``pylrbms_tpu/la/krylov.py``.  The right-hand side carries an
+optional leading lane axis ``[B, K, N]`` (one independent system per lane,
+the port of ``vmap`` over the JAX ``while_loop``).  Every body evaluation
+computes the candidate update for all lanes and SELECTS it only where the
+lane is still active (``|r|^2 > tol^2 |b|^2`` and ``it < maxiter``), so each
+lane's iterate sequence is the plain CG sequence and its iteration count is
+its own.  Convergence is read on the host once per ``chunk`` body
+evaluations — the only host synchronization of the loop.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def default_chunk(device) -> int:
+    """16 on CUDA (a host sync per chunk instead of per iteration), 1 on CPU."""
+    return 16 if torch.device(device).type == "cuda" else 1
+
+
+def _dot(u, v):
+    return (u * v).sum(dim=(-2, -1))
+
+
+def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None):
+    """Preconditioned CG on ``b`` [..., K, N]; ``M(r) -> (z, rz)`` returns the
+    preconditioned residual and the per-lane CG scalar ``r . z``.  Returns
+    ``(x, iters)`` with ``iters`` of the lane shape.  Stopping per lane:
+    ``||r||_2 <= tol * ||b||_2`` on the recurrence residual, or ``maxiter``."""
+    if chunk is None:
+        chunk = default_chunk(b.device)
+    atol2 = (tol ** 2) * torch.clamp(_dot(b, b), min=torch.finfo(b.dtype).tiny)
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
+    r = b - matvec(x)
+    z, rz = M(r)
+    p = z
+    it = torch.zeros(b.shape[:-2], dtype=torch.int64, device=b.device)
+
+    def active():
+        return (_dot(r, r) > atol2) & (it < maxiter)
+
+    while bool(active().any()):
+        for _ in range(chunk):
+            act = active()
+            Ap = matvec(p)
+            alpha = rz / _dot(p, Ap)
+            xn = x + alpha[..., None, None] * p
+            rn = r - alpha[..., None, None] * Ap
+            zn, rzn = M(rn)
+            pn = zn + (rzn / rz)[..., None, None] * p
+            sel = act[..., None, None]
+            x = torch.where(sel, xn, x)
+            r = torch.where(sel, rn, r)
+            p = torch.where(sel, pn, p)
+            rz = torch.where(act, rzn, rz)
+            it = it + act.to(it.dtype)
+    return x, it

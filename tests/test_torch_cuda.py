@@ -1,0 +1,93 @@
+"""Port on the card: the CUDA kernels against their plain versions, and the
+online step on CUDA against the port's own CPU run.
+
+Every test is marked ``cuda`` and skips where CUDA is unavailable (the
+kernels have no CPU mode).  The module imports no jax, so on a GPU machine
+without JAX it runs with the JAX conftest switched off:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from pylrbms_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+# (matrix dtype, vector dtype, tolerance on products, tolerance on rz):
+# f64 summation-order rounding; f32 and bf16-stored matrices (widened
+# exactly on both sides) at the normwise tests/test_pallas.py bounds
+DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
+          (torch.float32, torch.float32, 2e-5, 2e-4),
+          (torch.bfloat16, torch.float32, 2e-5, 2e-4),
+          (torch.bfloat16, torch.float64, 1e-12, 1e-12)]
+
+
+@pytest.mark.parametrize("G,K,N,B", [(2, 8, 384, 1), (2, 8, 384, 64),
+                                     (1, 4, 24, 3), (2, 3, 130, 9)])
+def test_kernels_match_plain_versions(cuda, G, K, N, B):
+    """Both shapes of each kernel (rows for B <= 8, tiles above), ragged N."""
+    rng = np.random.default_rng(3)
+    hk.reset_launch_counts()
+    for mdt, vdt, tol, tol_rz in DTYPES:
+        A = torch.tensor(rng.normal(size=(G, K, N, N)), device=cuda).to(mdt)
+        x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda).to(vdt)
+        coef = torch.tensor(rng.normal(size=(B, G)), device=cuda).to(vdt) if G > 1 else None
+        y, yp = hk.block_matvec(A, x, coef), hk.block_matvec_plain(A, x, coef)
+        (z, rz), (zp, rzp) = hk.precond_dot(A[0].contiguous(), x), hk.precond_dot_plain(A[0], x)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= tol, (mdt, vdt)
+        assert _rel(z, zp) <= tol, (mdt, vdt)
+        assert _rel(rz, rzp) <= tol_rz, (mdt, vdt)
+    assert hk.launch_counts() == {"block_matvec": len(DTYPES), "precond_dot": len(DTYPES)}
+
+
+def test_cuda_tensors_never_take_the_plain_path(cuda):
+    A = torch.ones((1, 2, 3, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):          # f64 matrix x f32 vector: no kernel
+        hk.block_matvec(A.double(), torch.ones((1, 2, 3), device=cuda))
+    with pytest.raises(ValueError):         # non-contiguous input
+        hk.precond_dot(A[0].transpose(1, 2), torch.ones((1, 2, 3), device=cuda))
+
+
+def test_online_step_on_cuda_matches_cpu(cuda):
+    """Entry config, f64: the CUDA step (bf16 Jacobi factors by default)
+    against the CPU f64 step at tol=1e-10, to 1e-8 relative."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+
+    cfg = {"num_subdomains": [2, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1}
+    mus = np.array([0.2, 0.7])
+    th = torch.tensor(np.stack([np.ones(2), mus], 1))
+    tf = torch.ones((2, 1), dtype=torch.float64)
+    mu = {"diffusion": torch.tensor(mus[:, None])}
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev)
+        step = make_online_step(d, tol=1e-10, maxiter=500, matrix_free="affine",
+                                coarse_space="harvested", coarse_modes=4)
+        hk.reset_launch_counts()
+        U, ind = step(th, tf, mu)
+        outs.append((U.cpu(), ind.cpu(), hk.launch_counts()))
+    (U0, i0, n0), (U1, i1, n1) = outs
+    assert _rel(U1, U0) <= 1e-8 and _rel(i1, i0) <= 1e-8
+    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0

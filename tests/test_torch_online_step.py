@@ -1,0 +1,215 @@
+"""Port online step (pylrbms_tpu_torch.model.make_online_step) against the
+JAX package on CPU float64.
+
+* carried-over state: the JAX step's ``step.arrays`` go through
+  ``convert.arrays_from_numpy`` into the port's step, so both solve with
+  identical operators, preconditioners and coarse spaces; U and indicators
+  agree to 1e-10 relative (summation order only) and the PCG iteration
+  counts are equal, single and per lane of a batched call;
+* end to end: the port builds its own model and preconditioner; at
+  tol=1e-12 the independently built coarse bases (rounding-level
+  differences) leave U within 1e-9 of JAX;
+* the port imports no jax (subprocess).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from pylrbms_tpu.problems.os2015 import init_grid_and_problem as jax_problem  # noqa: E402
+from pylrbms_tpu.discretize_elliptic_block_swipdg import discretize as jax_discretize  # noqa: E402
+from pylrbms_tpu.model import make_online_step as jax_online_step  # noqa: E402
+
+from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem  # noqa: E402
+from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize  # noqa: E402
+from pylrbms_tpu_torch.model import make_online_step  # noqa: E402
+from pylrbms_tpu_torch.la.block import AffineBlockApply  # noqa: E402
+from pylrbms_tpu_torch.convert import arrays_from_numpy  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = {"num_subdomains": [2, 2],
+       "half_num_fine_elements_per_subdomain_and_dim": 1,
+       "num_refinements": 2}
+MUS = np.array([0.15, 0.6, 1.0, 0.33])
+STEP_KINDS = {
+    "single_modal": dict(matrix_free=False),
+    "affine_harvested": dict(matrix_free="affine", coarse_space="harvested",
+                             coarse_modes=4),
+}
+
+
+def rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def args_jax(i):
+    m = MUS[i]
+    return jnp.asarray([1.0, m]), jnp.asarray([1.0]), {"diffusion": jnp.asarray([m])}
+
+
+def args_torch(i):
+    m = MUS[i]
+    return (torch.tensor([1.0, m], dtype=torch.float64), torch.tensor([1.0], dtype=torch.float64),
+            {"diffusion": torch.tensor([m])})
+
+
+def batched_args():
+    th = np.stack([np.ones(len(MUS)), MUS], 1)
+    tf = np.ones((len(MUS), 1))
+    return th, tf, MUS[:, None]
+
+
+@pytest.fixture(scope="module")
+def models():
+    dj, _ = jax_discretize(jax_problem(CFG))
+    dt, _ = discretize(init_grid_and_problem(CFG))
+    return dj, dt
+
+
+@pytest.fixture(scope="module", params=sorted(STEP_KINDS))
+def carried(request, models):
+    dj, dt = models
+    kw = STEP_KINDS[request.param]
+    sj = jax_online_step(dj, tol=1e-10, maxiter=500, **kw)
+    st = make_online_step(dt, tol=1e-10, maxiter=500, **kw)
+    assert set(st.arrays) == set(sj.arrays)
+    st.arrays.update(arrays_from_numpy({k: np.asarray(v) for k, v in sj.arrays.items()}))
+    return request.param, sj, st
+
+
+def test_carried_single_queries(carried):
+    _, sj, st = carried
+    for i in range(len(MUS)):
+        Uj, indj = sj(*args_jax(i))
+        Ut, indt = st(*args_torch(i))
+        assert rel(Ut, Uj) <= 1e-10
+        assert rel(indt, indj) <= 1e-10
+        assert st.iters_probe(*args_torch(i)[:2]) == sj.iters_probe(*args_jax(i)[:2])
+
+
+def test_carried_batched_call(carried):
+    _, sj, st = carried
+    th, tf, mus = batched_args()
+    Uj, indj = sj(jnp.asarray(th), jnp.asarray(tf), {"diffusion": jnp.asarray(mus)})
+    Ut, indt = st(torch.tensor(th), torch.tensor(tf), {"diffusion": torch.tensor(mus)})
+    assert Ut.shape == (len(MUS),) + tuple(Uj.shape[1:]) and indt.shape == indj.shape
+    assert rel(Ut, Uj) <= 1e-10
+    assert rel(indt, indj) <= 1e-10
+
+
+def test_batched_equals_single_queries(carried):
+    _, _, st = carried
+    th, tf, mus = batched_args()
+    Ub, indb = st(torch.tensor(th), torch.tensor(tf), {"diffusion": torch.tensor(mus)})
+    for i in range(len(MUS)):
+        U1, ind1 = st(*args_torch(i))
+        # per-lane frozen CG: each lane runs the single query's iterate
+        # sequence; only the lock-step batched einsums reorder sums
+        assert rel(Ub[i], U1) <= 1e-12
+        assert rel(indb[i], ind1) <= 1e-12
+
+
+def test_per_lane_iteration_counts(models, carried):
+    """A shared lane-batched solve (the affine apply over the carried arrays)
+    freezes each lane at its own convergence: the per-lane counts equal the
+    JAX single-query counts."""
+    _, sj, st = carried
+    th, tf, _ = batched_args()
+    a = st.arrays
+    op = AffineBlockApply(models[1].op.static, a["A_diag"], a["C_R_io"],
+                          a["C_R_oi"], a["C_U_io"], a["C_U_oi"], torch.tensor(th))
+    b = torch.einsum("bq,qkn->bkn", torch.tensor(tf), a["rhs_q"])
+    _, it = op.solve_pcg(b, tol=1e-10, maxiter=500, factors=a["Minv_bar"],
+                         coarse_inv=a["Cinv_bar"], coarse_basis=a["C_coarse"],
+                         return_iters=True)
+    ref = [sj.iters_probe(*args_jax(i)[:2]) for i in range(len(MUS))]
+    assert it.tolist() == ref
+    assert st.iters_probe(torch.tensor(th), torch.tensor(tf)) == max(ref)
+
+
+@pytest.mark.parametrize("kind", sorted(STEP_KINDS))
+def test_end_to_end_against_jax(models, kind):
+    dj, dt = models
+    kw = STEP_KINDS[kind]
+    sj = jax_online_step(dj, tol=1e-12, maxiter=1000, **kw)
+    st = make_online_step(dt, tol=1e-12, maxiter=1000, **kw)
+    th, tf, mus = batched_args()
+    Ut, indt = st(torch.tensor(th), torch.tensor(tf), {"diffusion": torch.tensor(mus)})
+    for i in range(len(MUS)):
+        Uj, indj = sj(*args_jax(i))
+        assert rel(Ut[i], Uj) <= 1e-9
+        assert rel(indt[i], indj) <= 1e-9
+
+
+@pytest.mark.parametrize("kw", [
+    dict(matrix_free=False, coarse_space="geneo"),
+    dict(matrix_free=False, fixed_preconditioner=False),
+    dict(matrix_free="affine", fixed_preconditioner=False),
+    dict(matrix_free=False, positive_form=False),
+    dict(matrix_free="affine", two_level=False),
+    dict(matrix_free="affine", with_estimate=False),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_step_options_against_jax(models, kw):
+    """The step's other options (reference defaults otherwise), end to end
+    at tol=1e-12 against JAX, single queries and one batched call."""
+    dj, dt = models
+    sj = jax_online_step(dj, tol=1e-12, maxiter=1000, **kw)
+    st = make_online_step(dt, tol=1e-12, maxiter=1000, **kw)
+    th, tf, mus = batched_args()
+    out_b = st(torch.tensor(th), torch.tensor(tf), {"diffusion": torch.tensor(mus)})
+    for i in (0, 3):
+        out_j, out_t = sj(*args_jax(i)), st(*args_torch(i))
+        if not kw.get("with_estimate", True):
+            out_j, out_t, out_bi = (out_j,), (out_t,), (out_b[i],)
+        else:
+            out_bi = (out_b[0][i], out_b[1][i])
+        for a, b, c in zip(out_t, out_j, out_bi):
+            assert rel(a, b) <= 1e-9
+            assert rel(c, b) <= 1e-9
+
+
+def test_model_solve_dense_and_pcg(models):
+    dj, dt = models
+    for m in (0.2, 0.9):
+        Uj = dj.solve(dj.parse_parameter(m), {"type": "dense"})
+        assert rel(dt.solve(m, {"type": "dense"}), Uj) <= 1e-12
+        assert rel(dt.solve(m, {"type": "pcg", "precision": 1e-12}), Uj) <= 1e-9
+
+
+def test_stencil_operator_is_not_ported_yet(models):
+    _, dt = models
+    with pytest.raises(NotImplementedError, match="slice 1 item 8"):
+        make_online_step(dt, matrix_free=True)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem\n"
+        "from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize\n"
+        "from pylrbms_tpu_torch.model import make_online_step\n"
+        "import pylrbms_tpu_torch.convert, pylrbms_tpu_torch.ops.hopper_kernels\n"
+        "cfg = {'num_subdomains': [2, 2], "
+        "'half_num_fine_elements_per_subdomain_and_dim': 1, 'num_refinements': 1}\n"
+        "d, _ = discretize(init_grid_and_problem(cfg))\n"
+        "U, ind = make_online_step(d, tol=1e-8)(torch.tensor([1.0, 0.5]), torch.tensor([1.0]),"
+        " {'diffusion': torch.tensor([0.5])})\n"
+        "assert U.shape == (4, 24) and bool(torch.isfinite(ind).all())\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
