@@ -20,7 +20,30 @@ phase passes:
    call: finite non-negative indicators, lane 0 equal to the single query,
    4 lanes against a scipy sparse LU solve, and both kernels launched on
    that path; prints per-query and single-query times, PCG iterations and
-   peak device memory.
+   peak device memory;
+6. stencil apply: the matrix-free ``AssembledStencil.apply`` against the
+   block operator's apply, entry config f64 (1e-12) and serving config f32
+   (1e-5), one vector and 4 lanes;
+7. the reference's default online step at the serving config
+   (``make_online_step`` without ``matrix_free``: the stencil form at
+   >= 16 384 dofs; harvested coarse space, 12 modes, tol 1e-6), one query
+   and B=256: U against the affine step's U for the same mu (1e-3),
+   indicators finite and non-negative, precond_dot launched; prints
+   per-query and single-query times, PCG iterations beside the affine
+   step's, peak memory and the 10 device ops with the most self time in
+   one batched call (torch.profiler);
+8. ``StationaryBlockModel.solve`` at 98 304 dofs (8x8 subdomains, half 2,
+   nref 3, f64, solver 'auto' at precision 1e-10): the matrix-free
+   two-level PCG, its divergence post-check, U against scipy splu (1e-6);
+   then the same solve with ``mixed=True``; prints time and iterations;
+9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
+   that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
+   harvest's one-lane power iteration, ...), against its plain version on
+   the card at phase 3's tolerances.
+
+Each main path (phases 5, 7 and 8) runs with the kernel launch counts and
+signatures cleared just before it and read just after; the summary's
+``launches`` is the sum of the counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -43,6 +66,9 @@ ENTRY = {"num_subdomains": [2, 2],
 SERVING = {"num_subdomains": [8, 8],
            "half_num_fine_elements_per_subdomain_and_dim": 2,
            "num_refinements": 2}
+SCALE = {"num_subdomains": [8, 8],
+         "half_num_fine_elements_per_subdomain_and_dim": 2,
+         "num_refinements": 3}
 B_SERVE = 256
 # kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
 # f64: rounding of a different summation order over N <= 384 terms;
@@ -85,45 +111,66 @@ def cuda_ms(fn, reps=20) -> float:
     return float(np.median(times))
 
 
+def timed_median(torch, fn, reps=5):
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt):
+    """One kernel against its plain version on the card at one shape, inputs
+    from ``randn(shape)`` (an f64 tensor on the card); raises if it is off
+    its tolerance.  Returns ``{"max_abs_err", "ms", "plain_ms"}``."""
+    dt_name = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+    A = randn((G, K, N, N)).to(mdt)
+    x = randn((B, K, N)).to(vdt)
+    tol = TOL["f64" if vdt == torch.float64 else "f32"]
+    if kind == "block_matvec":
+        coef = randn((B, G)).to(vdt) if G > 1 else None
+        run = lambda: hk.block_matvec(A, x, coef)            # noqa: E731
+        plain = lambda: hk.block_matvec_plain(A, x, coef)    # noqa: E731
+        y, yp = run(), plain()
+        torch.cuda.synchronize()
+        errs = [rel(y.cpu(), yp.cpu())]
+        abs_err = float((y - yp).abs().max())
+        ok = errs[0] <= tol[0]
+    else:
+        F = A[0].contiguous()
+        del A
+        run = lambda: hk.precond_dot(F, x)                   # noqa: E731
+        plain = lambda: hk.precond_dot_plain(F, x)           # noqa: E731
+        (z, rz), (zp, rzp) = run(), plain()
+        torch.cuda.synchronize()
+        errs = [rel(z.cpu(), zp.cpu()), rel(rz.cpu(), rzp.cpu())]
+        abs_err = float(max((z - zp).abs().max(), (rz - rzp).abs().max()))
+        ok = errs[0] <= tol[0] and errs[1] <= tol[1]
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    label = (f"{kind} G={G} K={K} N={N} B={B} "
+             f"{dt_name[mdt]} x {dt_name[vdt]}")
+    log(f"kernel {label}: max rel err {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(tol {tol[0]:.0e}{'/' + format(tol[1], '.0e') if len(errs) > 1 else ''}) "
+        f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
 def kernel_phase(hk, torch, dev):
     """Kernel vs plain on the card; returns the summary of the serving-shape
-    cases per kernel (f32 vectors, B=256: the main path's dtypes)."""
+    cases per kernel (f32 vectors, B=256: the main path's dtypes) and the
+    set of (kernel, G, K, N, B, matrix dtype, vector dtype) checked."""
     rng = np.random.default_rng(SEED)
-    dt_name = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
-    summary = {}
+    randn = lambda shape: torch.as_tensor(rng.standard_normal(shape), device=dev)  # noqa: E731
+    summary, checked = {}, set()
 
     def case(kind, G, K, N, B, mdt, vdt):
-        A = torch.as_tensor(rng.standard_normal((G, K, N, N)), device=dev).to(mdt)
-        x = torch.as_tensor(rng.standard_normal((B, K, N)), device=dev).to(vdt)
-        tol = TOL["f64" if vdt == torch.float64 else "f32"]
-        if kind == "block_matvec":
-            coef = (torch.as_tensor(rng.standard_normal((B, G)), device=dev).to(vdt)
-                    if G > 1 else None)
-            run = lambda: hk.block_matvec(A, x, coef)            # noqa: E731
-            plain = lambda: hk.block_matvec_plain(A, x, coef)    # noqa: E731
-            y, yp = run(), plain()
-            torch.cuda.synchronize()
-            errs = [rel(y.cpu(), yp.cpu())]
-            abs_err = float((y - yp).abs().max())
-            ok = errs[0] <= tol[0]
-        else:
-            F = A[0].contiguous()
-            run = lambda: hk.precond_dot(F, x)                   # noqa: E731
-            plain = lambda: hk.precond_dot_plain(F, x)           # noqa: E731
-            (z, rz), (zp, rzp) = run(), plain()
-            torch.cuda.synchronize()
-            errs = [rel(z.cpu(), zp.cpu()), rel(rz.cpu(), rzp.cpu())]
-            abs_err = float(max((z - zp).abs().max(), (rz - rzp).abs().max()))
-            ok = errs[0] <= tol[0] and errs[1] <= tol[1]
-        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        label = (f"{kind} G={G} K={K} N={N} B={B} "
-                 f"{dt_name[mdt]} x {dt_name[vdt]}")
-        log(f"kernel {label}: max rel err {', '.join(f'{e:.3e}' for e in errs)} "
-            f"(tol {tol[0]:.0e}{'/' + format(tol[1], '.0e') if len(errs) > 1 else ''}) "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not ok:
-            raise AssertionError(f"{label} disagrees with its plain version")
-        return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+        checked.add((kind, G, K, N, B, mdt, vdt))
+        return kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
 
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     for B in (1, 256):
@@ -140,7 +187,24 @@ def kernel_phase(hk, torch, dev):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
             case("precond_dot", 1, 4, 24, B, mdt, vdt)
-    return summary
+    return summary, checked
+
+
+def path_shape_phase(hk, torch, dev, launched, checked):
+    """Every kernel shape the main paths launched (``launched``: kernel ->
+    signatures from ``hk.launch_signatures()``) that the kernel phase did
+    not already check, against its plain version on the card (phase 8's
+    K=64, N=1536 blocks, the harvest's power-iteration lane, ...)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    randn = lambda shape: torch.randn(shape, generator=g, device=dev,  # noqa: E731
+                                      dtype=torch.float64)
+    todo = sorted({(kind, *sig) for kind, sigs in launched.items() for sig in sigs}
+                  - checked, key=str)
+    log(f"main-path kernel shapes not in the kernel phase: {len(todo)}")
+    for kind, G, K, N, B, mdt, vdt in todo:
+        kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
+        torch.cuda.empty_cache()
 
 
 def entry_phase(torch, dev):
@@ -200,7 +264,7 @@ def serving_phase(hk, torch, dev, smi):
     U1, ind1 = fn(thetas[0], theta_fs[0], mu0)
     Ub, indb = fn(thetas, theta_fs, mus_b)
     torch.cuda.synchronize()
-    launches = hk.launch_counts()
+    launches, shapes = hk.launch_counts(), hk.launch_signatures()
     log(f"serving main path (step build {t_build:.2f} s + 1 single + 1 batched "
         f"B={B_SERVE} call): kernel launches {launches}")
 
@@ -230,28 +294,169 @@ def serving_phase(hk, torch, dev, smi):
 
     # ---- measurements (launches here are not counted in the summary)
     torch.cuda.reset_peak_memory_stats(dev)
-    per_query = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, ib = fn(thetas, theta_fs, mus_b)
-        torch.cuda.synchronize()
-        per_query.append((time.perf_counter() - t0) / B_SERVE)
+    per_query = timed_median(torch, lambda: fn(thetas, theta_fs, mus_b)) / B_SERVE
     peak = torch.cuda.max_memory_allocated(dev)
-    single = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(thetas[0], theta_fs[0], mu0)
-        torch.cuda.synchronize()
-        single.append(time.perf_counter() - t0)
+    single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
     it_b = fn.iters_probe(thetas, theta_fs)
     it_1 = fn.iters_probe(thetas[0], theta_fs[0])
-    log(f"serving per-query {np.median(per_query) * 1e3:.4f} ms (median of 5 batched "
-        f"B={B_SERVE} calls), single-query {np.median(single) * 1e3:.3f} ms (median of 5); "
+    log(f"serving per-query {per_query * 1e3:.4f} ms (median of 5 batched "
+        f"B={B_SERVE} calls), single-query {single * 1e3:.3f} ms (median of 5); "
         f"PCG iterations {it_b} (batched, lock-step max) / {it_1} (single); "
         f"peak device memory {peak / 2**20:.1f} MiB [{smi}]")
-    return launches
+    ref = {"d": d, "U1": U1_np, "Ub": Ub_np, "iters": (it_b, it_1),
+           "args": (thetas, theta_fs, mus_b, mu0)}
+    return (launches, shapes), ref
+
+
+def stencil_apply_phase(torch, dev, d_serving):
+    """The stencil apply against the block operator's apply on the card."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+
+    d_entry, _ = discretize(init_grid_and_problem(ENTRY), device=dev, dtype=torch.float64)
+    rng = np.random.default_rng(SEED)
+    for name, d, tol in (("entry f64", d_entry, 1e-12), ("serving f32", d_serving, 1e-5)):
+        mu = d.parse_parameter(0.5)
+        A = d.mf_operator().assemble(d.theta(mu))
+        Ab = d.assemble(mu)
+        K, N = d.space.K, d.space.N
+        for lanes in ((), (4,)):
+            x = torch.as_tensor(rng.standard_normal(lanes + (K, N)), dtype=d.dtype, device=dev)
+            err = rel(A.apply(x).double().cpu(), Ab.apply(x).double().cpu())
+            log(f"stencil apply {name} x{lanes or (1,)} vs block apply: rel err {err:.3e} "
+                f"(tol {tol:.0e}) {'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                raise AssertionError(f"stencil apply ({name}) disagrees with the block apply")
+
+
+def top_device_ops(torch, fn, n=10):
+    """Device activity of one call of ``fn`` (torch.profiler): the ``n``
+    device ops (kernels, copies) with the most time, as (name, ms, count);
+    their total ms; and the ms CUPTI reports as "Command Buffer Full" (the
+    host blocked on a full launch queue), which is not device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def self_dev(e):
+        v = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0.0) if v is None else v
+
+    blocked = "Command Buffer Full"
+    dev_evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    full = sum(self_dev(e) for e in dev_evs if e.key == blocked) / 1e3
+    evs = sorted((e for e in dev_evs if e.key != blocked), key=self_dev, reverse=True)
+    total = sum(self_dev(e) for e in evs) / 1e3
+    return [(e.key, self_dev(e) / 1e3, e.count) for e in evs[:n]], total, full
+
+
+def stencil_step_phase(hk, torch, dev, smi, ref):
+    """The reference's default online step at the serving config (the
+    stencil form), against the affine step of phase 5."""
+    from pylrbms_tpu_torch.model import make_online_step
+
+    d = ref["d"]
+    thetas, theta_fs, mus_b, mu0 = ref["args"]
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn = make_online_step(d, tol=1e-6, maxiter=400, coarse_space="harvested", coarse_modes=12)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    U1, ind1 = fn(thetas[0], theta_fs[0], mu0)
+    Ub, indb = fn(thetas, theta_fs, mus_b)
+    torch.cuda.synchronize()
+    launches, shapes = hk.launch_counts(), hk.launch_signatures()
+    log(f"stencil step main path (step build {t_build:.2f} s + 1 single + 1 batched "
+        f"B={B_SERVE} call): 'stencils' in step.arrays: {'stencils' in fn.arrays}; "
+        f"kernel launches {launches}")
+    if "stencils" not in fn.arrays:
+        raise AssertionError("make_online_step did not resolve to the stencil form")
+    if launches["precond_dot"] <= 0:
+        raise AssertionError("precond_dot was not launched on the stencil path")
+    ind_np = np.concatenate([ind1.double().cpu().numpy()[None], indb.double().cpu().numpy()])
+    if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
+        raise AssertionError("stencil step indicators not finite and non-negative")
+    e1 = rel(U1.double().cpu().numpy(), ref["U1"])
+    eb = rel(Ub.double().cpu().numpy(), ref["Ub"])
+    for name, err in (("single query", e1), (f"B={B_SERVE} lanes", eb)):
+        log(f"stencil step {name} U vs affine step U: rel err {err:.3e} (tol 1e-03) "
+            f"{'ok' if err <= 1e-3 else 'FAIL'}")
+        if not err <= 1e-3:
+            raise AssertionError(f"stencil step ({name}) off the affine step")
+
+    batched = lambda: fn(thetas, theta_fs, mus_b)       # noqa: E731
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_query = timed_median(torch, batched) / B_SERVE
+    peak = torch.cuda.max_memory_allocated(dev)
+    single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
+    it_b = fn.iters_probe(thetas, theta_fs)
+    it_1 = fn.iters_probe(thetas[0], theta_fs[0])
+    log(f"stencil step per-query {per_query * 1e3:.4f} ms (median of 5 batched B={B_SERVE} "
+        f"calls), single-query {single * 1e3:.3f} ms (median of 5); PCG iterations "
+        f"{it_b} / {it_1} (batched / single; affine step {ref['iters'][0]} / "
+        f"{ref['iters'][1]}); peak device memory {peak / 2**20:.1f} MiB [{smi}]")
+    t0 = time.perf_counter()
+    ops, total, full = top_device_ops(torch, batched)
+    log(f"stencil step profile, one batched B={B_SERVE} call: wall "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (profiled), device time {total:.2f} ms, "
+        f"'Command Buffer Full' {full:.2f} ms; top 10 device ops [{smi}]:")
+    for name, ms, count in ops:
+        log(f"  {ms:10.3f} ms  {count:6d}x  {name[:90]}")
+    return launches, shapes
+
+
+def scale_solve_phase(hk, torch, dev, smi):
+    """``StationaryBlockModel.solve`` above 32 768 dofs: 'auto' takes the
+    matrix-free two-level PCG; then the same solve with ``mixed=True``."""
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+
+    t0 = time.perf_counter()
+    d, _ = discretize(init_grid_and_problem(SCALE), device=dev, dtype=torch.float64, lean=True)
+    torch.cuda.synchronize()
+    dofs = d.space.K * d.space.N
+    log(f"scale config: K={d.space.K} N={d.space.N} dofs={dofs}; discretize "
+        f"{time.perf_counter() - t0:.2f} s")
+    mu = d.parse_parameter(0.5)
+    t0 = time.perf_counter()
+    u_ref = spla.splu(to_scipy_csr(d.assemble(mu)).tocsc()).solve(
+        d.rhs(mu).double().cpu().numpy().reshape(-1))
+    log(f"scale config scipy splu (f64, host): {time.perf_counter() - t0:.2f} s")
+
+    hk.reset_launch_counts()
+    opts = {"precision": 1e-10}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d.prepare_solver(mu, inverse_options=opts)           # the frozen preconditioner
+    torch.cuda.synchronize()
+    log(f"scale prepare_solver (block factors + harvested coarse space, frozen at "
+        f"mu=0.5): {time.perf_counter() - t0:.2f} s")
+    results = {False: [], True: []}
+    for mixed in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U = d.solve(mu, inverse_options=dict(opts, mixed=mixed))   # SolverError if the post-check fails
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        if d.last_solve_iters is None:
+            raise AssertionError("solve 'auto' did not take the mf_pcg path")
+        err = rel(U.double().cpu().numpy().reshape(-1), u_ref)
+        results[mixed].append((t_solve, int(d.last_solve_iters), err))
+    launches, shapes = hk.launch_counts(), hk.launch_signatures()
+    log(f"scale solve main path (prepare_solver + 4 solves): kernel launches {launches}")
+    for mixed, runs in results.items():
+        label = "mixed=True" if mixed else "mf_pcg f64"
+        err = max(r[2] for r in runs)
+        log(f"scale solve {label}: {', '.join(f'{r[0]:.3f}' for r in runs)} s (turns "
+            f"f64, mixed, mixed, f64), {runs[0][1]} iterations, post-check passed; U vs "
+            f"scipy splu rel err {err:.3e} (tol 1e-06) {'ok' if err <= 1e-6 else 'FAIL'} [{smi}]")
+        if not err <= 1e-6:
+            raise AssertionError(f"scale solve ({label}) off the sparse LU solution")
+    return launches, shapes
 
 
 def main() -> int:
@@ -281,9 +486,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-        summary = kernel_phase(hk, torch, dev)
+        summary, checked = kernel_phase(hk, torch, dev)
         entry_phase(torch, dev)
-        launches = serving_phase(hk, torch, dev, smi)
+        paths = {}
+        paths["serving affine"], ref = serving_phase(hk, torch, dev, smi)
+        stencil_apply_phase(torch, dev, ref["d"])
+        paths["stencil step"] = stencil_step_phase(hk, torch, dev, smi, ref)
+        del ref
+        paths["scale solve"] = scale_solve_phase(hk, torch, dev, smi)
+        launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
+        log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
+        launched = {k: set().union(*(p[1][k] for p in paths.values())) for k in summary}
+        path_shape_phase(hk, torch, dev, launched, checked)
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
                     "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}

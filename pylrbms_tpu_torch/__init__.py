@@ -2,8 +2,9 @@
 
 The JAX package stays the reference; this package mirrors its module layout
 for the ported slice (the OS2015 2D tri P1 block-SWIPDG online step:
-discretize -> ``make_online_step`` -> single or batched queries) and runs on
-an NVIDIA H100 with two hand-written CUDA kernels
+discretize -> ``make_online_step`` -> single or batched queries, and the
+detailed solve, with the matrix-free stencil operator at scale) and runs
+on an NVIDIA H100 with two hand-written CUDA kernels
 (:mod:`pylrbms_tpu_torch.ops.hopper_kernels`).
 
 Rules of the package: it imports ``torch`` and never ``jax``; it reuses the

@@ -3,8 +3,12 @@
 :func:`arrays_from_numpy` turns the reference online step's tensors
 (``step.arrays`` of ``pylrbms_tpu.model.make_online_step``, each taken as
 ``np.asarray`` by the caller) into torch tensors on a given device and
-dtype, so that both implementations can be fed identical state.  This
-module imports no jax: the caller hands it numpy.
+dtype, :func:`stencils_from_numpy` its affine stencils
+(``step.arrays["stencils"]``, or a stencil operator's ``.stencils``) and
+:func:`precond_from_numpy` the frozen preconditioner ``(bf, C, ci)`` of the
+reference's matrix-free model solve, so that both implementations can be fed
+identical state.  This module imports no jax: array leaves are read with
+``np.asarray``.
 """
 from __future__ import annotations
 
@@ -12,16 +16,37 @@ import numpy as np
 import torch
 
 
+def _tensor(a, device, dtype) -> torch.Tensor:
+    """One array -> tensor in ``dtype``; ``ml_dtypes`` bfloat16 stays bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.tensor(a).to(dtype).to(device)
+
+
 def arrays_from_numpy(d: dict, device=None, dtype=torch.float64) -> dict:
     """{name: float numpy array} -> {name: tensor} in ``dtype``, except
     bfloat16 arrays (``ml_dtypes`` bfloat16, e.g. bf16-stored block-Jacobi
     factors), which stay bfloat16."""
-    out = {}
-    for name, a in d.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.tensor(a).to(dtype)
-        out[name] = t.to(device)
-    return out
+    return {name: _tensor(a, device, dtype) for name, a in d.items()}
+
+
+def stencils_from_numpy(stencils, device=None, dtype=torch.float64) -> tuple:
+    """A sequence of stencils (objects with the ``SwipdgStencil`` fields
+    vol, D, V, H, R, U — tuples of 4 arrays — and the D_side dict) ->
+    a tuple of the port's :class:`~pylrbms_tpu_torch.ops.matrixfree.SwipdgStencil`."""
+    from .ops.matrixfree import SwipdgStencil
+
+    def conv(a):
+        return _tensor(a, device, dtype)
+
+    return tuple(SwipdgStencil(
+        vol=conv(s.vol),
+        **{f: tuple(conv(a) for a in getattr(s, f)) for f in ("D", "V", "H", "R", "U")},
+        D_side={k: conv(a) for k, a in s.D_side.items()}) for s in stencils)
+
+
+def precond_from_numpy(pre, device=None, dtype=torch.float64) -> tuple:
+    """The frozen matrix-free preconditioner ``(block factors, coarse basis,
+    coarse inverse)`` -> tensors; None entries (one-level) stay None."""
+    return tuple(None if a is None else _tensor(a, device, dtype) for a in pre)

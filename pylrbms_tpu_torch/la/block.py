@@ -477,3 +477,7 @@ def unblock(x):
     """[..., K, N] -> [..., K*N]."""
     return x.reshape(x.shape[:-2] + (-1,))
 
+
+def reblock(x, K: int, N: int):
+    """[..., K*N] -> [..., K, N]."""
+    return x.reshape(x.shape[:-1] + (K, N))

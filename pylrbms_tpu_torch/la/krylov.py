@@ -20,7 +20,8 @@ def default_chunk(device) -> int:
     return 16 if torch.device(device).type == "cuda" else 1
 
 
-def _dot(u, v):
+def lane_dot(u, v):
+    """Per-lane dot product of [..., K, N] tensors -> [...]."""
     return (u * v).sum(dim=(-2, -1))
 
 
@@ -31,7 +32,7 @@ def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None):
     ``||r||_2 <= tol * ||b||_2`` on the recurrence residual, or ``maxiter``."""
     if chunk is None:
         chunk = default_chunk(b.device)
-    atol2 = (tol ** 2) * torch.clamp(_dot(b, b), min=torch.finfo(b.dtype).tiny)
+    atol2 = (tol ** 2) * torch.clamp(lane_dot(b, b), min=torch.finfo(b.dtype).tiny)
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
     r = b - matvec(x)
     z, rz = M(r)
@@ -39,13 +40,13 @@ def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None):
     it = torch.zeros(b.shape[:-2], dtype=torch.int64, device=b.device)
 
     def active():
-        return (_dot(r, r) > atol2) & (it < maxiter)
+        return (lane_dot(r, r) > atol2) & (it < maxiter)
 
     while bool(active().any()):
         for _ in range(chunk):
             act = active()
             Ap = matvec(p)
-            alpha = rz / _dot(p, Ap)
+            alpha = rz / lane_dot(p, Ap)
             xn = x + alpha[..., None, None] * p
             rn = r - alpha[..., None, None] * Ap
             zn, rzn = M(rn)

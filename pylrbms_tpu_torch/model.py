@@ -1,16 +1,23 @@
 """Stationary block model and the online step.
 
-The port of the main-path part of ``pylrbms_tpu/model.py``: the
-:class:`StationaryBlockModel` container (theta, rhs, assemble, dense/PCG
-solve, estimate) and :func:`make_online_step`, the LRBMS online step
+The port of the 2D part of ``pylrbms_tpu/model.py``: the
+:class:`StationaryBlockModel` container (theta, rhs, assemble, the detailed
+solve — dense, block-Jacobi PCG, or the matrix-free two-level stencil PCG
+at scale — with its post-checks, caching and frozen preconditioner,
+estimate) and :func:`make_online_step`, the LRBMS online step
 ``(theta, theta_f, mu) -> (U, indicators)`` for one query or for B queries
 in one call (``vmap`` becomes an explicit leading lane axis).
 """
 from __future__ import annotations
 
+import dataclasses
+import logging
+import math
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from pylrbms_tpu.config import validate_solver_options
@@ -18,13 +25,64 @@ from pylrbms_tpu.config import validate_solver_options
 from .utils.precision import pin_precision
 from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
                        geneo_coarse_basis, harvested_coarse_basis, neumann_blocks,
-                       prepare_coarse, unblock)
+                       prepare_coarse, reblock, unblock)
+from .ops.matrixfree import StencilOperator, assemble_swipdg_stencil, cast
+from .ops.ir import diag_of_blocks, solve_ir
+from .ops.fluxreco import FluxReconstructor
 from .parameters import (CubicParameterSpace, evaluate_coefficients,
                          parse_parameter)
 from .estimators import EllipticEstimator
 
-_STENCIL_TODO = ("the matrix-free stencil operator (ops/matrixfree.py) is not "
-                 "ported yet (ROADMAP slice 1 item 8)")
+# dof counts from which the reference takes the stencil operator: in the
+# online step (matrix_free=None) and in solve's 'auto' (mf_pcg)
+STENCIL_STEP_MIN_DOFS = 16384
+MF_SOLVE_MIN_DOFS = 32768
+
+
+class SolverError(RuntimeError):
+    """Raised when the solver post-check fails (<-> ISTL
+    ``post_check_solves_system``)."""
+
+
+class OperatorDictView:
+    """Read-only dict facade over the named per-subdomain operators (the
+    reference's ``d.operators['local_energy_dg_product_{ii}']`` etc.)."""
+
+    def __init__(self, model: "StationaryBlockModel"):
+        self._m = model
+
+    def _lookup(self, key: str):
+        m = self._m
+        ed = m.estimator.data if m.estimator else None
+        name, _, idx = key.rpartition("_")
+        if idx.isdigit():
+            ii = int(idx)
+            table = {
+                "local_energy_dg_product": lambda: m.products["energy_mu_bar"][ii],
+                "nc": lambda: ed.E_bar[ii],
+                "r_dd": lambda: ed.R_dd[ii],
+                "r_fd": lambda: ed.d_vec[:, ii],
+                "df_bb": lambda: ed.BB[ii],
+                "df_aa": lambda: ed.M_aa[:, :, ii],
+                "df_ab": lambda: ed.M_ab[:, ii],
+                "r_l2": lambda: m.products["l2"][ii],
+                "r_ud": lambda: torch.einsum("nm,mr->nr", m.products["l2"][ii], ed.A_div),
+            }
+            if name in table:
+                return table[name]()
+        if key in m.products:
+            return m.products[key]
+        raise KeyError(key)
+
+    def __getitem__(self, key):
+        return self._lookup(key)
+
+    def __contains__(self, key):
+        try:
+            self._lookup(key)
+            return True
+        except KeyError:
+            return False
 
 
 @dataclass
@@ -44,6 +102,30 @@ class StationaryBlockModel:
     dtype: torch.dtype = torch.float64
     device: torch.device = torch.device("cpu")
     name: str = "StationaryBlockModel"
+    # Krylov count of the last matrix-free solve (None after other solves)
+    last_solve_iters: Optional[torch.Tensor] = field(default=None, init=False, repr=False)
+    _solution_cache: Optional[dict] = field(default=None, init=False, repr=False)
+    # the stencil operator and the frozen preconditioners of _mf_solve,
+    # built once under _mf_lock (prepare_solver may race a foreground solve)
+    _mf_sop: Optional[StencilOperator] = field(default=None, init=False, repr=False)
+    _mf_cache: dict = field(default_factory=dict, init=False, repr=False)
+    _mf_lock: threading.Lock = field(default_factory=threading.Lock, init=False,
+                                     repr=False, compare=False)
+
+    @property
+    def operators(self) -> OperatorDictView:
+        """String-keyed view of the named per-subdomain operators."""
+        return OperatorDictView(self)
+
+    def enable_caching(self, region: str = "memory"):
+        """Memoize ``solve`` by parameter and effective solver options
+        (opt-in; the reference disables pyMOR caching)."""
+        self._solution_cache = {}
+        return self
+
+    def disable_caching(self):
+        self._solution_cache = None
+        return self
 
     def parse_parameter(self, mu):
         return parse_parameter(self.parameter_type, mu)
@@ -61,26 +143,226 @@ class StationaryBlockModel:
     def assemble(self, mu) -> AssembledBlockOp:
         return self.op.assemble(self.theta(mu))
 
-    def solve(self, mu, inverse_options=None):
-        """Detailed solve: 'dense' (global LU) or 'pcg' (block-Jacobi PCG);
-        'auto' is dense up to 6144 dofs and PCG up to 32768 (above that the
-        reference switches to the stencil operator, not ported yet)."""
-        options = validate_solver_options(inverse_options, "inverse_options") \
-            or self.solver_options or {}
-        mu = self.parse_parameter(mu)
-        n = self.space.K * self.space.N
+    def _solver_kind(self, options) -> str:
+        """The solver type, with 'auto' resolved to 'mf_pcg' above
+        :data:`MF_SOLVE_MIN_DOFS` (the other 'auto' sizes are left to
+        :meth:`AssembledBlockOp.solve`)."""
         kind = options.get("type", "auto")
-        if kind == "mf_pcg" or (kind == "auto" and n > 32768):
-            raise NotImplementedError(_STENCIL_TODO)
-        return self.assemble(mu).solve(self.rhs(mu), options)
+        if (kind == "auto" and self.space.K * self.space.N > MF_SOLVE_MIN_DOFS
+                and self.estimator is not None
+                and getattr(self.estimator.data, "lambda_funcs", None)):
+            return "mf_pcg"
+        return kind
+
+    def prepare_solver(self, mu=None, inverse_options=None, background=False):
+        """Build the frozen matrix-free preconditioner ahead of the first
+        solve, frozen at ``mu`` (default mu_bar).  No-op (None) for options
+        that do not take the matrix-free path.  ``background=True`` runs it
+        in a daemon thread and returns the thread (join before relying on
+        the freeze point)."""
+        options = dict(validate_solver_options(inverse_options, "inverse_options")
+                       or self.solver_options or {})
+        if self._solver_kind(options) != "mf_pcg":
+            return None
+        if mu is None:
+            mu = (self.estimator.data.mu_bar or {}) if self.estimator else {}
+        theta = self.theta(self.parse_parameter(mu))
+        # a zero rhs exits the Krylov loop at once but builds the freeze
+        b0 = torch.zeros((self.space.K, self.space.N), dtype=self.rhs_q.dtype,
+                         device=self.device)
+
+        def work():
+            try:
+                self._mf_solve(theta, b0, options)
+            except Exception:       # noqa: BLE001 — the prefetch is best-effort
+                logging.getLogger(__name__).exception("solver prefetch failed")
+
+        if background:
+            t = threading.Thread(target=work, daemon=True, name="solver-prefetch")
+            t.start()
+            return t
+        work()
+        return None
+
+    def solve(self, mu, inverse_options=None):
+        """Detailed solve: 'dense', 'pcg' (block-Jacobi PCG), 'mf_pcg'
+        (matrix-free two-level stencil PCG, :meth:`_mf_solve`); 'auto' is
+        dense up to 6144 dofs, PCG up to 32768 and mf_pcg above.
+
+        An mf_pcg solve is checked by default: a relative residual above
+        max(1e3 * precision, 1e-6) raises :class:`SolverError` (opt out
+        with ``post_check=False``).  ``post_check_solves_system`` checks the
+        relative residual against the assembled operator and retries once
+        with the dense LU solve (``fallback=False``: raise only)."""
+        options = (validate_solver_options(inverse_options, "inverse_options")
+                   or self.solver_options or {})
+        mu = self.parse_parameter(mu)
+        cache = self._solution_cache
+        key = None
+        if cache is not None:
+            # keyed by the effective options: a 1e-8 snapshot solve must not
+            # be served to a later 1e-10 request
+            key = (tuple(sorted((k, tuple(torch.as_tensor(v).reshape(-1).tolist()))
+                                for k, v in mu.items())),
+                   tuple(sorted((k, repr(v)) for k, v in options.items())))
+            if key in cache:
+                self.last_solve_iters = None
+                return cache[key]
+        b = self.rhs(mu)
+        A = None                 # the dense-block operator, only if needed
+        if self._solver_kind(options) == "mf_pcg":
+            theta = self.theta(mu)
+            U, it = self._mf_solve(theta, b, options)
+            self.last_solve_iters = it
+            if (options.get("post_check", True)
+                    and options.get("post_check_solves_system") is None):
+                # divergence guard: a PCG that ran out of iterations or broke
+                # down must not return silently (a loose gate, not accuracy)
+                tol_eff = float(options.get("precision", 1e-10))
+                gate = max(1e3 * tol_eff, 1e-6)
+                r = self.mf_operator().assemble(theta).apply(U) - b
+                rel = float(torch.sqrt(torch.sum(r * r)
+                                       / torch.clamp(torch.sum(b * b), min=1e-300)))
+                if not math.isfinite(rel) or rel > gate:
+                    raise SolverError(
+                        f"mf solve diverged or stalled: |r|/|b| = {rel:.3e} > "
+                        f"{gate:.1e} (requested precision {tol_eff:.1e}; iteration "
+                        f"budget exhausted or preconditioner breakdown)")
+        else:
+            A = self.assemble(mu)
+            U = A.solve(b, options)
+            self.last_solve_iters = None
+
+        check = options.get("post_check_solves_system")
+        if check is not None:
+            if A is None:
+                A = self.assemble(mu)
+
+            def relres(U_):
+                r = torch.linalg.norm((b - A.apply(U_)).reshape(-1))
+                return float(r) / max(float(torch.linalg.norm(b.reshape(-1))), 1e-300)
+
+            rel = relres(U)
+            if not (math.isfinite(rel) and rel <= check) and options.get("fallback", True):
+                U = A.solve_dense(b)
+                rel = relres(U)
+            if not (math.isfinite(rel) and rel <= check):
+                raise SolverError(f"solver post-check failed: |r|/|b| = {rel:.3e} "
+                                  f"> {check:.1e}")
+        if cache is not None:
+            cache[key] = U
+        return U
+
+    def operator_apply(self, U, mu):
+        return self.assemble(mu).apply(U)
+
+    def mf_operator(self) -> StencilOperator:
+        """The affine stencil operator of this model (assembled once)."""
+        if self._mf_sop is None:
+            with self._mf_lock:
+                if self._mf_sop is None:
+                    dtype = self.op.A_diag.dtype
+                    self._mf_sop = StencilOperator(self.space, tuple(
+                        assemble_swipdg_stencil(self.space, lf, None, dtype=dtype,
+                                                device=self.device)
+                        for lf in self.estimator.data.lambda_funcs))
+        return self._mf_sop
+
+    def _mf_solve(self, theta, b, options):
+        """Matrix-free two-level PCG: stencil apply, f32-applied subdomain
+        block-Jacobi (:func:`precond_dot`) and a coarse level ('harvested'
+        by default, 16 modes, applied in f32).  The preconditioner is built
+        once, at the FIRST theta seen (the cache key has no theta), and
+        reused for every later mu.  ``mixed=True`` runs the f32 iterative
+        refinement of ``ops/ir.solve_ir`` instead (off unless asked for).
+        Returns (U, iterations)."""
+        sop = self.mf_operator()
+        tol = float(options.get("precision", 1e-10))
+        maxiter = int(options.get("max_iter", 2000))
+        two_level = bool(options.get("two_level", True))
+        coarse_modes = int(options.get("coarse_modes", 16))
+        coarse_space = options.get("coarse_space", "harvested")
+        pkey = ("precond", two_level, coarse_space, coarse_modes)
+        with self._mf_lock:
+            pre = self._mf_cache.get(pkey)
+            if pre is None:
+                pre = self._mf_cache[pkey] = _frozen_preconditioner(
+                    self, theta, two_level, coarse_space, coarse_modes)
+        bf, C, ci = pre
+        A = sop.assemble(theta)
+        if not options.get("mixed", False):
+            return A.solve_pcg(b, tol=tol, maxiter=maxiter, block_factors=bf,
+                               coarse_inv=ci, coarse_basis=C, return_iters=True,
+                               coarse_f32=True)
+        with self._mf_lock:
+            if "sop32" not in self._mf_cache:
+                self._mf_cache["sop32"] = cast(sop, torch.float32)
+                self._mf_cache["diag_q"] = diag_of_blocks(self.op.A_diag)
+        A32 = self._mf_cache["sop32"].assemble(theta.to(torch.float32))
+        dvec = torch.einsum("q,qkn->kn", theta, self._mf_cache["diag_q"])
+        x, it32, _, it64 = solve_ir(
+            A, A32, b, dvec, tol=tol, maxiter=maxiter, block_factors=bf,
+            coarse_inv=ci, coarse_basis=C,
+            inner_tol=float(options.get("mixed_inner_tol", 1e-4)),
+            inner_maxiter=int(options.get("mixed_inner_maxiter", 300)),
+            max_rounds=int(options.get("mixed_rounds", 20)), return_info=True)
+        return x, it32 + it64
 
     def estimate(self, U, mu, decompose: bool = False, paper_convention: bool = False):
         mu = self.parse_parameter(mu)
         return self.estimator.estimate(U, mu, decompose=decompose,
                                        paper_convention=paper_convention)
 
+    def l2_solve(self, V):
+        """Apply the inverse of the block-diagonal L2 product to V [..., K, N]."""
+        return torch.linalg.solve(self.products["l2"], V.unsqueeze(-1)).squeeze(-1)
+
+    @property
+    def l2_product(self):
+        return self.products["l2"]
+
     def unblock(self, U):
         return unblock(U)
+
+    def reblock(self, u):
+        return reblock(u, self.space.K, self.space.N)
+
+    @property
+    def solution_shape(self):
+        return (self.space.K, self.space.N)
+
+    def shape_functions(self, subdomain: int, order: int = 0):
+        """Initial local RB functions [n_vec, N]: order 0 = the constant,
+        order 1 adds the nodal interpolants of x, y, x*y."""
+        if order not in (0, 1):
+            raise ValueError(f"order must be 0 or 1, got {order}")
+        sp = self.space
+        vecs = [np.ones(sp.N)]
+        if order == 1:
+            xn = sp.node_coords_phys()[subdomain].reshape(sp.N, 2)
+            vecs += [xn[:, 0], xn[:, 1], xn[:, 0] * xn[:, 1]]
+        return torch.as_tensor(np.stack(vecs), dtype=self.dtype, device=self.device)
+
+
+def _frozen_preconditioner(d, theta, two_level, coarse_space, coarse_modes,
+                           factors=True):
+    """The preconditioner frozen at ``theta``: the block-Jacobi factors of
+    A(theta) (None with ``factors=False``, unless the harvest needs them)
+    and, with ``two_level``, the conditioned coarse basis and its inverse
+    (``coarse_space`` 'modal' | 'geneo' | 'harvested', ``coarse_modes``
+    columns; None otherwise).  Returns ``(bf, C, ci)``."""
+    A = d.op.assemble(theta)
+    harvested = two_level and coarse_space == "harvested"
+    bf = A.block_jacobi_factors() if factors or harvested else None
+    if not two_level:
+        return bf, None, None
+    if harvested:
+        C_np = harvested_coarse_basis(A, bf, d.space, n_harvest=coarse_modes, extra_modal=3)
+    elif coarse_space == "geneo":
+        C_np = geneo_coarse_basis(neumann_blocks(d, theta), d.products["l2"], coarse_modes)
+    else:
+        C_np = AssembledBlockOp.coarse_modes_basis(d.space, coarse_modes)
+    return (bf,) + prepare_coarse(A, C_np)
 
 
 def _resolve_theta_bar(d):
@@ -95,11 +377,25 @@ def _resolve_theta_bar(d):
         return torch.ones((d.op.A_diag.shape[0],), dtype=d.dtype, device=d.device)
 
 
+def _wide_estimator(est, dtype):
+    """The estimator with its tensors and flux reconstruction in ``dtype``
+    (the certified step's wide-precision indicators)."""
+    ed = est.data
+    fl = ed.flux
+    wide = {f.name: getattr(ed, f.name).to(dtype) for f in dataclasses.fields(ed)
+            if isinstance(getattr(ed, f.name), torch.Tensor)}
+    wide["flux"] = FluxReconstructor(fl.space, fl.kappa_fn, fl.ipdg, dtype=dtype,
+                                     device=fl.device)
+    return EllipticEstimator(dataclasses.replace(ed, **wide),
+                             est.alpha_first_component_only)
+
+
 def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
                      maxiter: int = 400, with_estimate: bool = True,
                      positive_form: bool = True,
                      fixed_preconditioner: bool = True,
-                     matrix_free=None, two_level: bool = True,
+                     matrix_free=None, certify: bool = False,
+                     refinements: int = 2, two_level: bool = True,
                      coarse_modes: int = 6, coarse_space: str = "modal",
                      jacobi_storage: str = None):
     """Online step ``(theta, theta_f, mu) -> (U[, indicators])`` on the
@@ -109,11 +405,16 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     Batched: theta [B, Q], theta_f [B, Qf], mu leaves [B, ...] — one call,
     the same per-lane results as single queries.
 
-    ``matrix_free``: False (theta-assembled diagonal blocks) or 'affine'
+    ``matrix_free``: True (the stencil operator, ``ops/matrixfree.py``),
+    False (theta-assembled diagonal blocks) or 'affine'
     (:class:`~pylrbms_tpu_torch.la.block.AffineBlockApply`: the affine
-    stacks stream once per CG iteration for all lanes — the batched-serving
-    form).  None resolves as in the reference: the stencil operator at
-    >= 16384 dofs (not ported yet: raises), else False.
+    stacks stream once per CG iteration for all lanes).  None resolves as in
+    the reference: the stencil at >= 16384 dofs, else False.
+
+    ``certify`` (for f32 models): U is polished by ``refinements`` rounds
+    of mixed-precision refinement (residual in f64 with the step's
+    operator, correction solved in the model dtype) and the indicators are
+    evaluated on the f64 U (returned in f64).  A no-op for f64 models.
 
     ``fixed_preconditioner``: block-Jacobi factors frozen at mu_bar.
     ``two_level`` with ``coarse_space`` 'modal' | 'geneo' | 'harvested'
@@ -122,9 +423,11 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     or 'native'.
 
     The step carries ``step.arrays`` (the tensors it reads at every call,
-    keyed as the reference's ``step.arrays``) and ``step.iters_probe``.
-    Lane-batched calls share one solve when ``matrix_free='affine'`` and the
-    preconditioner is fixed; the other forms answer the lanes one by one.
+    keyed as the reference's ``step.arrays``; ``"stencils"`` holds the
+    affine stencils of the stencil form) and ``step.iters_probe``.
+    Lane-batched calls share one solve for the stencil form and for the
+    affine form with a fixed preconditioner; the other forms answer the
+    lanes one by one.
     """
     pin_precision()
     st = d.op.static
@@ -133,73 +436,85 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
               "C_R_oi": d.op.C_R_oi, "C_U_io": d.op.C_U_io,
               "C_U_oi": d.op.C_U_oi, "rhs_q": d.rhs_q}
     if matrix_free is None:
-        matrix_free = (d.space.K * d.space.N >= 16384
+        matrix_free = (d.space.K * d.space.N >= STENCIL_STEP_MIN_DOFS
                        and d.estimator is not None
                        and getattr(d.estimator.data, "lambda_funcs", None) is not None)
+    if matrix_free not in (False, True, "affine"):
+        raise ValueError(f"matrix_free must be True, False, 'affine' or None, "
+                         f"got {matrix_free!r}")
     if matrix_free is True:
-        raise NotImplementedError(_STENCIL_TODO)
-    if matrix_free not in (False, "affine"):
-        raise ValueError(f"matrix_free must be False, 'affine' or None, got {matrix_free!r}")
+        arrays["stencils"] = d.mf_operator().stencils
     if jacobi_storage is None:
         jacobi_storage = "bf16" if dev.type == "cuda" else "native"
     if jacobi_storage not in ("bf16", "native"):
         raise ValueError(f"jacobi_storage must be 'bf16' or 'native', got {jacobi_storage!r}")
-    theta_bar = _resolve_theta_bar(d)
-    A_bar = d.op.assemble(theta_bar)
-    Minv = None
-    if fixed_preconditioner or (two_level and coarse_space == "harvested"):
-        Minv = A_bar.block_jacobi_factors()
+    Minv, C, Cinv = _frozen_preconditioner(
+        d, _resolve_theta_bar(d), two_level and d.space.K > 1, coarse_space,
+        coarse_modes, factors=fixed_preconditioner)
     if fixed_preconditioner:
         arrays["Minv_bar"] = Minv.to(torch.bfloat16) if jacobi_storage == "bf16" else Minv
-    if two_level and d.space.K > 1:
-        if coarse_space == "geneo":
-            C_np = geneo_coarse_basis(neumann_blocks(d, theta_bar),
-                                      d.products["l2"], coarse_modes)
-        elif coarse_space == "harvested":
-            C_np = harvested_coarse_basis(A_bar, Minv, d.space,
-                                          n_harvest=coarse_modes, extra_modal=3)
-        else:
-            C_np = AssembledBlockOp.coarse_modes_basis(d.space, coarse_modes)
-        arrays["C_coarse"], arrays["Cinv_bar"] = prepare_coarse(A_bar, C_np)
+    if C is not None:
+        arrays["C_coarse"], arrays["Cinv_bar"] = C, Cinv
     est = d.estimator
     with_estimate = with_estimate and est is not None
+    est_keys = ()
     if with_estimate:
         ed = est.data
         arrays["E_bar"] = ed.E_bar
+        est_keys = ("E_bar",)
         if not positive_form:
             arrays.update(BB=ed.BB, M_aa=ed.M_aa, M_ab=ed.M_ab,
                           d_vec=ed.d_vec, R_dd=ed.R_dd, L2=ed.L2)
+            est_keys += ("BB", "M_aa", "M_ab", "d_vec", "R_dd", "L2")
+    wide = torch.float64
+    certify = certify and d.dtype != wide
+    est_w = _wide_estimator(est, wide) if certify and with_estimate else est
 
-    def _operator(theta):
+    def _solver(theta):
+        """(operator at theta, solve(rhs, **kw)) of the configured form."""
+        if matrix_free is True:
+            A = StencilOperator(d.space, arrays["stencils"]).assemble(theta)
+            return A, lambda rhs, **kw: A.solve_pcg(
+                rhs, tol=tol, maxiter=maxiter, block_factors=arrays.get("Minv_bar"),
+                coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)
         if matrix_free == "affine":
-            return AffineBlockApply(st, arrays["A_diag"], arrays["C_R_io"],
-                                    arrays["C_R_oi"], arrays["C_U_io"],
-                                    arrays["C_U_oi"], theta)
-        mixq = lambda C: torch.einsum("q,qefij->efij", theta, C)   # noqa: E731
-        return AssembledBlockOp(st, torch.einsum("q,qkij->kij", theta, arrays["A_diag"]),
-                                mixq(arrays["C_R_io"]), mixq(arrays["C_R_oi"]),
-                                mixq(arrays["C_U_io"]), mixq(arrays["C_U_oi"]))
-
-    def _solve(theta, theta_f, **kw):
-        b = torch.einsum("...q,qkn->...kn", theta_f, arrays["rhs_q"])
-        return _operator(theta).solve_pcg(
-            b, tol=tol, maxiter=maxiter, factors=arrays.get("Minv_bar"),
+            A = AffineBlockApply(st, arrays["A_diag"], arrays["C_R_io"],
+                                 arrays["C_R_oi"], arrays["C_U_io"],
+                                 arrays["C_U_oi"], theta)
+        else:
+            mixq = lambda C: torch.einsum("q,qefij->efij", theta, C)   # noqa: E731
+            A = AssembledBlockOp(st, torch.einsum("q,qkij->kij", theta, arrays["A_diag"]),
+                                 mixq(arrays["C_R_io"]), mixq(arrays["C_R_oi"]),
+                                 mixq(arrays["C_U_io"]), mixq(arrays["C_U_oi"]))
+        return A, lambda rhs, **kw: A.solve_pcg(
+            rhs, tol=tol, maxiter=maxiter, factors=arrays.get("Minv_bar"),
             coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)
 
     def _core(theta, theta_f, mu):
-        U = _solve(theta, theta_f)
+        b = torch.einsum("...q,qkn->...kn", theta_f, arrays["rhs_q"])
+        A, solve = _solver(theta)
+        U = solve(b)
+        base = U.dtype
+        if certify:
+            # mixed-precision refinement: wide residual, base correction
+            Aw = cast(A, wide)
+            Uw, bw = U.to(wide), b.to(wide)
+            for _ in range(refinements):
+                Uw = Uw + solve((bw - Aw.apply(Uw)).to(base)).to(wide)
+            U = Uw
         if not with_estimate:
-            return U
+            return U.to(base)
         batched = U.ndim == 3
         Ub = U if batched else U[None]
+        tensors = {k: arrays[k].to(U.dtype) for k in est_keys}
         if positive_form:
-            nc, r, df = est.local_quantities_positive(Ub, mu, tensors=arrays)
+            nc, r, df = est_w.local_quantities_positive(Ub, mu, tensors=tensors)
         else:
-            nc, r, df = est.local_quantities(Ub, mu, tensors=arrays)
+            nc, r, df = est_w.local_quantities(Ub, mu, tensors=tensors)
         ind = nc + r + df
-        return U, (ind if batched else ind[0])
+        return U.to(base), (ind if batched else ind[0])
 
-    shared_lanes = matrix_free == "affine" and fixed_preconditioner
+    shared_lanes = matrix_free is True or (matrix_free == "affine" and fixed_preconditioner)
 
     def _args(theta, theta_f):
         return (torch.as_tensor(theta, device=dev).to(d.dtype),
@@ -226,7 +541,8 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
         theta, theta_f = _args(theta, theta_f)
         if theta.ndim == 2 and not shared_lanes:
             return max(iters_probe(t, tf) for t, tf in zip(theta, theta_f))
-        _, it = _solve(theta, theta_f, return_iters=True)
+        b = torch.einsum("...q,qkn->...kn", theta_f, arrays["rhs_q"])
+        _, it = _solver(theta)[1](b, return_iters=True)
         return int(it.max())
 
     step.iters_probe = iters_probe

@@ -13,7 +13,9 @@ header for the design and what bounds them on the card):
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
 the kernel or raises — there is no fallback and no switch.  Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+counts its kernel launches in its ``launches`` attribute and records the
+shape and dtypes of each launch in its ``signatures`` set, so a caller can
+hold the kernel to its plain version at exactly the shapes a path gave it.
 
 The library is compiled with ``nvcc`` from the package's own sources into
 ``pylrbms_tpu_torch/_build/`` at first use and loaded with ``ctypes``
@@ -165,6 +167,7 @@ def block_matvec(A, x, coef=None):
             G, K, N, B, _stream(x))
     _raise_on("block_matvec", rc)
     block_matvec.launches += 1
+    block_matvec.signatures.add((G, K, N, B, A.dtype, x.dtype))
     return y
 
 
@@ -188,18 +191,27 @@ def precond_dot(F, r):
             z.data_ptr(), rz.data_ptr(), K, N, B, _stream(r))
     _raise_on("precond_dot", rc)
     precond_dot.launches += 1
+    precond_dot.signatures.add((1, K, N, B, F.dtype, r.dtype))
     return z, rz
 
 
-block_matvec.launches = 0
-precond_dot.launches = 0
-
-
 def reset_launch_counts() -> None:
-    block_matvec.launches = 0
-    precond_dot.launches = 0
+    """Set both wrappers' launch counts to 0 and clear their signatures."""
+    for fn in (block_matvec, precond_dot):
+        fn.launches = 0
+        fn.signatures = set()
 
 
 def launch_counts() -> dict:
     return {"block_matvec": block_matvec.launches,
             "precond_dot": precond_dot.launches}
+
+
+def launch_signatures() -> dict:
+    """Per kernel, the distinct ``(G, K, N, B, matrix dtype, vector dtype)``
+    it was launched with since the last :func:`reset_launch_counts`."""
+    return {"block_matvec": set(block_matvec.signatures),
+            "precond_dot": set(precond_dot.signatures)}
+
+
+reset_launch_counts()

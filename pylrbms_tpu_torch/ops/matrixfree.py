@@ -1,0 +1,395 @@
+"""Matrix-free (stencil) SWIPDG operator: elementwise blocks, fused apply.
+
+The port of ``pylrbms_tpu/ops/matrixfree.py`` (tri and quad families; the
+crisscross branch is not ported yet and raises, as in ``ops/assembly.py``).
+The operator's action is held as per-cell volume blocks and per-face block
+quadruples, O(K s^2 nb^2) numbers instead of the O(K N^2) dense subdomain
+blocks; its apply is a handful of batched block products and shifted
+in-place adds on views (the structured mesh needs no gathers).  Each block
+product is a multiply and a sum over the last axis (:func:`bmv`): as an
+einsum over lane-batched fields it becomes a batched gemv of ~1M tiny
+blocks, 8x slower on the H100 (PERF.md).
+
+Layout (x as [..., K, s, s, T, nb]):
+  vol   [K, s, s, T, nb, nb]         y[c,t]   += V x[c,t]
+  D     4 x [K, s, s, nb, nb]        A<->B within each cell (tri only)
+  V     4 x [K, s, s-1, nb, nb]      cell (cy,cx,A) <-> (cy,cx+1,B)
+  H     4 x [K, s-1, s, nb, nb]      cell (cy,cx,B) <-> (cy+1,cx,A)
+  R, U  4 x [E, s, nb, nb]           subdomain interface quadruples
+  D_side {side: [K, s, nb, nb]}      one-sided Dirichlet blocks
+
+Every field of an :class:`AssembledStencil` may carry leading lane axes
+(``StencilOperator.assemble`` with theta [B, Q]); ``apply`` broadcasts them
+against the lanes of x, so B parameter queries share one lane-batched PCG.
+
+The block-factor preconditioner of :meth:`AssembledStencil.solve_pcg` goes
+through the hand-written :func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`
+(f32 or bf16 factors, f32 residual, as the reference applies them); the
+stencil apply itself stays plain torch (XLA einsums in the reference).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import assembly as asm
+from .assembly import IPDGParams, DEFAULT_IPDG
+from .hopper_kernels import precond_dot
+from ..la.krylov import lane_dot, pcg_chunked
+
+
+@dataclass(eq=False)
+class SwipdgStencil:
+    """One affine component in stencil form."""
+    vol: torch.Tensor                      # [K, s, s, T, nb, nb]
+    D: Tuple[torch.Tensor, ...]            # 4 x [K, s, s, nb, nb]
+    V: Tuple[torch.Tensor, ...]            # 4 x [K, s, s-1, nb, nb]
+    H: Tuple[torch.Tensor, ...]            # 4 x [K, s-1, s, nb, nb]
+    R: Tuple[torch.Tensor, ...]            # 4 x [E_R, s, nb, nb]
+    U: Tuple[torch.Tensor, ...]            # 4 x [E_U, s, nb, nb]
+    D_side: Dict[str, torch.Tensor]        # side -> [K, s, nb, nb]
+
+
+def cast(obj, dtype):
+    """A copy of the dataclass ``obj`` (a stencil, stencil operator or block
+    operator) with every floating tensor field — also inside tuples, dicts
+    and nested stencils — cast to ``dtype``; other fields are shared."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype) if v.is_floating_point() else v
+        if isinstance(v, tuple):
+            return tuple(conv(u) for u in v)
+        if isinstance(v, dict):
+            return {k: conv(u) for k, u in v.items()}
+        if isinstance(v, SwipdgStencil):
+            return cast(v, dtype)
+        return v
+    return dataclasses.replace(obj, **{f.name: conv(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})
+
+
+def assemble_swipdg_stencil(space, lam_fn, kappa_fn=None,
+                            ipdg: IPDGParams = DEFAULT_IPDG,
+                            dtype=torch.float64, device=None) -> SwipdgStencil:
+    """Stencil form of one affine component (same integrands as
+    ``ops/swipdg.assemble_swipdg_component``, kept per cell and face)."""
+    asm._check_family(space)
+    s, nb, K = space.s, space.nb, space.K
+    origins = space.subdomain_origins
+    kw = dict(ipdg=ipdg, dtype=dtype, device=device)
+
+    xq = asm.tensor(asm.vol_points(space), dtype, device)
+    lam = lam_fn(xq).to(dtype)
+    dphi = asm.tensor(space.vol_dphi, dtype, device)
+    w = asm.tensor(space.vol_w, dtype, device)
+    area = space.hx * space.hy
+    if kappa_fn is None:
+        vol = area * torch.einsum("tq,kyxtq,tqia,tqja->kyxtij", w, lam, dphi, dphi)
+    else:
+        kap = kappa_fn(xq).to(dtype)
+        vol = area * torch.einsum("tq,kyxtq,tqia,kyxtqab,tqjb->kyxtij",
+                                  w, lam, dphi, kap, dphi)
+
+    def zeros(shape):
+        return tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(4))
+
+    def blocks(fam, cy_m, cx_m, orgs):
+        tab = space.face_tabs[fam]
+        x_m, x_p = asm.face_phys_points(space, tab, cy_m, cx_m, orgs)
+        return asm.inner_face_blocks(space, tab, lam_fn, kappa_fn, x_m, x_p,
+                                     space.order, **kw)
+
+    def faces(fam, cy_m, cx_m, shape):
+        return tuple(b.reshape((K,) + shape + (nb, nb))
+                     for b in blocks(fam, cy_m, cx_m, origins))
+
+    sets = space.interior_face_sets()
+    Dq = (faces("D", sets["D"][0], sets["D"][1], (s, s)) if "D" in sets
+          else zeros((K, s, s, 0, 0)))
+    Vq = (faces("V", sets["V"][0], sets["V"][1], (s, s - 1)) if s > 1
+          else zeros((K, s, 0, nb, nb)))
+    Hq = (faces("H", sets["H"][0], sets["H"][1], (s - 1, s)) if s > 1
+          else zeros((K, 0, s, nb, nb)))
+
+    grid = space.grid
+    org = origins.reshape(grid.ky, grid.kx, 2)
+    r = np.arange(s)
+    Rq = (blocks("V", r, np.full(s, s - 1), org[:, :-1].reshape(-1, 2))
+          if grid.kx > 1 else zeros((0, s, nb, nb)))
+    Uq = (blocks("H", np.full(s, s - 1), r, org[:-1, :].reshape(-1, 2))
+          if grid.ky > 1 else zeros((0, s, nb, nb)))
+
+    D_side = {}
+    for side in ("left", "right", "bottom", "top"):
+        tab = space.face_tabs["bnd_" + side]
+        cy, cx, _t = space.side_cells(side)
+        x_m, _ = asm.face_phys_points(space, tab, cy, cx, origins)
+        D_side[side] = asm.boundary_face_blocks(space, tab, lam_fn, kappa_fn,
+                                                x_m, space.order, **kw)
+    return SwipdgStencil(vol=vol, D=Dq, V=Vq, H=Hq, R=Rq, U=Uq, D_side=D_side)
+
+
+@dataclass(eq=False)
+class StencilOperator:
+    """Affine family of stencils with a fused matrix-free apply."""
+    space: object
+    stencils: Tuple[SwipdgStencil, ...]
+
+    def assemble(self, theta) -> "AssembledStencil":
+        """sum_q theta_q * stencil_q; theta [Q], or [B, Q] for lane-batched
+        fields (a leading B axis on every field)."""
+        st0 = self.stencils[0]
+        theta = torch.as_tensor(theta).to(st0.vol)
+
+        def mix(getter):
+            out = None
+            for q, st in enumerate(self.stencils):
+                p = getter(st)
+                t = theta[..., q].reshape(theta.shape[:-1] + (1,) * p.ndim)
+                out = t * p if out is None else out + t * p
+            return out
+
+        return AssembledStencil(
+            space=self.space,
+            vol=mix(lambda st: st.vol),
+            D=tuple(mix(lambda st, i=i: st.D[i]) for i in range(4)),
+            V=tuple(mix(lambda st, i=i: st.V[i]) for i in range(4)),
+            H=tuple(mix(lambda st, i=i: st.H[i]) for i in range(4)),
+            R=tuple(mix(lambda st, i=i: st.R[i]) for i in range(4)),
+            U=tuple(mix(lambda st, i=i: st.U[i]) for i in range(4)),
+            D_side={k: mix(lambda st, k=k: st.D_side[k]) for k in st0.D_side})
+
+
+def bmv(A, v):
+    """Batched block matvec ``A[..., i, j] v[..., j]`` (leading axes
+    broadcast)."""
+    return (A * v.unsqueeze(-2)).sum(-1)
+
+
+def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
+                 coarse_inv=None, coarse_basis=None, coarse_dtype=None):
+    """Preconditioner of the matrix-free solves, ``r [..., K, N] -> (z, rz)``
+    for vectors in ``dtype``.
+
+    Fine level: with ``block_factors`` [K, N, N] the subdomain block-Jacobi
+    as the reference applies it — r rounded to f32, the factors in f32 (or
+    bf16 as stored), f32 accumulation in one :func:`precond_dot` launch, z
+    widened to ``dtype``; with ``factors`` the per-cell blocks (cell_shape
+    ``(K, s, s, cb)``) in ``dtype``; else the identity.  ``coarse_inv``
+    adds a coarse level: on the per-subdomain basis ``coarse_basis``
+    [K, N, m] ([K*m, K*m] inverse), or subdomain constants without a basis
+    ([K, K]), applied in ``coarse_dtype`` (default ``dtype``).  ``rz`` is
+    the per-lane r . z from the kernel's fused partials for f32 vectors on
+    block factors, else None (the caller takes r . z in r's dtype)."""
+    f32 = torch.float32
+    if block_factors is not None:
+        Binv = (block_factors if block_factors.dtype == torch.bfloat16
+                else block_factors.to(f32)).contiguous()
+        K, N = Binv.shape[0], Binv.shape[1]
+        fused = dtype == f32
+
+        def M_fine(r):
+            z, rz = precond_dot(Binv, r.to(f32).reshape(-1, K, N).contiguous())
+            return (z.reshape(r.shape).to(r.dtype),
+                    rz.reshape(r.shape[:-2] + (K,)).sum(-1) if fused else None)
+    elif factors is not None:
+        Minv = factors.to(dtype)
+
+        def M_fine(r):
+            z = bmv(Minv, r.reshape(r.shape[:-2] + tuple(cell_shape)))
+            return z.reshape(r.shape), None
+    else:
+        def M_fine(r):
+            return r, None
+
+    if coarse_inv is None:
+        return M_fine
+    cdt = coarse_dtype or dtype
+    Ci = coarse_inv.to(cdt)
+    if coarse_basis is not None:
+        Cb = coarse_basis.to(cdt)
+        Kc, _, mc = Cb.shape
+
+        def coarse(r):
+            rc = torch.einsum("knm,...kn->...km", Cb, r.to(cdt))
+            xc = torch.einsum("ij,...j->...i", Ci, rc.reshape(r.shape[:-2] + (-1,)))
+            return torch.einsum("knm,...km->...kn", Cb,
+                                xc.reshape(r.shape[:-2] + (Kc, mc))).to(r.dtype)
+    else:
+        def coarse(r):
+            xc = torch.einsum("ij,...j->...i", Ci, r.sum(-1).to(cdt))
+            return xc.to(r.dtype)[..., None]
+
+    def M(r):
+        z, rz = M_fine(r)
+        zc = coarse(r)
+        return z + zc, (None if rz is None else rz + lane_dot(r, zc))
+    return M
+
+
+@dataclass(eq=False)
+class AssembledStencil:
+    space: object
+    vol: torch.Tensor
+    D: tuple
+    V: tuple
+    H: tuple
+    R: tuple
+    U: tuple
+    D_side: dict
+
+    def cell_jacobi_factors(self) -> torch.Tensor:
+        """Per-cell block inverses [..., K, s, s, cb, cb] (cb = T nb: the
+        2nb x 2nb tri cell with its in-cell D face, the nb x nb quad cell),
+        with each element's own face contributions; Jacobi-scaled, inverted
+        in the operator's dtype."""
+        sp = self.space
+        s = sp.s
+        Ds = self.D_side
+        if sp.T == 1:
+            cell = self.vol[..., 0, :, :].clone()          # [..., K, s, s, nb, nb]
+            if s > 1:
+                Vmm, _, _, Vpp = self.V
+                Hmm, _, _, Hpp = self.H
+                cell[..., :, :-1, :, :] += Vmm
+                cell[..., :, 1:, :, :] += Vpp
+                cell[..., :-1, :, :, :] += Hmm
+                cell[..., 1:, :, :, :] += Hpp
+            cell[..., :, 0, :, :] += Ds["left"]
+            cell[..., :, s - 1, :, :] += Ds["right"]
+            cell[..., 0, :, :, :] += Ds["bottom"]
+            cell[..., s - 1, :, :, :] += Ds["top"]
+        else:
+            Dmm, Dmp, Dpm, Dpp = self.D
+            # each triangle's OWN (mm/pp) contributions from all its faces
+            # (otherwise constants see no penalty energy: singular blocks)
+            dA = self.vol[..., 0, :, :] + Dmm
+            dB = self.vol[..., 1, :, :] + Dpp
+            if s > 1:
+                Vmm, _, _, Vpp = self.V
+                Hmm, _, _, Hpp = self.H
+                dA[..., :, :-1, :, :] += Vmm     # A minus side of V at (cy, cx)
+                dB[..., :, 1:, :, :] += Vpp      # B plus side of V at (cy, cx-1)
+                dB[..., :-1, :, :, :] += Hmm     # t1 minus side of H at (cy, cx)
+                dA[..., 1:, :, :, :] += Hpp      # t0 plus side of H below
+            # subdomain-side penalty (one-sided Dirichlet blocks; on
+            # interfaces the in_in strips differ slightly: fine for M)
+            dB[..., :, 0, :, :] += Ds["left"]
+            dA[..., :, s - 1, :, :] += Ds["right"]
+            dA[..., 0, :, :, :] += Ds["bottom"]
+            dB[..., s - 1, :, :, :] += Ds["top"]
+            cell = torch.cat([torch.cat([dA, Dmp], dim=-1),
+                              torch.cat([Dpm, dB], dim=-1)], dim=-2)
+        dvec = torch.abs(torch.diagonal(cell, dim1=-2, dim2=-1))
+        sca = 1.0 / torch.sqrt(torch.clamp(dvec, min=1e-300))
+        S = sca[..., :, None] * sca[..., None, :]
+        return torch.linalg.inv(cell * S) * S
+
+    def solve_pcg(self, b, tol: float = 1e-10, maxiter: int = 3000,
+                  factors=None, block_factors=None, coarse_inv=None,
+                  coarse_basis=None, return_iters: bool = False,
+                  coarse_f32: bool = False, x0=None):
+        """Matrix-free PCG for b [K, N] or lanes [B, K, N] (per-lane frozen,
+        see ``la/krylov.pcg_chunked``).
+
+        Preconditioner (:func:`make_precond` in b's dtype): the subdomain
+        block-Jacobi ``block_factors`` [K, N, N] through one
+        :func:`precond_dot` launch, else cell-block Jacobi (``factors``,
+        default :meth:`cell_jacobi_factors`); ``coarse_inv`` (with or
+        without ``coarse_basis``) adds the coarse level, in f32 when b is
+        f32 or ``coarse_f32``.  The CG scalar is r . M(r) in r's dtype (for
+        f32 vectors the kernel's fused partials).  Returns x (and the
+        iteration counts)."""
+        sp = self.space
+        if block_factors is None and factors is None:
+            factors = self.cell_jacobi_factors()
+        P = make_precond(b.dtype, block_factors=block_factors, factors=factors,
+                         cell_shape=(sp.K, sp.s, sp.s, sp.T * sp.nb),
+                         coarse_inv=coarse_inv, coarse_basis=coarse_basis,
+                         coarse_dtype=torch.float32 if coarse_f32 else None)
+
+        def M(r):
+            z, rz = P(r)
+            return z, (lane_dot(r, z) if rz is None else rz)
+
+        x, it = pcg_chunked(self.apply, M, b, tol, maxiter, x0=x0)
+        return (x, it) if return_iters else x
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., K, N] -> A x, matrix-free (lane axes of x and of the
+        fields broadcast)."""
+        sp = self.space
+        grid = sp.grid
+        K, s, T, nb = sp.K, sp.s, sp.T, sp.nb
+        xc = x.reshape(x.shape[:-2] + (K, s, s, T, nb))
+        if T == 1:
+            # quad grid: one element per cell, V/H faces couple like elements
+            xQ = xc[..., 0, :]                       # [..., K, s, s, nb]
+            y = bmv(self.vol[..., 0, :, :], xQ)
+            if s > 1:
+                Vmm, Vmp, Vpm, Vpp = self.V
+                xm, xp = xQ[..., :, :-1, :], xQ[..., :, 1:, :]
+                y[..., :, :-1, :] += bmv(Vmm, xm) + bmv(Vmp, xp)
+                y[..., :, 1:, :] += bmv(Vpm, xm) + bmv(Vpp, xp)
+                Hmm, Hmp, Hpm, Hpp = self.H
+                xm, xp = xQ[..., :-1, :, :], xQ[..., 1:, :, :]
+                y[..., :-1, :, :] += bmv(Hmm, xm) + bmv(Hmp, xp)
+                y[..., 1:, :, :] += bmv(Hpm, xm) + bmv(Hpp, xp)
+            y = y[..., None, :]                      # [..., K, s, s, 1, nb]
+        else:
+            xA, xB = xc[..., 0, :], xc[..., 1, :]    # [..., K, s, s, nb]
+            Dmm, Dmp, Dpm, Dpp = self.D
+            yA = bmv(self.vol[..., 0, :, :], xA) + bmv(Dmm, xA) + bmv(Dmp, xB)
+            yB = bmv(self.vol[..., 1, :, :], xB) + bmv(Dpm, xA) + bmv(Dpp, xB)
+            if s > 1:
+                # V: minus (cy,cx,A=t0), plus (cy,cx+1,B=t1)
+                Vmm, Vmp, Vpm, Vpp = self.V
+                xm, xp = xA[..., :, :-1, :], xB[..., :, 1:, :]
+                yA[..., :, :-1, :] += bmv(Vmm, xm) + bmv(Vmp, xp)
+                yB[..., :, 1:, :] += bmv(Vpm, xm) + bmv(Vpp, xp)
+                # H: minus (cy,cx,t1), plus (cy+1,cx,t0)
+                Hmm, Hmp, Hpm, Hpp = self.H
+                xm, xp = xB[..., :-1, :, :], xA[..., 1:, :, :]
+                yB[..., :-1, :, :] += bmv(Hmm, xm) + bmv(Hmp, xp)
+                yA[..., 1:, :, :] += bmv(Hpm, xm) + bmv(Hpp, xp)
+            y = torch.stack([yA, yB], dim=-2)        # [..., K, s, s, T, nb]
+
+        # ---- subdomain interfaces and the physical boundary (K -> [ky, kx])
+        tL = int(sp.side_cells("left")[2][0])
+        tR = int(sp.side_cells("right")[2][0])
+        tB = int(sp.side_cells("bottom")[2][0])
+        tT = int(sp.side_cells("top")[2][0])
+        kx, ky = grid.kx, grid.ky
+        yg = y.reshape(y.shape[:-5] + (ky, kx, s, s, T, nb))
+        xg = xc.reshape(xc.shape[:-5] + (ky, kx, s, s, T, nb))
+
+        def grid_of(b, shape):
+            return b.reshape(b.shape[:-4] + shape + (s, nb, nb))
+
+        if kx > 1:
+            Rii, Rio, Roi, Roo = (grid_of(b, (ky, kx - 1)) for b in self.R)
+            xm = xg[..., :, :-1, :, s - 1, tR, :]    # [..., ky, kx-1, s(cy), nb]
+            xp = xg[..., :, 1:, :, 0, tL, :]
+            yg[..., :, :-1, :, s - 1, tR, :] += bmv(Rii, xm) + bmv(Rio, xp)
+            yg[..., :, 1:, :, 0, tL, :] += bmv(Roi, xm) + bmv(Roo, xp)
+        if ky > 1:
+            Uii, Uio, Uoi, Uoo = (grid_of(b, (ky - 1, kx)) for b in self.U)
+            xm = xg[..., :-1, :, s - 1, :, tT, :]    # [..., ky-1, kx, s(cx), nb]
+            xp = xg[..., 1:, :, 0, :, tB, :]
+            yg[..., :-1, :, s - 1, :, tT, :] += bmv(Uii, xm) + bmv(Uio, xp)
+            yg[..., 1:, :, 0, :, tB, :] += bmv(Uoi, xm) + bmv(Uoo, xp)
+
+        Ds = {k: grid_of(v, (ky, kx)) for k, v in self.D_side.items()}
+        yg[..., :, 0, :, 0, tL, :] += bmv(
+            Ds["left"][..., :, 0, :, :, :], xg[..., :, 0, :, 0, tL, :])
+        yg[..., :, kx - 1, :, s - 1, tR, :] += bmv(
+            Ds["right"][..., :, kx - 1, :, :, :], xg[..., :, kx - 1, :, s - 1, tR, :])
+        yg[..., 0, :, 0, :, tB, :] += bmv(
+            Ds["bottom"][..., 0, :, :, :, :], xg[..., 0, :, 0, :, tB, :])
+        yg[..., ky - 1, :, s - 1, :, tT, :] += bmv(
+            Ds["top"][..., ky - 1, :, :, :, :], xg[..., ky - 1, :, s - 1, :, tT, :])
+        return yg.reshape(yg.shape[:-6] + (K, sp.N))

@@ -1,5 +1,6 @@
 """Port on the card: the CUDA kernels against their plain versions, and the
-online step on CUDA against the port's own CPU run.
+online step (affine and stencil forms) and the matrix-free model solve on
+CUDA against the port's own CPU run.
 
 Every test is marked ``cuda`` and skips where CUDA is unavailable (the
 kernels have no CPU mode).  The module imports no jax, so on a GPU machine
@@ -55,6 +56,9 @@ def test_kernels_match_plain_versions(cuda, G, K, N, B):
         assert _rel(z, zp) <= tol, (mdt, vdt)
         assert _rel(rz, rzp) <= tol_rz, (mdt, vdt)
     assert hk.launch_counts() == {"block_matvec": len(DTYPES), "precond_dot": len(DTYPES)}
+    assert hk.launch_signatures() == {
+        "block_matvec": {(G, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
+        "precond_dot": {(1, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES}}
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -91,3 +95,37 @@ def test_online_step_on_cuda_matches_cpu(cuda):
     assert _rel(U1, U0) <= 1e-8 and _rel(i1, i0) <= 1e-8
     assert n0 == {"block_matvec": 0, "precond_dot": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
+
+
+@pytest.mark.parametrize("path", ["stencil_step", "mf_solve"])
+def test_stencil_path_on_cuda_matches_cpu(cuda, path):
+    """f64 model (2x2 subdomains, half 1, nref 2): the stencil online step
+    (two lanes) and the matrix-free model solve on CUDA against the same on
+    the CPU, to 1e-8 relative; on CUDA the block-Jacobi M of the stencil PCG
+    launches precond_dot, on the CPU nothing is launched."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+
+    cfg = {"num_subdomains": [2, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2}
+    mus = np.array([0.2, 0.7])
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev)
+        if path == "stencil_step":
+            step = make_online_step(d, tol=1e-10, maxiter=500, matrix_free=True,
+                                    coarse_space="harvested", coarse_modes=4)
+            hk.reset_launch_counts()
+            U, _ = step(torch.tensor(np.stack([np.ones(2), mus], 1)),
+                        torch.ones((2, 1), dtype=torch.float64),
+                        {"diffusion": torch.tensor(mus[:, None])})
+        else:
+            hk.reset_launch_counts()
+            U = d.solve(0.7, {"type": "mf_pcg", "precision": 1e-10, "coarse_modes": 4})
+        outs.append((U.cpu(), hk.launch_counts()))
+    (U0, n0), (U1, n1) = outs
+    assert _rel(U1, U0) <= 1e-8
+    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n1["precond_dot"] > 0
