@@ -10,8 +10,13 @@ phase passes:
    sm_90a) and prints the build time and the compiler's resource report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving shapes (G=2, K=64, N=384, B=1 and 256; f64, f32, bf16
-   matrices) and at a tail shape (K=4, N=24), with the tolerances stated
-   below; kernel time beside plain time (CUDA events, median of 20);
+   matrices), the serving harvest (B=12) and at tail shapes (K=4, N=24;
+   N=96 with 13 lanes on the ring), with the tolerances stated
+   below, and precond_dot's rz bitwise equal across two launches; per
+   shape the route ``plan`` picked, the kernel's time with the 50 MB L2
+   flushed between repetitions (and warm, as earlier runs timed it), the
+   plain version's and one library call's time (flushed), the bound and
+   the kernel's share of it (CUDA events, median of 20);
 4. entry config (2x2 subdomains, half 1, nref 1), one query on the card in
    f64 and in f32, against the port's own CPU f64 run;
 5. serving config (8x8 subdomains, half 2, nref 2: 24 576 dofs; affine
@@ -39,7 +44,7 @@ phase passes:
 9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
-   the card at phase 3's tolerances.
+   the card at phase 3's tolerances, timed as in phase 3.
 
 Each main path (phases 5, 7 and 8) runs with the kernel launch counts and
 signatures cleared just before it and read just after; the summary's
@@ -95,12 +100,32 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-def cuda_ms(fn, reps=20) -> float:
+_FLUSH = []
+
+
+def flush_l2():
+    """Write 256 MiB, five times the H100's 50 MB L2, so the next kernel
+    finds its operands in device memory, not in L2."""
+    import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2**20, dtype=torch.float32, device="cuda"))
+    _FLUSH[0].zero_()
+
+
+def cuda_ms(fn, reps=20, flush=False) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events), with
+    the L2 flushed before each run when ``flush``.  A 1 ms device sleep
+    before the start event keeps the card busy while the host enqueues
+    ``fn``, so the events time the device work and not the host's
+    launch overhead."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush:
+            flush_l2()
+        torch.cuda._sleep(2_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -125,39 +150,64 @@ def timed_median(torch, fn, reps=5):
 def kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt):
     """One kernel against its plain version on the card at one shape, inputs
     from ``randn(shape)`` (an f64 tensor on the card); raises if it is off
-    its tolerance.  Returns ``{"max_abs_err", "ms", "plain_ms"}``."""
+    its tolerance (or, for precond_dot, if two launches give different rz
+    bits).  Returns the summary's numbers: ``max_abs_err``, ``ms`` (L2
+    flushed), ``warm_ms``, ``plain_ms`` and ``library_ms`` (flushed; the
+    library call is one ``torch.matmul`` on operands laid out beforehand,
+    its output [K, N, B] instead of [B, K, N]), ``bound_ms``, ``bound_by``
+    and ``path`` (the route ``hk.plan`` picked)."""
     dt_name = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
     A = randn((G, K, N, N)).to(mdt)
     x = randn((B, K, N)).to(vdt)
     tol = TOL["f64" if vdt == torch.float64 else "f32"]
+    xt = x.permute(1, 2, 0).contiguous()                     # [K, N, B]
     if kind == "block_matvec":
         coef = randn((B, G)).to(vdt) if G > 1 else None
         run = lambda: hk.block_matvec(A, x, coef)            # noqa: E731
         plain = lambda: hk.block_matvec_plain(A, x, coef)    # noqa: E731
+        if coef is None:
+            lhs, rhs = A[0].to(vdt), xt
+        else:                                                # [A_0 | A_1] @ [c0 x; c1 x]
+            lhs = A.to(vdt).permute(1, 2, 0, 3).reshape(K, N, G * N)
+            rhs = (coef.T[:, None, None, :] * xt[None]).reshape(G, K, N, B)
+            rhs = rhs.permute(1, 0, 2, 3).reshape(K, G * N, B)
         y, yp = run(), plain()
         torch.cuda.synchronize()
         errs = [rel(y.cpu(), yp.cpu())]
         abs_err = float((y - yp).abs().max())
         ok = errs[0] <= tol[0]
+        same = True
     else:
         F = A[0].contiguous()
         del A
         run = lambda: hk.precond_dot(F, x)                   # noqa: E731
         plain = lambda: hk.precond_dot_plain(F, x)           # noqa: E731
-        (z, rz), (zp, rzp) = run(), plain()
+        lhs, rhs = F.to(vdt), xt
+        (z, rz), (zp, rzp), (z2, rz2) = run(), plain(), run()
         torch.cuda.synchronize()
         errs = [rel(z.cpu(), zp.cpu()), rel(rz.cpu(), rzp.cpu())]
         abs_err = float(max((z - zp).abs().max(), (rz - rzp).abs().max()))
-        ok = errs[0] <= tol[0] and errs[1] <= tol[1]
-    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        same = bool(torch.equal(rz, rz2) and torch.equal(z, z2))
+        ok = errs[0] <= tol[0] and errs[1] <= tol[1] and same
+    library = lambda: torch.matmul(lhs, rhs)                 # noqa: E731
+    ms, warm_ms = cuda_ms(run, flush=True), cuda_ms(run)
+    plain_ms, library_ms = cuda_ms(plain, flush=True), cuda_ms(library, flush=True)
+    bound_ms, bound_by = hk.bound(kind, G, K, N, B, mdt, vdt)
+    path = hk.plan(kind, G, K, N, B, mdt, vdt).name
     label = (f"{kind} G={G} K={K} N={N} B={B} "
              f"{dt_name[mdt]} x {dt_name[vdt]}")
-    log(f"kernel {label}: max rel err {', '.join(f'{e:.3e}' for e in errs)} "
-        f"(tol {tol[0]:.0e}{'/' + format(tol[1], '.0e') if len(errs) > 1 else ''}) "
-        f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log(f"kernel {label} [{path}]: max rel err {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(tol {tol[0]:.0e}{'/' + format(tol[1], '.0e') if len(errs) > 1 else ''})"
+        f"{'' if kind == 'block_matvec' else ', rz bitwise equal over 2 launches: ' + str(same)} "
+        f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (warm L2 {warm_ms:.4f}), "
+        f"plain {plain_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} ms "
+        f"({bound_by}), share of bound {bound_ms / ms:.3f}")
     if not ok:
-        raise AssertionError(f"{label} disagrees with its plain version")
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+        raise AssertionError(f"{label} disagrees with its plain version"
+                             f"{'' if same else ' (rz not reproducible)'}")
+    return {"max_abs_err": abs_err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "path": path}
 
 
 def kernel_phase(hk, torch, dev):
@@ -182,7 +232,9 @@ def kernel_phase(hk, torch, dev):
             r = case("precond_dot", 1, 64, 384, B, mdt, vdt)
             if B == B_SERVE and mdt == bf16 and vdt == f32:
                 summary["precond_dot"] = r
-    case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape
+    case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape (ring)
+    for dt in (f64, f32):                                # ring: G=2, a half-empty row tile
+        case("block_matvec", 2, 4, 96, 13, dt, dt)
     for B in (1, 4, 13):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
@@ -501,10 +553,12 @@ def main() -> int:
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
                     "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [{"name": name, "route": "cuda",
                     "source": "pylrbms_tpu_torch/csrc/block_kernels.cu",
                     "replaces": replaces[name], "launches": launches[name],
-                    **summary[name]} for name in ("block_matvec", "precond_dot")]
+                    **{key: summary[name][key] for key in keys}}
+                   for name in ("block_matvec", "precond_dot")]
     except Exception:                                    # noqa: BLE001 — report and fail
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -7,10 +7,12 @@ detailed solve, with the matrix-free stencil operator at scale) and runs
 on an NVIDIA H100 with two hand-written CUDA kernels
 (:mod:`pylrbms_tpu_torch.ops.hopper_kernels`).
 
-Rules of the package: it imports ``torch`` and never ``jax``; it reuses the
-jax-free host modules of the reference (``grid``, ``basis``, ``quadrature``,
-``config``, ``ops.spaces``) for the static index tables; every constructor
-and entry point takes ``device=`` and ``dtype=``.
+Rules of the package: it imports ``torch`` and neither ``jax`` nor
+``pylrbms_tpu``; it keeps its own copies of the reference's numpy host
+modules (``grid``, ``basis``, ``quadrature``, ``config``, ``ops.spaces``) for
+the static index tables; every constructor and entry point takes
+``device=`` and ``dtype=``, and the device defaults to ``cuda`` (pass
+``device="cpu"`` on a machine without a card).
 
 Typical use::
 

@@ -10,44 +10,91 @@
 //      block-Jacobi apply (G=1, one lane per harvested vector).
 //  * pylrbms_precond_dot   <- precond_dot_pallas / _precond_dot_kernel
 //      z[b,k,:] = F[k] @ r[b,k,:],  rz[b,k] = r[b,k,:] . z[b,k,:]
-//      F [K,N,N] (f64 | f32 | bf16), r/z [B,K,N], rz [B,K].  rz is [B,K],
-//      not the Pallas 1-D (K,) block, and one block owns all N rows of its
-//      (k, lane tile): the per-subdomain dot is reduced in shared memory in
-//      a fixed order, deterministic, without atomics.
+//      F [K,N,N] (f64 | f32 | bf16), r/z [B,K,N], rz [B,K] (not the Pallas
+//      1-D (K,) block).  rz is deterministic on every route: summed in a
+//      fixed order, without float atomics, in one launch.
 //
-// Accumulation is in the vector's type: f64 for f64 vectors, f32 otherwise
-// (bf16 matrix elements widen exactly to f32/f64).  SIMT FMA only: no
-// tensor cores (TF32 would cost the digits CG needs; bf16 matrices are
-// widened, not multiplied in bf16).
+// Every matrix element is used once per lane, so the work is 2 G K N^2 B
+// operations on G K N^2 matrix elements: below ~20 operations per byte
+// (f32; ~10 for f64) the card's memory bounds it, above it the arithmetic.
+// The wrapper (ops/hopper_kernels.py: plan) picks the route by that
+// intensity and the lane count and passes it here as an int:
 //
-// What bounds them on an H100.  Every A (F) element is used once per lane.
-//  * Few lanes (B <= 8, the single query): the kernels stream the matrix
-//    stack once per call and are bound by device-memory bandwidth
-//    (G K N^2 elements).  Design ("rows"): one warp per matrix row, the 32
-//    threads walk the row with coalesced loads, each keeps one partial sum
-//    per lane (up to 8 lanes in registers) and a butterfly shuffle reduces
-//    them in a fixed order.  block_matvec runs one block per (k, 8 rows),
-//    thousands of blocks; precond_dot one 16-warp block per k, which owns
-//    all rows of k and reduces rz across its warps in shared memory.
-//  * Many lanes (B > 8, the serving batch B=256): each element serves B
-//    lanes and the work is FMA-bound (2 G K N^2 B flops).  Design ("tiles"):
-//    a block owns one subdomain k, TI rows and LB lanes and walks the j axis
-//    in steps of TJ, staging the A tile and the x tile of its lanes in
-//    shared memory (each A element read from device memory once per lane
-//    tile); each thread keeps an RPT x LPT register tile of (row, lane)
-//    accumulators, so a shared-memory load feeds LPT (or RPT) FMAs.
-// Any N (masked tail), any B >= 1.
+//  * stream (memory-bound: few lanes, B <= 16).  Goal: enough bytes in
+//    flight on all 132 SMs.  A block owns C chunks of 32 rows of one
+//    subdomain (>= 2 waves of blocks at K=64, N >= 384); each warp owns 4
+//    rows and its threads walk them with 16-byte streaming loads (double2,
+//    float4, 8 x bf16 as uint4), 4-8 independent loads per thread in
+//    flight.  x (times coef[b,g]: the G-sum folds into the reduction) is
+//    staged in shared memory once per block where all of it fits (else per
+//    column chunk) and read back as 16-byte vectors; each thread keeps 4 x LB
+//    (row, lane) accumulators, reduced by a xor butterfly (every lane ends
+//    with the same bits).  precond_dot writes one rz partial per (lane, k,
+//    block) to a wrapper-allocated scratch; the last block of each k
+//    (found with an integer ticket, which it resets) sums them in block
+//    order.  Rows whose byte length is not a multiple of 16 (or a
+//    misaligned matrix) take scalar loads.  At 16 lanes the accumulators
+//    (128 registers in f64) leave 8 warps an SM and one load a row in
+//    flight (a third of the bound, PERF.md), so block_matvec's f64 and f32
+//    pairs take the ring form there:
+//  * ring (the stream route's form for 5-16 lanes of block_matvec, f64 x
+//    f64 and f32 x f32, N % 32 == 0).  A block owns 64 rows x 16 lanes;
+//    tiles of A and x stream through a 4-stage cp.async ring in shared
+//    memory (no register holds a row's lane accumulators, three stages in
+//    flight), and the product runs on the tensor cores: f64 as DMMA (IEEE
+//    f64 multiply-adds), f32 as 3xTF32 (below) with each stage's sums
+//    added to the running sum by an IEEE f32 add.
+//  * tensor (many lanes, on the serving batch; N % 32 == 0).  The f32
+//    operand is split so the products stay f32-accurate (no product may
+//    lose the digits CG needs), with integer and f32 ops only (the cvt
+//    instructions issue at a quarter rate):
+//      - precond_dot, bf16 F x f32 r: r = r1 + r2 + r3, each the bf16
+//        truncation of what the terms before left (exact: 3 x 8 bits hold
+//        f32's 24), three mma.sync.m16n8k16 bf16 products with f32
+//        accumulation, small terms first; each F r_i is exact in f32;
+//      - block_matvec, f32 A x f32 x: 3xTF32 on mma.sync.m16n8k8 (big =
+//        round-to-nearest-away TF32 as cvt.rna, small = the remainder
+//        truncated to TF32, for A and coef*x; a_small x_big + a_big x_small
+//        + a_big x_big), the G-sum folded into a reduction of depth G N.
+//    Tiled GEMMs: a block owns 128 rows x 64 lanes of one subdomain, 8
+//    warps of 32 x 32; 32 columns of the depth per stage, copied to shared
+//    memory with cp.async three stages ahead.  One accumulation chain
+//    over the whole depth: the tensor cores' f32 sums drop low bits, so the
+//    error grows with N (PERF.md: ~8e-6 of the result at N=384, inside the
+//    f32 tolerance); per-stage IEEE sums, as on the ring, cut it ~10x but
+//    cost these kernels 28% and 9% of their time.  precond_dot's rz goes
+//    through per-row-tile partials and a ticket, as on the stream route.
+//    mma.sync, not wgmma + TMA: a right kernel first; a warp-specialised
+//    pipeline is later work.
+//  * tiles (every other dtype pair at many lanes: f64 x f64, f32 x f32 in
+//    precond_dot, bf16 x f64).  No main path launches these; kept
+//    unchanged from the first port: SIMT FMA with shared-memory tiles, a
+//    block owns one subdomain k, TI rows and LB lanes, each thread an
+//    RPT x LPT register tile.
+//
+// Accumulation is in the vector's type (f64 for f64 vectors, f32
+// otherwise); bf16 matrix elements widen exactly.  Any N (masked tails) on
+// the stream and tiles routes, any B >= 1 (at most 16 on the ring).
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError() of the launch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int TJ = 32;      // j-tile (reduction axis) width of the tiled kernels
-constexpr int MAXB = 8;     // lanes held in registers by the row kernels
+enum { kStream = 0, kTensor = 1, kTiles = 2, kRing = 3 };
+enum { kF64 = 0, kF32 = 1, kBF16 = 2 };
+
+constexpr int ROWS_PER_BLOCK = 32;   // stream route: rows of one k per block chunk
+constexpr int STREAM_WARPS = 8;      // stream route: warps per block (4 rows each)
+constexpr int XS_WHOLE = 200 * 1024; // stream route: most shared memory for all of x
+constexpr int XS_CHUNK = 32768;      // stream route: x chunk when all of x does not fit
+constexpr int TJ = 32;               // tiles route: j-tile width
 
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -56,6 +103,7 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162floa
 __device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
 
+// xor butterfly: every lane ends with the same bits (IEEE addition commutes)
 template <typename TA>
 __device__ __forceinline__ TA warp_sum(TA v) {
 #pragma unroll
@@ -63,92 +111,764 @@ __device__ __forceinline__ TA warp_sum(TA v) {
   return v;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // ----------------------------------------------------------------------------
-// rows: few lanes, one warp per matrix row
+// stream route
 // ----------------------------------------------------------------------------
 
-// acc[b] = sum_j A_row[j] * x[b,k,j] over this thread's j = lane, lane+32, ...
-template <typename TS, typename TA>
-__device__ __forceinline__ void row_partials(const TS* __restrict__ Arow,
-                                             const TA* __restrict__ x, int K,
-                                             int N, int B, int k, int lane,
-                                             TA (&acc)[MAXB]) {
+// 16-byte loads per row and step: 8 bf16 or one scalar each take fewer in
+// flight; 16 lanes of accumulators leave room for only one
+__host__ __device__ constexpr int stream_unroll(int vec, int lb) {
+  return (vec == 8 || lb == 16) ? 1 : vec == 1 ? 4 : 2;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int w) {
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
+// element e of a 16-byte vector of matrix elements, widened
+__device__ __forceinline__ double elem(const uint4& r, int e, const double*) {
+  return e == 0 ? __hiloint2double((int)r.y, (int)r.x) : __hiloint2double((int)r.w, (int)r.z);
+}
+__device__ __forceinline__ float elem(const uint4& r, int e, const float*) {
+  return __uint_as_float(word(r, e));
+}
+__device__ __forceinline__ float elem(const uint4& r, int e, const __nv_bfloat16*) {
+  const uint32_t w = word(r, e >> 1);
+  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+// scalar-load fallback: the element itself
+template <typename TS>
+__device__ __forceinline__ auto elem(const TS& r, int, const TS*) { return widen(r); }
+
+__device__ __forceinline__ void load_raw(uint4& r, const void* p) {
+  r = __ldcs(static_cast<const uint4*>(p));           // streamed once: evict first
+}
+template <typename TS>
+__device__ __forceinline__ void load_raw(TS& r, const TS* p) { r = *p; }
+
+// VEC consecutive x values from shared memory (16-byte reads where they fit)
+template <typename TA, int VEC>
+__device__ __forceinline__ void load_xs(const TA* p, TA (&v)[VEC]) {
+  if constexpr ((VEC * sizeof(TA)) % 16 == 0) {
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) acc[b] = TA(0);
-#pragma unroll 4
-  for (int j = lane; j < N; j += 32) {
-    const TA a = TA(widen(Arow[j]));
+    for (int q = 0; q < (int)(VEC * sizeof(TA) / 16); ++q)
+      reinterpret_cast<uint4*>(v)[q] = reinterpret_cast<const uint4*>(p)[q];
+  } else {
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b)
-      if (b < B) acc[b] = madd(a, x[((size_t)b * K + k) * N + j], acc[b]);
+    for (int e = 0; e < VEC; ++e) v[e] = p[e];
   }
 }
 
-template <typename TS, typename TA, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-block_matvec_rows(const TS* __restrict__ A, const TA* __restrict__ x,
-                  const TA* __restrict__ coef, TA* __restrict__ y,
-                  int G, int K, int N, int B) {
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.y * WARPS + threadIdx.x / 32;
-  if (i >= N) return;                      // whole warps only; no block sync
-  TA part[MAXB];
+// Stream kernel: block (blockIdx.x, k = blockIdx.y) owns C chunks of 32 rows
+// (8 warps x R = 4 rows).  Whole mode (XJ >= N): all G coef-scaled copies of
+// x[:, k, :] are staged once, xs[(g LB + b) XJ + c], and the block walks its
+// C chunks; chunked mode (C = 1): x is staged per (g, column chunk of XJ).
+// PD: precond_dot (G = 1, no coef, rz through partials + tickets).
+template <typename TS, typename TA, bool VECL, int LB, bool PD>
+__global__ void __launch_bounds__(32 * STREAM_WARPS)
+stream_kernel(const TS* __restrict__ A, const TA* __restrict__ x,
+              const TA* __restrict__ coef, TA* __restrict__ y,
+              TA* __restrict__ rz, TA* __restrict__ partials,
+              unsigned* __restrict__ tickets, int G, int K, int N, int B, int XJ, int C) {
+  constexpr int R = ROWS_PER_BLOCK / STREAM_WARPS;     // rows per warp
+  constexpr int WARPS = STREAM_WARPS;
+  constexpr int VEC = VECL ? 16 / (int)sizeof(TS) : 1;
+  constexpr int U = stream_unroll(VEC, LB);            // loads per row and step
+  constexpr int S = 32 * VEC * U;                     // columns per step
+  using Raw = typename std::conditional<VECL, uint4, TS>::type;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  TA* xs = reinterpret_cast<TA*>(smem);
+  const int k = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool whole = XJ >= N;
+
+  auto stage = [&](int g0, int ng, int j0, int jn) {   // xs <- coef * x, zero-padded
+    for (int e = threadIdx.x; e < ng * LB * XJ; e += 32 * WARPS) {
+      const int gb = e / XJ, c = e - gb * XJ;
+      const int g = g0 + gb / LB, b = gb % LB;
+      TA v = TA(0);
+      if (b < B && c < jn) {
+        v = x[((size_t)b * K + k) * N + j0 + c];
+        if (coef != nullptr) v *= coef[(size_t)b * G + g];
+      }
+      xs[e] = v;
+    }
+    __syncthreads();
+  };
+  if (whole) stage(0, G, 0, N);
+
+  TA rzp[LB];
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) part[b] = TA(0);
-  for (int g = 0; g < G; ++g) {
-    TA acc[MAXB];
-    row_partials(A + (((size_t)g * K + k) * N + i) * N, x, K, N, B, k, lane, acc);
+  for (int b = 0; b < LB; ++b) rzp[b] = TA(0);
+  for (int rc = 0; rc < C; ++rc) {
+    const int rbase = (blockIdx.x * C + rc) * ROWS_PER_BLOCK;
+    if (rbase >= N) break;                            // uniform over the block
+    const int row0 = rbase + warp * R;
+    TA acc[R][LB];
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b)
-      if (b < B) part[b] += (coef != nullptr ? coef[(size_t)b * G + g] : TA(1)) * acc[b];
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < LB; ++b) acc[r][b] = TA(0);
+
+    for (int g = 0; g < G; ++g) {
+      const TS* Ag = A + ((size_t)g * K + k) * N * N;
+      for (int j0 = 0; j0 < N; j0 += XJ) {
+        const int jn = min(XJ, N - j0);
+        if (!whole) stage(g, 1, j0, jn);
+        const TA* xg = xs + (whole ? g * LB * XJ : 0);
+        for (int c0 = 0; c0 < jn; c0 += S) {
+          Raw a[R][U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int c = c0 + (u * 32 + lane) * VEC;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              if (row0 + r < N && c < jn)
+                load_raw(a[r][u], Ag + (size_t)(row0 + r) * N + j0 + c);
+              else
+                a[r][u] = Raw{};
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int c = c0 + (u * 32 + lane) * VEC;  // < XJ: XJ % S == 0
+            if (c >= jn) continue;
+#pragma unroll
+            for (int b = 0; b < LB; ++b) {
+              if (b < B) {
+                TA xv[VEC];
+                load_xs<TA, VEC>(xg + b * XJ + c, xv);
+#pragma unroll
+                for (int v = 0; v < VEC; ++v)
+#pragma unroll
+                  for (int r = 0; r < R; ++r)
+                    acc[r][b] = madd(TA(elem(a[r][u], v, (const TS*)nullptr)), xv[v], acc[r][b]);
+              }
+            }
+          }
+        }
+        if (!whole) __syncthreads();
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < LB; ++b)
+        if (b < B) acc[r][b] = warp_sum(acc[r][b]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < LB; ++b)
+        if (b < B && row0 + r < N && lane == ((r * LB + b) & 31))
+          y[((size_t)b * K + k) * N + row0 + r] = acc[r][b];
+    if constexpr (PD) {
+#pragma unroll
+      for (int b = 0; b < LB; ++b)
+        if (b < B)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (row0 + r < N)
+              rzp[b] = madd(x[((size_t)b * K + k) * N + row0 + r], acc[r][b], rzp[b]);
+    }
   }
+
+  if constexpr (PD) {
+    __shared__ TA red[WARPS][LB];
+    __shared__ bool last;
+    if (lane == 0) {
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    if (b < B) {
-      const TA v = warp_sum(part[b]);
-      if (lane == 0) y[((size_t)b * K + k) * N + i] = v;
+      for (int b = 0; b < LB; ++b) red[warp][b] = rzp[b];
+    }
+    __syncthreads();
+    const int chunks = gridDim.x;
+    if (threadIdx.x < LB && threadIdx.x < B) {
+      TA s = TA(0);
+      for (int w = 0; w < WARPS; ++w) s += red[w][threadIdx.x];
+      partials[((size_t)threadIdx.x * K + k) * chunks + blockIdx.x] = s;
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&tickets[k], 1u) == (unsigned)(chunks - 1);
+    __syncthreads();
+    if (last) {
+      if (threadIdx.x < LB && threadIdx.x < B) {
+        const TA* p = partials + ((size_t)threadIdx.x * K + k) * chunks;
+        TA s = TA(0);
+        for (int c = 0; c < chunks; ++c) s += __ldcg(p + c);
+        rz[(size_t)threadIdx.x * K + k] = s;
+      }
+      if (threadIdx.x == 0) tickets[k] = 0u;       // ready for the next launch
     }
   }
 }
 
-template <typename TS, typename TA, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-precond_dot_rows(const TS* __restrict__ F, const TA* __restrict__ r,
-                 TA* __restrict__ z, TA* __restrict__ rz, int K, int N, int B) {
-  __shared__ TA red[WARPS][MAXB];
-  const int k = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  TA part[MAXB];
+template <typename TS, typename TA, bool VECL, int LB, bool PD>
+int launch_stream_cfg(const TS* A, const TA* x, const TA* coef, TA* y, TA* rz,
+                      TA* partials, unsigned* tickets, int G, int K, int N, int B,
+                      int C, cudaStream_t s) {
+  constexpr int VEC = VECL ? 16 / (int)sizeof(TS) : 1;
+  constexpr int S = 32 * VEC * stream_unroll(VEC, LB);
+  const int NS = (N + S - 1) / S * S;
+  size_t bytes = (size_t)G * LB * NS * sizeof(TA);
+  int XJ = NS;
+  if (bytes > (size_t)XS_WHOLE) {                      // chunked mode
+    if (C != 1) return (int)cudaErrorInvalidValue;
+    XJ = min(NS, (XS_CHUNK / (LB * (int)sizeof(TA))) / S * S);   // >= S
+    bytes = (size_t)LB * XJ * sizeof(TA);
+  }
+  auto kernel = stream_kernel<TS, TA, VECL, LB, PD>;
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  dim3 grid((N + ROWS_PER_BLOCK * C - 1) / (ROWS_PER_BLOCK * C), K);
+  kernel<<<grid, 32 * STREAM_WARPS, bytes, s>>>(A, x, coef, y, rz, partials, tickets,
+                                                G, K, N, B, XJ, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename TS, typename TA, bool PD>
+int launch_stream(int lanes, int C, const TS* A, const TA* x, const TA* coef, TA* y,
+                  TA* rz, TA* partials, unsigned* tickets, int G, int K, int N, int B,
+                  cudaStream_t s) {
+  if (B > lanes || C < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(A) && ((size_t)N * sizeof(TS)) % 16 == 0;
+#define PYLRBMS_STREAM(V, L) \
+  return launch_stream_cfg<TS, TA, V, L, PD>(A, x, coef, y, rz, partials, tickets, G, K, N, B, C, s)
+  if (vec) {
+    if (lanes == 1) PYLRBMS_STREAM(true, 1);
+    if (lanes == 4) PYLRBMS_STREAM(true, 4);
+    if (lanes == 16) PYLRBMS_STREAM(true, 16);
+  } else {
+    if (lanes == 1) PYLRBMS_STREAM(false, 1);
+    if (lanes == 4) PYLRBMS_STREAM(false, 4);
+    if (lanes == 16) PYLRBMS_STREAM(false, 16);
+  }
+#undef PYLRBMS_STREAM
+  return (int)cudaErrorInvalidValue;
+}
+
+// ----------------------------------------------------------------------------
+// tensor route
+// ----------------------------------------------------------------------------
+
+// The splits use integer and f32 ops only: the conversion instructions
+// (cvt.rn.bf16x2, cvt.rna.tf32) issue at a quarter of the ALU rate and
+// bounded the first version of these kernels.
+
+// (v0, v1) -> three bf16x2 terms with hi + mid + lo == (v0, v1) exactly:
+// each term is its remainder truncated to bf16 (8 significant bits), each
+// subtraction is exact, and the third remainder has at most 8 significant
+// bits left of f32's 24.  The low half of a word is v0's term.
+__device__ __forceinline__ void split_bf16x3(float v0, float v1, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  const uint32_t h0 = __float_as_uint(v0) & 0xffff0000u, h1 = __float_as_uint(v1) & 0xffff0000u;
+  const float r0 = v0 - __uint_as_float(h0), r1 = v1 - __uint_as_float(h1);
+  const uint32_t m0 = __float_as_uint(r0) & 0xffff0000u, m1 = __float_as_uint(r1) & 0xffff0000u;
+  const float s0 = r0 - __uint_as_float(m0), s1 = r1 - __uint_as_float(m1);
+  hi = __byte_perm(h0, h1, 0x7632);
+  mid = __byte_perm(m0, m1, 0x7632);
+  lo = __byte_perm(__float_as_uint(s0), __float_as_uint(s1), 0x7632);
+}
+
+// v = big + small (the 3xTF32 split): big = v rounded to the nearest TF32,
+// ties away from zero (cvt.rna.tf32.f32), small = the remainder truncated
+// to TF32; a_small x_small and small's truncation are ~2^-22 of v
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tensor cores' f32 sums are not rounded as IEEE adds are: they drop
+// low bits, and the loss grows with the depth of one accumulation chain.
+// So each pipeline stage sums into fresh registers, added to the running
+// sum with an IEEE f32 add.
+__device__ __forceinline__ void add_stage(float (&acc)[4], const float (&part)[4]) {
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) part[b] = TA(0);
-  for (int i = warp; i < N; i += WARPS) {
-    TA acc[MAXB];
-    row_partials(F + ((size_t)k * N + i) * N, r, K, N, B, k, lane, acc);
+  for (int q = 0; q < 4; ++q) acc[q] += part[q];
+}
+
+// Fragment coordinates (PTX ISA, mma.m16n8k16 / m16n8k8): grp = lane / 4,
+// tig = lane % 4; accumulator c[2h + e] is (row grp + 8h, lane col 2 tig + e).
+// The reduction index of a fragment may map to any column, as long as the
+// matrix and the vector fragments map it alike: a thread takes its pairs
+// from adjacent columns (8 tig .. 8 tig + 7 for bf16, 4 tig .. 4 tig + 3 for
+// tf32), so each fragment row is one 16-byte shared-memory read.
+//
+// Both kernels are tiled GEMMs per subdomain: a block owns 128 rows x 64
+// lanes of one k (grid: lane tiles, row tiles, K), 8 warps of 32 rows x 32
+// lanes; the depth runs in stages of 32 columns, copied to shared memory
+// with cp.async three stages ahead.  Padded rows keep every quarter warp's
+// 16-byte reads on distinct banks.
+
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src must still be mapped)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
+}
+
+constexpr int GM_BM = 128, GM_BN = 64, GM_BK = 32, GM_STAGES = 3, GM_WARPS = 8;
+constexpr int GM_MI = 2, GM_NI = 4;                  // warp tile: 32 rows x 32 lanes
+// shared-memory row strides (bytes) of one stage
+constexpr int BM_AROW = GM_BK * 4 + 64;              // f32 A row: 192 (64 mod 128)
+constexpr int BM_XROW = GM_BK * 4 + 64;              // f32 x lane: 192
+constexpr int PD_FROW = GM_BK * 2;                   // bf16 F row: 64 (64 mod 128)
+constexpr int PD_RROW = GM_BK * 4 + 16;              // f32 r lane: 144 (16 mod 32)
+constexpr int BM_STAGE = GM_BM * BM_AROW + GM_BN * BM_XROW;
+constexpr int PD_STAGE = GM_BM * PD_FROW + GM_BN * PD_RROW;
+
+// block_matvec, f32 A x f32 x, 3xTF32; the depth is the G N columns of
+// [A_0 | A_1 | ...] against [coef_0 x; coef_1 x; ...]
+__global__ void __launch_bounds__(32 * GM_WARPS)
+block_matvec_mma(const float* __restrict__ A, const float* __restrict__ x,
+                 const float* __restrict__ coef, float* __restrict__ y,
+                 int G, int K, int N, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * GM_BN, i0 = blockIdx.y * GM_BM, k = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const int steps = N / GM_BK, T = G * steps;
+
+  auto load_stage = [&](int t) {
+    const int g = t / steps, j0 = (t - g * steps) * GM_BK;
+    unsigned char* As = smem + (t % GM_STAGES) * BM_STAGE;
+    unsigned char* Xs = As + GM_BM * BM_AROW;
+    const float* Ag = A + ((size_t)g * K + k) * N * N;
+    for (int e = threadIdx.x; e < GM_BM * (GM_BK / 4); e += 32 * GM_WARPS) {
+      const int r = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, i = i0 + r;
+      cp_async16(As + r * BM_AROW + c * 4, Ag + (size_t)min(i, N - 1) * N + j0 + c, i < N);
+    }
+    for (int e = threadIdx.x; e < GM_BN * (GM_BK / 4); e += 32 * GM_WARPS) {
+      const int l = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, b = n0 + l;
+      cp_async16(Xs + l * BM_XROW + c * 4, x + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
+    }
+  };
+
+  float acc[GM_MI][GM_NI][4];
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b < B) {
-        const size_t o = ((size_t)b * K + k) * N + i;
-        const TA v = warp_sum(acc[b]);     // every lane holds the row's z
-        if (lane == 0) z[o] = v;
-        part[b] = madd(r[o], v, part[b]);
+  for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < GM_STAGES - 1; ++s) {
+    if (s < T) load_stage(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<GM_STAGES - 2>();
+    __syncthreads();                                   // stage t landed; t - 1 consumed
+    if (t + GM_STAGES - 1 < T) load_stage(t + GM_STAGES - 1);
+    cp_async_commit();
+    const int g = t / steps;
+    const unsigned char* As = smem + (t % GM_STAGES) * BM_STAGE;
+    const unsigned char* Xs = As + GM_BM * BM_AROW;
+    float cg[GM_NI];
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni) {
+      const int b = n0 + wc * 32 + ni * 8 + grp;
+      cg[ni] = b < B ? (coef != nullptr ? __ldg(coef + (size_t)b * G + g) : 1.f) : 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < GM_BK / 16; ++d) {
+      float4 a[GM_MI][2], xv[GM_NI];
+#pragma unroll
+      for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a[mi][h] = *reinterpret_cast<const float4*>(
+              As + (wr * 32 + mi * 16 + grp + 8 * h) * BM_AROW + (16 * d + 4 * tig) * 4);
+#pragma unroll
+      for (int ni = 0; ni < GM_NI; ++ni)
+        xv[ni] = *reinterpret_cast<const float4*>(
+            Xs + (wc * 32 + ni * 8 + grp) * BM_XROW + (16 * d + 4 * tig) * 4);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {                    // two k8 steps
+        uint32_t ab[GM_MI][4], as[GM_MI][4];
+#pragma unroll
+        for (int mi = 0; mi < GM_MI; ++mi) {
+          split_tf32(comp(a[mi][0], 2 * s), ab[mi][0], as[mi][0]);
+          split_tf32(comp(a[mi][1], 2 * s), ab[mi][1], as[mi][1]);
+          split_tf32(comp(a[mi][0], 2 * s + 1), ab[mi][2], as[mi][2]);
+          split_tf32(comp(a[mi][1], 2 * s + 1), ab[mi][3], as[mi][3]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < GM_NI; ++ni) {
+          uint32_t xb0, xs0, xb1, xs1;
+          split_tf32(cg[ni] * comp(xv[ni], 2 * s), xb0, xs0);
+          split_tf32(cg[ni] * comp(xv[ni], 2 * s + 1), xb1, xs1);
+#pragma unroll
+          for (int mi = 0; mi < GM_MI; ++mi) {
+            mma_tf32(acc[mi][ni], as[mi], xb0, xb1);   // small terms first
+            mma_tf32(acc[mi][ni], ab[mi], xs0, xs1);
+            mma_tf32(acc[mi][ni], ab[mi], xb0, xb1);
+          }
+        }
       }
     }
   }
-  if (lane == 0) {
+  cp_async_wait<0>();
+
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b) red[warp][b] = part[b];
+  for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + wr * 32 + mi * 16 + grp + 8 * (q >> 1);
+        const int b = n0 + wc * 32 + ni * 8 + 2 * tig + (q & 1);
+        if (i < N && b < B) y[((size_t)b * K + k) * N + i] = acc[mi][ni][q];
+      }
+}
+
+// precond_dot, bf16 F x f32 r (r split into three bf16 terms at use).  rz:
+// each block writes its 64 lanes' partial over its 128 rows to
+// partials[b, k, row tile]; the last block of each (k, lane tile), found
+// with an integer ticket that it resets, sums them in row-tile order.
+__global__ void __launch_bounds__(32 * GM_WARPS)
+precond_dot_mma(const __nv_bfloat16* __restrict__ F, const float* __restrict__ r,
+                float* __restrict__ z, float* __restrict__ rz, float* __restrict__ partials,
+                unsigned* __restrict__ tickets, int K, int N, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * GM_BN, i0 = blockIdx.y * GM_BM, k = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const int T = N / GM_BK;
+  const __nv_bfloat16* Fk = F + (size_t)k * N * N;
+
+  auto load_stage = [&](int t) {
+    const int j0 = t * GM_BK;
+    unsigned char* Fs = smem + (t % GM_STAGES) * PD_STAGE;
+    unsigned char* Rs = Fs + GM_BM * PD_FROW;
+    for (int e = threadIdx.x; e < GM_BM * (GM_BK / 8); e += 32 * GM_WARPS) {
+      const int rr = e / (GM_BK / 8), c = (e % (GM_BK / 8)) * 8, i = i0 + rr;
+      cp_async16(Fs + rr * PD_FROW + c * 2, Fk + (size_t)min(i, N - 1) * N + j0 + c, i < N);
+    }
+    for (int e = threadIdx.x; e < GM_BN * (GM_BK / 4); e += 32 * GM_WARPS) {
+      const int l = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, b = n0 + l;
+      cp_async16(Rs + l * PD_RROW + c * 4, r + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
+    }
+  };
+
+  float acc[GM_MI][GM_NI][4];
+#pragma unroll
+  for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < GM_STAGES - 1; ++s) {
+    if (s < T) load_stage(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<GM_STAGES - 2>();
+    __syncthreads();
+    if (t + GM_STAGES - 1 < T) load_stage(t + GM_STAGES - 1);
+    cp_async_commit();
+    const unsigned char* Fs = smem + (t % GM_STAGES) * PD_STAGE;
+    const unsigned char* Rs = Fs + GM_BM * PD_FROW;
+    uint4 f[GM_MI][2];
+#pragma unroll
+    for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f[mi][h] = *reinterpret_cast<const uint4*>(
+            Fs + (wr * 32 + mi * 16 + grp + 8 * h) * PD_FROW + 16 * tig);
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni) {
+      const unsigned char* rl = Rs + (wc * 32 + ni * 8 + grp) * PD_RROW + 32 * tig;
+      const float4 v[2] = {*reinterpret_cast<const float4*>(rl),
+                           *reinterpret_cast<const float4*>(rl + 16)};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {                    // two k16 steps
+        uint32_t h0, m0, l0, h1, m1, l1;
+        split_bf16x3(v[s].x, v[s].y, h0, m0, l0);
+        split_bf16x3(v[s].z, v[s].w, h1, m1, l1);
+#pragma unroll
+        for (int mi = 0; mi < GM_MI; ++mi) {
+          const uint32_t a[4] = {word(f[mi][0], 2 * s), word(f[mi][1], 2 * s),
+                                 word(f[mi][0], 2 * s + 1), word(f[mi][1], 2 * s + 1)};
+          mma_bf16(acc[mi][ni], a, l0, l1);            // small terms first
+          mma_bf16(acc[mi][ni], a, m0, m1);
+          mma_bf16(acc[mi][ni], a, h0, h1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float part[GM_NI][2];
+#pragma unroll
+  for (int ni = 0; ni < GM_NI; ++ni) part[ni][0] = part[ni][1] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < GM_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < GM_NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + wr * 32 + mi * 16 + grp + 8 * (q >> 1);
+        const int b = n0 + wc * 32 + ni * 8 + 2 * tig + (q & 1);
+        if (i < N && b < B) {
+          const size_t o = ((size_t)b * K + k) * N + i;
+          z[o] = acc[mi][ni][q];
+          part[ni][q & 1] = fmaf(r[o], acc[mi][ni][q], part[ni][q & 1]);
+        }
+      }
+  // over the 8 row groups of a warp (lanes of equal tig), the 4 row warps,
+  // then the row tiles
+  __shared__ float red[GM_WARPS][32];
+  __shared__ bool last;
+#pragma unroll
+  for (int ni = 0; ni < GM_NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = part[ni][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (grp == 0) red[warp][ni * 8 + 2 * tig + e] = v;
+    }
+  __syncthreads();
+  const int tiles = gridDim.y;
+  const unsigned ticket = blockIdx.x * K + k;
+  if (threadIdx.x < GM_BN) {
+    const int l = threadIdx.x, b = n0 + l, wcl = l >> 5;
+    if (b < B) {
+      float s = 0.f;
+      for (int w = 0; w < GM_WARPS / 2; ++w) s += red[2 * w + wcl][l & 31];
+      partials[((size_t)b * K + k) * tiles + blockIdx.y] = s;
+      __threadfence();
+    }
   }
   __syncthreads();
-  if (threadIdx.x < B) {
-    TA s = TA(0);
-    for (int w = 0; w < WARPS; ++w) s += red[w][threadIdx.x];
-    rz[(size_t)threadIdx.x * K + k] = s;
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[ticket], 1u) == (unsigned)(tiles - 1);
+  __syncthreads();
+  if (last) {
+    if (threadIdx.x < GM_BN && n0 + threadIdx.x < B) {
+      const int b = n0 + threadIdx.x;
+      const float* p = partials + ((size_t)b * K + k) * tiles;
+      float s = 0.f;
+      for (int c = 0; c < tiles; ++c) s += __ldcg(p + c);
+      rz[(size_t)b * K + k] = s;
+    }
+    if (threadIdx.x == 0) tickets[ticket] = 0u;       // ready for the next launch
   }
 }
 
 // ----------------------------------------------------------------------------
-// tiles: many lanes, shared-memory tiles and register tiles
+// ring route (the stream route's form for 5-16 lanes of block_matvec)
+// ----------------------------------------------------------------------------
+
+// A block owns 64 rows x 16 lanes of one subdomain (grid: row tiles, K), 4
+// warps of 16 rows x 16 lanes.  Tiles of 32 columns of A and x stream
+// through a 4-stage cp.async ring in shared memory (three stages in
+// flight), so no register holds a row's accumulators for 16 lanes; the
+// product runs on the tensor cores: f64 as DMMA (mma.m8n8k4.f64, IEEE f64
+// multiply-adds), f32 as 3xTF32 as on the tensor route.  The G-sum folds
+// into a reduction of depth G N, coef[b,g] x applied as x is read.
+constexpr int RG_BM = 64, RG_BN = 16, RG_BK = 32, RG_STAGES = 4, RG_WARPS = 4;
+
+// padded row stride (bytes) of one stage: every quarter warp's 16-byte
+// reads (rows grp and grp + 1, columns 4 tig ..) fall on distinct banks
+template <typename T>
+__host__ __device__ constexpr int ring_row() {
+  return RG_BK * (int)sizeof(T) + (sizeof(T) == 8 ? 16 : 64);
+}
+template <typename T>
+__host__ __device__ constexpr int ring_stage() { return (RG_BM + RG_BN) * ring_row<T>(); }
+
+__device__ __forceinline__ void mma_f64(double& c0, double& c1, double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+__device__ __forceinline__ double comp(const double2& v, int c) { return c == 0 ? v.x : v.y; }
+
+template <typename T>
+__global__ void __launch_bounds__(32 * RG_WARPS)
+stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restrict__ coef,
+            T* __restrict__ y, int G, int K, int N, int B) {
+  constexpr int ROW = ring_row<T>(), STAGE = ring_stage<T>();
+  constexpr int EV = 16 / (int)sizeof(T);            // elements per 16-byte copy
+  constexpr bool F64 = std::is_same<T, double>::value;
+  using V = typename std::conditional<F64, double2, float4>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int i0 = blockIdx.x * RG_BM, k = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int steps = N / RG_BK, T_ALL = G * steps;
+
+  // stage rows 0..63: A rows i0 ..; rows 64..79: the 16 lanes of x
+  auto load_stage = [&](int t) {
+    const int g = t / steps, j0 = (t - g * steps) * RG_BK;
+    unsigned char* S = smem + (t % RG_STAGES) * STAGE;
+    const T* Ag = A + ((size_t)g * K + k) * N * N;
+    for (int e = threadIdx.x; e < (RG_BM + RG_BN) * (RG_BK / EV); e += 32 * RG_WARPS) {
+      const int r = e / (RG_BK / EV), c = (e % (RG_BK / EV)) * EV;
+      if (r < RG_BM) {
+        const int i = i0 + r;
+        cp_async16(S + r * ROW + c * (int)sizeof(T), Ag + (size_t)min(i, N - 1) * N + j0 + c, i < N);
+      } else {
+        const int b = r - RG_BM;
+        cp_async16(S + r * ROW + c * (int)sizeof(T),
+                   x + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
+      }
+    }
+  };
+
+  // f64: [m8 tile][2 n8 tile + e]; f32 (one m16 tile): [n8 tile][c0..c3]
+  T acc[2][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
+
+#pragma unroll
+  for (int s = 0; s < RG_STAGES - 1; ++s) {
+    if (s < T_ALL) load_stage(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T_ALL; ++t) {
+    cp_async_wait<RG_STAGES - 2>();
+    __syncthreads();                                   // stage t landed; t - 1 consumed
+    if (t + RG_STAGES - 1 < T_ALL) load_stage(t + RG_STAGES - 1);
+    cp_async_commit();
+    const int g = t / steps;
+    const unsigned char* As = smem + (t % RG_STAGES) * STAGE;
+    const unsigned char* Xs = As + RG_BM * ROW;
+    T cg[2];
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int b = ni * 8 + grp;
+      cg[ni] = (coef != nullptr && b < B) ? __ldg(coef + (size_t)b * G + g) : T(1);
+    }
+    float stage_acc[2][4] = {};                        // f32: this stage's sums
+    // a thread reads columns 16 d + 4 tig .. + 3 of its rows (A) and lanes
+    // (x); the fragments map their reduction index to those columns alike
+#pragma unroll
+    for (int d = 0; d < RG_BK / 16; ++d) {
+      const int col = (16 * d + 4 * tig) * (int)sizeof(T);
+      if constexpr (F64) {
+        V a[2][2], xv[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            a[mi][h] = *reinterpret_cast<const V*>(As + (warp * 16 + mi * 8 + grp) * ROW + col + 16 * h);
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+            xv[ni][h] = *reinterpret_cast<const V*>(Xs + (ni * 8 + grp) * ROW + col + 16 * h);
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {                  // four k4 steps
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) {
+            const double bx = cg[ni] * comp(xv[ni][s >> 1], s & 1);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              mma_f64(acc[mi][2 * ni], acc[mi][2 * ni + 1], comp(a[mi][s >> 1], s & 1), bx);
+          }
+        }
+      } else {
+        V a[2], xv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a[h] = *reinterpret_cast<const V*>(As + (warp * 16 + grp + 8 * h) * ROW + col);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          xv[ni] = *reinterpret_cast<const V*>(Xs + (ni * 8 + grp) * ROW + col);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {                  // two k8 steps
+          uint32_t ab[4], as[4];
+          split_tf32(comp(a[0], 2 * s), ab[0], as[0]);
+          split_tf32(comp(a[1], 2 * s), ab[1], as[1]);
+          split_tf32(comp(a[0], 2 * s + 1), ab[2], as[2]);
+          split_tf32(comp(a[1], 2 * s + 1), ab[3], as[3]);
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) {
+            uint32_t xb0, xs0, xb1, xs1;
+            split_tf32(cg[ni] * comp(xv[ni], 2 * s), xb0, xs0);
+            split_tf32(cg[ni] * comp(xv[ni], 2 * s + 1), xb1, xs1);
+            mma_tf32(stage_acc[ni], as, xb0, xb1);     // small terms first
+            mma_tf32(stage_acc[ni], ab, xs0, xs1);
+            mma_tf32(stage_acc[ni], ab, xb0, xb1);
+          }
+        }
+      }
+    }
+    if constexpr (!F64) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) add_stage(acc[ni], stage_acc[ni]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // f64: c[e] of (mi, ni) is (row 8 mi + grp, lane 8 ni + 2 tig + e);
+  // f32: c[2 h + e] of ni is (row grp + 8 h, lane 8 ni + 2 tig + e)
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + warp * 16 + 8 * p + grp, b = ni * 8 + 2 * tig + e;
+        const T v = F64 ? acc[p][2 * ni + e] : acc[ni][2 * p + e];
+        if (i < N && b < B) y[((size_t)b * K + k) * N + i] = v;
+      }
+}
+
+template <typename T>
+int launch_ring(const T* A, const T* x, const T* coef, T* y, int G, int K, int N, int B,
+                cudaStream_t s) {
+  if (B > RG_BN || N % RG_BK != 0 || !aligned16(A) || !aligned16(x))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = RG_STAGES * ring_stage<T>();
+  cudaFuncSetAttribute(stream_ring<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dim3 grid((N + RG_BM - 1) / RG_BM, K);
+  stream_ring<T><<<grid, 32 * RG_WARPS, bytes, s>>>(A, x, coef, y, G, K, N, B);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------------------
+// tiles route (unchanged from the first port)
 // ----------------------------------------------------------------------------
 
 // out[q][l] = sum_g coef[b,g] sum_j A[g,k,i,j] x[b,k,j] for this thread's
@@ -278,74 +998,114 @@ precond_dot_tiles(const TS* __restrict__ F, const TA* __restrict__ r,
   }
 }
 
-enum { kF64 = 0, kF32 = 1, kBF16 = 2 };
+// ----------------------------------------------------------------------------
+// dispatch
+// ----------------------------------------------------------------------------
 
 template <typename TS, typename TA>
-int launch_block_matvec(const void* A, const void* x, const void* coef, void* y,
-                        int G, int K, int N, int B, cudaStream_t s) {
+int launch_block_matvec(int route, int lanes, int C, const void* A, const void* x,
+                        const void* coef, void* y, int G, int K, int N, int B,
+                        cudaStream_t s) {
   const TS* a = static_cast<const TS*>(A);
   const TA* xv = static_cast<const TA*>(x);
   const TA* c = static_cast<const TA*>(coef);
   TA* yv = static_cast<TA*>(y);
-  if (B <= MAXB) {
-    constexpr int WARPS = 8;
-    dim3 grid(K, (N + WARPS - 1) / WARPS);
-    block_matvec_rows<TS, TA, WARPS><<<grid, 32 * WARPS, 0, s>>>(a, xv, c, yv, G, K, N, B);
-  } else {
+  if (route == kStream)
+    return launch_stream<TS, TA, false>(lanes, C, a, xv, c, yv, nullptr, nullptr, nullptr,
+                                        G, K, N, B, s);
+  if (route == kTensor) {
+    if constexpr (std::is_same<TS, float>::value && std::is_same<TA, float>::value) {
+      if (N % GM_BK != 0 || !aligned16(A) || !aligned16(x)) return (int)cudaErrorInvalidValue;
+      const int bytes = GM_STAGES * BM_STAGE;
+      cudaFuncSetAttribute(block_matvec_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      dim3 grid((B + GM_BN - 1) / GM_BN, (N + GM_BM - 1) / GM_BM, K);
+      block_matvec_mma<<<grid, 32 * GM_WARPS, bytes, s>>>(a, xv, c, yv, G, K, N, B);
+      return (int)cudaGetLastError();
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kRing) {
+    if constexpr (std::is_same<TS, TA>::value && !std::is_same<TS, __nv_bfloat16>::value)
+      return launch_ring<TA>(a, xv, c, yv, G, K, N, B, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kTiles) {
     // 64 rows x 64 lanes per block, 4 x 4 (row, lane) accumulators a thread
     dim3 grid(K, (N + 63) / 64, (B + 63) / 64);
     block_matvec_tiles<TS, TA, 64, 64, 4, 4><<<grid, 256, 0, s>>>(a, xv, c, yv, G, K, N, B);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename TS, typename TA>
-int launch_precond_dot(const void* F, const void* r, void* z, void* rz,
-                       int K, int N, int B, cudaStream_t s) {
+int launch_precond_dot(int route, int lanes, int C, const void* F, const void* r, void* z,
+                       void* rz, void* partials, void* tickets, int K, int N, int B,
+                       cudaStream_t s) {
   const TS* f = static_cast<const TS*>(F);
   const TA* rv = static_cast<const TA*>(r);
   TA* zv = static_cast<TA*>(z);
   TA* rzv = static_cast<TA*>(rz);
-  if (B <= MAXB) {
-    constexpr int WARPS = 16;
-    precond_dot_rows<TS, TA, WARPS><<<K, 32 * WARPS, 0, s>>>(f, rv, zv, rzv, K, N, B);
-  } else {
+  if (route == kStream) {
+    if (partials == nullptr || tickets == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_stream<TS, TA, true>(lanes, C, f, rv, nullptr, zv, rzv,
+                                       static_cast<TA*>(partials),
+                                       static_cast<unsigned*>(tickets), 1, K, N, B, s);
+  }
+  if (route == kTensor) {
+    if constexpr (std::is_same<TS, __nv_bfloat16>::value && std::is_same<TA, float>::value) {
+      if (N % GM_BK != 0 || !aligned16(F) || !aligned16(r) || partials == nullptr ||
+          tickets == nullptr)
+        return (int)cudaErrorInvalidValue;
+      const int bytes = GM_STAGES * PD_STAGE;
+      if (bytes > 48 * 1024)
+        cudaFuncSetAttribute(precond_dot_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      dim3 grid((B + GM_BN - 1) / GM_BN, (N + GM_BM - 1) / GM_BM, K);
+      precond_dot_mma<<<grid, 32 * GM_WARPS, bytes, s>>>(
+          f, rv, zv, rzv, static_cast<float*>(partials), static_cast<unsigned*>(tickets), K, N, B);
+      return (int)cudaGetLastError();
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kTiles) {
     // 64 rows x 32 lanes per step, 4 x 2 accumulators a thread; a block
     // walks all row tiles of its subdomain
     dim3 grid(K, (B + 31) / 32);
     precond_dot_tiles<TS, TA, 32, 64, 4, 2><<<grid, 256, 0, s>>>(f, rv, zv, rzv, K, N, B);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int pylrbms_block_matvec(int a_dtype, int x_dtype, const void* A,
-                                    const void* x, const void* coef, void* y,
-                                    int G, int K, int N, int B, void* stream) {
+extern "C" int pylrbms_block_matvec(int route, int lanes, int chunks, int a_dtype, int x_dtype,
+                                    const void* A, const void* x, const void* coef,
+                                    void* y, int G, int K, int N, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF64 && a_dtype == kF64)
-    return launch_block_matvec<double, double>(A, x, coef, y, G, K, N, B, s);
+    return launch_block_matvec<double, double>(route, lanes, chunks, A, x, coef, y, G, K, N, B, s);
   if (x_dtype == kF64 && a_dtype == kBF16)
-    return launch_block_matvec<__nv_bfloat16, double>(A, x, coef, y, G, K, N, B, s);
+    return launch_block_matvec<__nv_bfloat16, double>(route, lanes, chunks, A, x, coef, y, G, K, N, B, s);
   if (x_dtype == kF32 && a_dtype == kF32)
-    return launch_block_matvec<float, float>(A, x, coef, y, G, K, N, B, s);
+    return launch_block_matvec<float, float>(route, lanes, chunks, A, x, coef, y, G, K, N, B, s);
   if (x_dtype == kF32 && a_dtype == kBF16)
-    return launch_block_matvec<__nv_bfloat16, float>(A, x, coef, y, G, K, N, B, s);
+    return launch_block_matvec<__nv_bfloat16, float>(route, lanes, chunks, A, x, coef, y, G, K, N, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int pylrbms_precond_dot(int f_dtype, int r_dtype, const void* F,
-                                   const void* r, void* z, void* rz,
-                                   int K, int N, int B, void* stream) {
+extern "C" int pylrbms_precond_dot(int route, int lanes, int chunks, int f_dtype, int r_dtype,
+                                   const void* F, const void* r, void* z, void* rz,
+                                   void* partials, void* tickets, int K, int N, int B,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r_dtype == kF64 && f_dtype == kF64)
-    return launch_precond_dot<double, double>(F, r, z, rz, K, N, B, s);
+    return launch_precond_dot<double, double>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
   if (r_dtype == kF64 && f_dtype == kBF16)
-    return launch_precond_dot<__nv_bfloat16, double>(F, r, z, rz, K, N, B, s);
+    return launch_precond_dot<__nv_bfloat16, double>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
   if (r_dtype == kF32 && f_dtype == kF32)
-    return launch_precond_dot<float, float>(F, r, z, rz, K, N, B, s);
+    return launch_precond_dot<float, float>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
   if (r_dtype == kF32 && f_dtype == kBF16)
-    return launch_precond_dot<__nv_bfloat16, float>(F, r, z, rz, K, N, B, s);
+    return launch_precond_dot<__nv_bfloat16, float>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from pylrbms_tpu.ops.spaces import BlockDGSpace
-from pylrbms_tpu.config import validate_solver_options
-
+from .config import validate_solver_options
+from .ops.spaces import BlockDGSpace
 from .utils.precision import pin_precision, device as _device
 from .ops import assembly as asm
 from .ops import products as prod

@@ -20,9 +20,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pylrbms_tpu.config import validate_solver_options
-
-from .utils.precision import pin_precision
+from .config import validate_solver_options
+from .utils.precision import pin_precision, device as _device
 from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
                        geneo_coarse_basis, harvested_coarse_basis, neumann_blocks,
                        prepare_coarse, reblock, unblock)
@@ -100,7 +99,7 @@ class StationaryBlockModel:
     products: Dict[str, torch.Tensor] = field(default_factory=dict)
     solver_options: Optional[dict] = None
     dtype: torch.dtype = torch.float64
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None  # None: the current CUDA device
     name: str = "StationaryBlockModel"
     # Krylov count of the last matrix-free solve (None after other solves)
     last_solve_iters: Optional[torch.Tensor] = field(default=None, init=False, repr=False)
@@ -111,6 +110,9 @@ class StationaryBlockModel:
     _mf_cache: dict = field(default_factory=dict, init=False, repr=False)
     _mf_lock: threading.Lock = field(default_factory=threading.Lock, init=False,
                                      repr=False, compare=False)
+
+    def __post_init__(self):
+        self.device = _device(self.device)
 
     @property
     def operators(self) -> OperatorDictView:

@@ -10,6 +10,14 @@ header for the design and what bounds them on the card):
 * :func:`precond_dot` <- ``precond_dot_pallas``:
   ``z[b,k] = F[k] @ r[b,k]`` and ``rz[b,k] = r[b,k] . z[b,k]``.
 
+Each launch takes one of three routes, which :func:`plan` picks from the
+shape and dtypes by arithmetic intensity (operations per byte against the
+card's ridge): ``stream`` (memory-bound, B <= 16 lanes; at 5-16 lanes
+block_matvec's f64 and f32 pairs take its ``ring`` form, a cp.async ring
+of A tiles with the product on the tensor cores), ``tensor`` (tensor cores
+on split operands: bf16 F x f32 r in precond_dot, f32 x f32 in
+block_matvec) and ``tiles`` (SIMT, every other pair at many lanes).
+
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
 the kernel or raises — there is no fallback and no switch.  Each wrapper
@@ -25,9 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +52,108 @@ _DTYPE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 # (matrix dtype, vector dtype) pairs the kernels are instantiated for
 _SUPPORTED = {(torch.float64, torch.float64), (torch.bfloat16, torch.float64),
               (torch.float32, torch.float32), (torch.bfloat16, torch.float32)}
+
+
+# routes (the ints the C entry points take) and what plan() knows of them;
+# RING is the stream route's form for 5-16 lanes of block_matvec
+STREAM, TENSOR, TILES, RING = 0, 1, 2, 3
+ROUTE_NAMES = {STREAM: "stream", TENSOR: "tensor", TILES: "tiles", RING: "ring"}
+STREAM_LANES = (1, 4, 16)          # lane counts the stream kernels hold in registers
+ROWS_PER_BLOCK = 32                # stream route: rows of one subdomain per block chunk
+STREAM_CHUNKS = 8                  # stream route: most row chunks per block
+SMEM_BYTES = 200 * 1024            # the kernels' largest dynamic shared memory
+MMA_ROWS, MMA_LANES = 128, 64     # tensor route: rows and lanes per block
+MMA_DEPTH = 32                     # tensor and ring routes: columns per pipeline stage
+RING_ROWS = 64                     # ring route: rows per block (16 lanes)
+SMS = 132                          # streaming multiprocessors of the H100 SXM
+# (kernel, matrix dtype, vector dtype) pairs with a tensor-core route
+TENSOR_PAIRS = {("precond_dot", torch.bfloat16, torch.float32),
+                ("block_matvec", torch.float32, torch.float32)}
+RING_PAIRS = {("block_matvec", torch.float64, torch.float64),
+              ("block_matvec", torch.float32, torch.float32)}
+# H100 SXM at 700 W (NVIDIA's data sheet): bytes/s of HBM3, dense operations/s
+# (f64 and f32 outside the tensor cores; f64 on them; TF32; bf16)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12, "f64 tensor": 67e12, "tf32": 495e12,
+                  "bf16": 989e12}
+
+
+class Plan(NamedTuple):
+    route: int          # STREAM, RING, TENSOR or TILES
+    lanes: int          # stream, ring: lanes a block computes (STREAM_LANES); else 0
+    chunks: int         # stream: 32-row chunks per block; else 1
+    blocks: int         # thread blocks of the launch
+
+    @property
+    def name(self) -> str:
+        return ROUTE_NAMES[self.route]
+
+
+def work(kind, G, K, N, B, mdt, vdt):
+    """(operations, bytes) of one call: 2 G K N^2 B multiply-adds' worth of
+    operations; each input read once and each output written once."""
+    sm, sv = torch.finfo(mdt).bits // 8, torch.finfo(vdt).bits // 8
+    nbytes = G * K * N * N * sm + 2 * B * K * N * sv
+    nbytes += B * G * sv if G > 1 else 0                   # coef
+    nbytes += B * K * sv if kind == "precond_dot" else 0   # rz
+    return 2 * G * K * N * N * B, nbytes
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
+    """The route of one launch, by arithmetic intensity.  Below the ridge of
+    the vector type's SIMT rate (operations/s over bytes/s: ~20 for f32, ~10
+    for f64) the call is memory-bound and streams (B <= 16): in registers
+    up to 4 lanes, through the ring at 5-16 lanes for the pairs in
+    :data:`RING_PAIRS`; above it the pairs in :data:`TENSOR_PAIRS` take the
+    tensor cores, every other pair the SIMT tiles.  The ring and tensor
+    routes need N % 32 == 0 and 16-byte aligned operands."""
+    ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
+    simt = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
+    mma = N % MMA_DEPTH == 0 and aligned
+    if ops / nbytes < simt / HBM_BYTES_PER_S and B <= STREAM_LANES[-1]:
+        lanes = min(n for n in STREAM_LANES if n >= B)
+        if lanes == STREAM_LANES[-1] and (kind, mdt, vdt) in RING_PAIRS and mma:
+            return Plan(RING, lanes, 1, K * math.ceil(N / RING_ROWS))
+        chunks = _stream_chunks(G, K, N, lanes, torch.finfo(vdt).bits // 8)
+        return Plan(STREAM, lanes, chunks, K * math.ceil(N / (ROWS_PER_BLOCK * chunks)))
+    if (kind, mdt, vdt) in TENSOR_PAIRS and mma:
+        return Plan(TENSOR, 0, 1, K * math.ceil(B / MMA_LANES) * math.ceil(N / MMA_ROWS))
+    if kind == "block_matvec":
+        return Plan(TILES, 0, 1, K * math.ceil(N / 64) * math.ceil(B / 64))
+    return Plan(TILES, 0, 1, K * math.ceil(B / 32))
+
+
+def _stream_chunks(G, K, N, lanes, sv):
+    """32-row chunks per stream block: one for a single lane (x is small);
+    otherwise as many as keep >= 2 waves of blocks on the card, where all of
+    x fits in shared memory (it is staged once per block and should cost
+    little beside the block's rows of A)."""
+    if lanes == 1 or G * lanes * 256 * math.ceil(N / 256) * sv > SMEM_BYTES:
+        return 1
+    chunks = 1
+    while (chunks < STREAM_CHUNKS
+           and K * math.ceil(N / (ROWS_PER_BLOCK * (chunks + 1))) >= 2 * SMS):
+        chunks += 1
+    return chunks
+
+
+def bound(kind, G, K, N, B, mdt, vdt):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    one call on the route :func:`plan` picks — bytes over the HBM rate, or
+    the operations that route does over its peak (the split f32 products on
+    the tensor cores do three products per product), whichever is
+    larger."""
+    ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
+    route = plan(kind, G, K, N, B, mdt, vdt).route
+    if route in (TENSOR, RING) and vdt == torch.float64:
+        rate = PEAK_OPS_PER_S["f64 tensor"]
+    elif route in (TENSOR, RING):
+        ops, rate = 3 * ops, PEAK_OPS_PER_S["bf16" if mdt == torch.bfloat16 else "tf32"]
+    else:
+        rate = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +212,11 @@ def _lib():
         build()
     lib = ctypes.CDLL(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pylrbms_block_matvec.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.pylrbms_block_matvec.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp,
+                                         ci, ci, ci, ci, vp]
     lib.pylrbms_block_matvec.restype = ci
-    lib.pylrbms_precond_dot.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.pylrbms_precond_dot.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
+                                        ci, ci, ci, vp]
     lib.pylrbms_precond_dot.restype = ci
     return lib
 
@@ -127,13 +241,45 @@ def _check_cuda(name, mat, *vecs):
             raise TypeError(f"{name}: vector dtypes differ ({t.dtype} vs {vecs[0].dtype})")
 
 
-def _stream(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(name, rc):
+def _launch(name, fn, dev, stream, *args):
+    """``fn(*args, stream)`` with ``dev`` the current device (the launch
+    goes to the current device); raises if the launch failed."""
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc}")
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# precond_dot's rz scratch (stream and tensor routes), per (device, stream):
+# integer tickets, one per subdomain (and lane tile), zero between launches
+# (the last block of each resets its own), and the rz partials [B, K, row
+# blocks] per vector dtype
+_PD_WORKSPACE: dict = {}
+
+
+def _pd_scratch(p, K, N, B):
+    """(tickets, partials) element counts of one precond_dot launch."""
+    if p.route == STREAM:
+        return K, B * K * (p.blocks // K)
+    return K * math.ceil(B / MMA_LANES), B * K * math.ceil(N / MMA_ROWS)
+
+
+def _pd_workspace(r, stream, n_tickets, n_partials):
+    ws = _PD_WORKSPACE.setdefault((r.device, stream), {})
+    tickets = ws.get("tickets")
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = ws["tickets"] = torch.zeros(n_tickets, dtype=torch.int32, device=r.device)
+    partials = ws.get(r.dtype)
+    if partials is None or partials.numel() < n_partials:
+        partials = ws[r.dtype] = torch.empty(n_partials, dtype=r.dtype, device=r.device)
+    return tickets, partials
 
 
 # ---------------------------------------------------------------------------
@@ -159,13 +305,13 @@ def block_matvec(A, x, coef=None):
     if all(t.device.type == "cpu" for t in tensors):
         return block_matvec_plain(A, x, coef)
     _check_cuda("block_matvec", *tensors)
+    p = plan("block_matvec", G, K, N, B, A.dtype, x.dtype, _aligned(*tensors))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().pylrbms_block_matvec(
-            _DTYPE_CODE[A.dtype], _DTYPE_CODE[x.dtype], A.data_ptr(), x.data_ptr(),
-            None if coef is None else coef.data_ptr(), y.data_ptr(),
-            G, K, N, B, _stream(x))
-    _raise_on("block_matvec", rc)
+    _launch("block_matvec", _lib().pylrbms_block_matvec, x.device,
+            torch.cuda.current_stream(x.device).cuda_stream,
+            p.route, p.lanes, p.chunks, _DTYPE_CODE[A.dtype], _DTYPE_CODE[x.dtype],
+            A.data_ptr(), x.data_ptr(), None if coef is None else coef.data_ptr(),
+            y.data_ptr(), G, K, N, B)
     block_matvec.launches += 1
     block_matvec.signatures.add((G, K, N, B, A.dtype, x.dtype))
     return y
@@ -183,13 +329,18 @@ def precond_dot(F, r):
     _check_cuda("precond_dot", F, r)
     K, N, _ = F.shape
     B = r.shape[0]
+    p = plan("precond_dot", 1, K, N, B, F.dtype, r.dtype, _aligned(F, r))
     z = torch.empty_like(r)
     rz = torch.empty((B, K), dtype=r.dtype, device=r.device)
-    with torch.cuda.device(r.device):
-        rc = _lib().pylrbms_precond_dot(
-            _DTYPE_CODE[F.dtype], _DTYPE_CODE[r.dtype], F.data_ptr(), r.data_ptr(),
-            z.data_ptr(), rz.data_ptr(), K, N, B, _stream(r))
-    _raise_on("precond_dot", rc)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    tickets = partials = None
+    if p.route != TILES:
+        tickets, partials = (t.data_ptr()
+                             for t in _pd_workspace(r, stream, *_pd_scratch(p, K, N, B)))
+    _launch("precond_dot", _lib().pylrbms_precond_dot, r.device, stream,
+            p.route, p.lanes, p.chunks, _DTYPE_CODE[F.dtype], _DTYPE_CODE[r.dtype],
+            F.data_ptr(), r.data_ptr(), z.data_ptr(), rz.data_ptr(), partials, tickets,
+            K, N, B)
     precond_dot.launches += 1
     precond_dot.signatures.add((1, K, N, B, F.dtype, r.dtype))
     return z, rz

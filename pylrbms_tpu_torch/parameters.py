@@ -15,6 +15,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .utils.precision import device as _device
+
 
 Mu = Dict[str, "torch.Tensor"]
 ParameterType = Optional[Dict[str, Tuple[int, ...]]]
@@ -187,10 +189,11 @@ def as_functional(coeff) -> ParameterFunctional:
 
 
 def _mu_device(mu) -> torch.device:
+    """The device of mu's first tensor, else the port's default device."""
     for v in (mu or {}).values():
         if isinstance(v, torch.Tensor):
             return v.device
-    return torch.device("cpu")
+    return _device(None)
 
 
 def evaluate_coefficients(coeffs: Sequence, mu: Mu, dtype=torch.float64,

@@ -5,9 +5,8 @@
   kappa = I, f = pi^2/2 * c
 At mu = 1: lambda == 1 and u = c is the exact solution.
 """
-from pylrbms_tpu.grid import make_grid, make_boundary_info
-from pylrbms_tpu.config import validate_config
-
+from ..grid import make_grid, make_boundary_info
+from ..config import validate_config
 from ..functions import (make_expression_function_1x1,
                          make_constant_function_2x2)
 from ..parameters import ExpressionParameterFunctional

@@ -20,10 +20,16 @@ def pin_precision() -> None:
 
 
 def device(name=None) -> torch.device:
-    """``torch.device`` for ``name`` (default ``"cpu"``); raises when a CUDA
-    device is asked for and none is available — the port never silently
-    falls back to the CPU."""
-    dev = torch.device("cpu" if name is None else name)
+    """``torch.device`` for ``name``; the default (``None``) is the current
+    CUDA device.  Raises when a CUDA device is meant and none is available:
+    the port runs on the card unless the caller names the CPU
+    (``device="cpu"``), and never falls back to it."""
+    if name is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no device given and CUDA is not available: "
+                               "pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev

@@ -49,7 +49,7 @@ def models(request):
     cfg = CONFIGS[request.param]
     dj, _ = jax_discretize(jax_problem(cfg))
     gpd = init_grid_and_problem(cfg)
-    dt, _ = discretize(gpd)
+    dt, _ = discretize(gpd, device="cpu")
     return dj, dt, gpd
 
 
@@ -122,7 +122,7 @@ def test_energy_product(models):
 
 
 def test_lean_model_drops_only_matrix_form_tensors():
-    dt, _ = discretize(init_grid_and_problem(CONFIGS["entry"]), lean=True)
+    dt, _ = discretize(init_grid_and_problem(CONFIGS["entry"]), device="cpu", lean=True)
     ed = dt.estimator.data
     assert ed.M_aa is None and ed.BB is None and ed.M_ab is None and ed.R_dd is None
     assert ed.E_bar is not None and ed.d_vec is not None

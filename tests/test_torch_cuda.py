@@ -40,9 +40,16 @@ DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
 
 
 @pytest.mark.parametrize("G,K,N,B", [(2, 8, 384, 1), (2, 8, 384, 64),
-                                     (1, 4, 24, 3), (2, 3, 130, 9)])
+                                     (1, 4, 24, 3), (2, 3, 130, 9),
+                                     (1, 8, 1536, 1), (1, 8, 1536, 16),
+                                     (2, 8, 384, 256), (2, 8, 384, 100),
+                                     (2, 3, 96, 40), (2, 3, 96, 9), (1, 8, 384, 12)])
 def test_kernels_match_plain_versions(cuda, G, K, N, B):
-    """Both shapes of each kernel (rows for B <= 8, tiles above), ragged N."""
+    """Every route of each kernel (stream for B <= 16, in its ring form for
+    block_matvec's f64 and f32 pairs at 5-16 lanes, tensor cores for the
+    serving pairs at many lanes, SIMT tiles for the rest), the scale
+    solve's N=1536 blocks, the serving batch and harvest, a ring with a
+    half-empty row tile and masked lanes, ragged N (scalar loads)."""
     rng = np.random.default_rng(3)
     hk.reset_launch_counts()
     for mdt, vdt, tol, tol_rz in DTYPES:
@@ -59,6 +66,24 @@ def test_kernels_match_plain_versions(cuda, G, K, N, B):
     assert hk.launch_signatures() == {
         "block_matvec": {(G, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
         "precond_dot": {(1, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES}}
+
+
+@pytest.mark.parametrize("N,B,fdt,rdt", [(1536, 1, torch.float32, torch.float32),
+                                         (384, 4, torch.bfloat16, torch.float32),
+                                         (384, 256, torch.bfloat16, torch.float32),
+                                         (384, 64, torch.float64, torch.float64)])
+def test_precond_dot_rz_is_bitwise_reproducible(cuda, N, B, fdt, rdt):
+    """rz is summed in a fixed order on every route (the stream route's
+    per-block partials by the last block of each subdomain): two launches
+    on the same input give the same bits."""
+    rng = np.random.default_rng(23)
+    K = 16
+    F = torch.tensor(rng.normal(size=(K, N, N)), device=cuda).to(fdt)
+    r = torch.tensor(rng.normal(size=(B, K, N)), device=cuda).to(rdt)
+    (z1, rz1), (z2, rz2) = hk.precond_dot(F, r), hk.precond_dot(F, r)
+    torch.cuda.synchronize()
+    assert torch.equal(rz1, rz2) and torch.equal(z1, z2)
+    assert _rel(rz1, hk.precond_dot_plain(F, r)[1]) <= (1e-12 if rdt == torch.float64 else 2e-4)
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):

@@ -37,7 +37,7 @@ def rel(a, b):
 @pytest.fixture(scope="module")
 def setup():
     dj, _ = jax_discretize(jax_problem(CFG))
-    dt, _ = discretize(init_grid_and_problem(CFG))
+    dt, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     # the detailed solutions at MUS (JAX dense solve) plus a rough random
     # field, so the nonconformity and residual terms are far from zero
     rng = np.random.default_rng(0)

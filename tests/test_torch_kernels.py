@@ -99,3 +99,141 @@ def test_wrappers_reject_bad_shapes():
         hk.block_matvec(A, x, torch.ones((2, 2), dtype=torch.float64))
     with pytest.raises(ValueError):
         hk.precond_dot(A[0], torch.ones((1, 3, 3), dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes' split arithmetic, emulated in plain torch (the
+# kernels themselves run only on the card), and the routing of plan()
+# ---------------------------------------------------------------------------
+
+def _bits(v, add, mask):
+    u = v.numpy().view(np.uint32)
+    return torch.from_numpy(((u + np.uint32(add)) & np.uint32(mask)).view(np.float32))
+
+
+def bf16_trunc(v):
+    """f32 -> bf16 (as f32) by truncation: the low 16 bits cleared."""
+    return _bits(v, 0, 0xFFFF0000)
+
+
+def split_bf16x3(r):
+    """f32 r -> three bf16 terms (as f32), each the truncation of what the
+    terms before it left, as ``split_bf16x3`` in the CUDA source."""
+    r1 = bf16_trunc(r)
+    r2 = bf16_trunc(r - r1)
+    r3 = bf16_trunc(r - r1 - r2)
+    return r1, r2, r3
+
+
+def tf32_rna(v):
+    """f32 -> the nearest TF32 (10 stored mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``."""
+    return _bits(v, 0x1000, 0xFFFFE000)
+
+
+def tf32_trunc(v):
+    return _bits(v, 0, 0xFFFFE000)
+
+
+def _normwise(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def test_bf16_three_way_split_is_exact_and_products_stay_f32_accurate():
+    rng = np.random.default_rng(17)
+    K, N, B = 4, 384, 8
+    r = torch.tensor(rng.normal(size=(B, K, N)), dtype=torch.float32)
+    edges = torch.tensor([1.0 + 2.0**-23, -(1.0 + 2.0**-23), 3.0 * 2.0**-100, -0.0, 0.0,
+                          np.float32(np.pi), 65504.0, 1e-30], dtype=torch.float32)
+    r.view(-1)[:len(edges)] = edges
+    r1, r2, r3 = split_bf16x3(r)
+    for t in (r1, r2, r3):                               # each term is a bf16
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    assert torch.equal(r1.double() + r2.double() + r3.double(), r.double())
+    F = torch.tensor(rng.normal(size=(K, N, N)), dtype=torch.float32).to(torch.bfloat16)
+    Ff = F.float()
+    z = torch.zeros_like(r)
+    for t in (r3, r2, r1):                               # small terms first, f32 sums
+        z = z + torch.einsum("kij,bkj->bki", Ff, t)
+    z_ref = torch.einsum("kij,bkj->bki", F.double(), r.double())
+    assert _normwise(z, z_ref) <= 2e-5                   # phase 3's f32 tolerance
+
+
+def test_3xtf32_products_match_f64():
+    # observed on the CPU: 6.1e-7 normwise at N=384 (plain f32 einsum on the
+    # same inputs: 8.1e-7; one TF32 product alone: 3.2e-4); the dropped
+    # a_small x_small term is ~2^-22 relative
+    rng = np.random.default_rng(19)
+    G, K, N, B = 2, 4, 384, 8
+    A = torch.tensor(rng.normal(size=(G, K, N, N)), dtype=torch.float32)
+    x = torch.tensor(rng.normal(size=(B, K, N)), dtype=torch.float32)
+    coef = torch.tensor(rng.normal(size=(B, G)), dtype=torch.float32)
+    cx = coef.T[:, :, None, None] * x[None]              # [G, B, K, N]: coef * x staged
+    a_big = tf32_rna(A)
+    a_small = tf32_trunc(A - a_big)
+    x_big = tf32_rna(cx)
+    x_small = tf32_trunc(cx - x_big)
+    y = torch.zeros((B, K, N), dtype=torch.float32)
+    for a, v in ((a_small, x_big), (a_big, x_small), (a_big, x_big)):
+        y = y + torch.einsum("gkij,gbkj->bki", a, v)
+    y_ref = torch.einsum("bg,gkij,bkj->bki", coef.double(), A.double(), x.double())
+    err = _normwise(y, y_ref)
+    assert err <= 2e-5, err
+    # one TF32 product alone loses the digits CG needs
+    y1 = torch.einsum("gkij,gbkj->bki", a_big, x_big)
+    assert _normwise(y1, y_ref) > 1e-4
+
+
+f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+MAIN_PATH_SHAPES = [
+    # (kernel, G, K, N, B, matrix dtype, vector dtype, route, bound ms, limit)
+    ("precond_dot", 1, 64, 1536, 1, f32, f32, hk.STREAM, 0.180, "bytes"),    # scale solve M
+    ("block_matvec", 1, 64, 1536, 1, f64, f64, hk.STREAM, 0.361, "bytes"),   # scale harvest
+    ("block_matvec", 1, 64, 1536, 16, f64, f64, hk.RING, 0.368, "bytes"),
+    ("precond_dot", 1, 64, 384, 256, bf16, f32, hk.TENSOR, 0.0207, "bytes"),  # serving M
+    ("block_matvec", 2, 64, 384, 256, f32, f32, hk.TENSOR, 0.0586,          # serving apply
+     "operations"),
+    ("block_matvec", 2, 64, 384, 1, f32, f32, hk.STREAM, 0.0225, "bytes"),
+    ("block_matvec", 1, 64, 384, 12, f32, f32, hk.RING, 0.0118, "bytes"),    # serving harvest
+    ("block_matvec", 1, 64, 384, 1, f32, f32, hk.STREAM, 0.0113, "bytes"),
+    ("precond_dot", 1, 64, 384, 1, bf16, f32, hk.STREAM, 0.0057, "bytes"),   # single query M
+]
+
+
+@pytest.mark.parametrize("kind,G,K,N,B,mdt,vdt,route,bound_ms,limit", MAIN_PATH_SHAPES)
+def test_plan_routes_main_path_shapes(kind, G, K, N, B, mdt, vdt, route, bound_ms, limit):
+    p = hk.plan(kind, G, K, N, B, mdt, vdt)
+    assert p.route == route, p
+    if route in (hk.STREAM, hk.RING):                    # the stream route, both forms
+        assert p.lanes >= B and p.lanes in hk.STREAM_LANES
+        assert p.blocks >= 2 * 132                       # >= 2 waves on the H100
+    assert hk.bound(kind, G, K, N, B, mdt, vdt) == (pytest.approx(bound_ms, rel=0.02), limit)
+
+
+def test_plan_keeps_simt_tiles_for_other_pairs_at_many_lanes():
+    for kind, mdt, vdt in (("block_matvec", f64, f64), ("precond_dot", f64, f64),
+                           ("precond_dot", f32, f32), ("precond_dot", bf16, f64),
+                           ("block_matvec", bf16, f32)):
+        assert hk.plan(kind, 1, 64, 384, 256, mdt, vdt).route == hk.TILES
+    # the tensor route needs N % 32 == 0 and 16-byte aligned operands
+    assert hk.plan("precond_dot", 1, 64, 400, 256, bf16, f32).route == hk.TILES
+    assert hk.plan("block_matvec", 2, 64, 384, 256, f32, f32, aligned=False).route == hk.TILES
+    # every lane count up to 16 streams; the tail shapes of chip_smoke too
+    for B in range(1, 17):
+        p = hk.plan("block_matvec", 2, 4, 24, B, f32, f32)
+        assert p.route == hk.STREAM and p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
+
+
+def test_plan_takes_the_ring_only_for_block_matvec_f64_and_f32_at_5_to_16_lanes():
+    for B in range(1, 17):
+        for mdt, vdt in ((f64, f64), (f32, f32)):
+            p = hk.plan("block_matvec", 2, 64, 96, B, mdt, vdt)
+            assert p.route == (hk.RING if B > 4 else hk.STREAM), (B, p)
+    ring = hk.plan("block_matvec", 1, 64, 96, 9, f64, f64)
+    assert (ring.lanes, ring.blocks) == (16, 64 * 2)     # 64-row blocks, the last half full
+    # other pairs, precond_dot, ragged N and misaligned operands keep the
+    # register stream at 16 lanes
+    assert hk.plan("block_matvec", 1, 64, 384, 12, bf16, f32).route == hk.STREAM
+    assert hk.plan("precond_dot", 1, 64, 384, 12, f32, f32).route == hk.STREAM
+    assert hk.plan("block_matvec", 1, 64, 400, 12, f32, f32).route == hk.STREAM
+    assert hk.plan("block_matvec", 1, 64, 384, 12, f32, f32, aligned=False).route == hk.STREAM

@@ -72,7 +72,7 @@ def stencil_pair(request):
     """(JAX model, port model, JAX stencils, port stencils) per family."""
     c = cfg(*request.param)
     dj, _ = jax_discretize(jax_problem(c))
-    dt, _ = discretize(init_grid_and_problem(c))
+    dt, _ = discretize(init_grid_and_problem(c), device="cpu")
     sj = tuple(jax_stencil(dj.space, lf, None) for lf in dj.estimator.data.lambda_funcs)
     st = tuple(assemble_swipdg_stencil(dt.space, lf, None)
                for lf in dt.estimator.data.lambda_funcs)
@@ -134,7 +134,7 @@ def carried_pcg():
     coarse space and subdomain-constant coarse inverse, and the port's
     assembled stencil built from the same (carried) tensors."""
     dj, _ = jax_discretize(jax_problem(CFG))
-    dt, _ = discretize(init_grid_and_problem(CFG))
+    dt, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     sj = tuple(jax_stencil(dj.space, lf, None) for lf in dj.estimator.data.lambda_funcs)
     Aj = JaxStencilOperator(dj.space, sj).assemble(jnp.asarray(THETA))
     Ad = dj.op.assemble(jnp.asarray(THETA))
@@ -202,12 +202,12 @@ def test_solve_pcg_coarse_f32_and_x0(carried_pcg):
 @pytest.fixture(scope="module")
 def models():
     dj, _ = jax_discretize(jax_problem(CFG))
-    dt, _ = discretize(init_grid_and_problem(CFG))
+    dt, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     return dj, dt
 
 
 def fresh_port_model():
-    return discretize(init_grid_and_problem(CFG))[0]
+    return discretize(init_grid_and_problem(CFG), device="cpu")[0]
 
 
 def dense_solution(d, mu):
@@ -407,7 +407,7 @@ def test_matrix_free_none_resolves_to_stencil_at_scale():
     can hang.)"""
     c = {"num_subdomains": [16, 12], "half_num_fine_elements_per_subdomain_and_dim": 1,
          "num_refinements": 2}
-    d, _ = discretize(init_grid_and_problem(c), lean=True)
+    d, _ = discretize(init_grid_and_problem(c), device="cpu", lean=True)
     assert d.space.K * d.space.N == 18432
     step = make_online_step(d, tol=1e-8, with_estimate=False)
     assert "stencils" in step.arrays
@@ -418,7 +418,7 @@ def test_matrix_free_none_resolves_to_stencil_at_scale():
     r = torch.linalg.norm((b - d.assemble(mu).apply(U)).reshape(-1)) / torch.linalg.norm(b.reshape(-1))
     assert float(r) <= 1e-7
     assert 0 < step.iters_probe(th, tf) <= 400
-    small, _ = discretize(init_grid_and_problem(CFG))
+    small, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     assert "stencils" not in make_online_step(small, with_estimate=False).arrays
 
 
@@ -427,7 +427,7 @@ def f32_models():
     gpd = {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim": 2,
            "num_refinements": 1}
     dj, _ = jax_discretize(jax_problem(gpd), dtype=jnp.float32)
-    dt, _ = discretize(init_grid_and_problem(gpd), dtype=torch.float32)
+    dt, _ = discretize(init_grid_and_problem(gpd), device="cpu", dtype=torch.float32)
     return dj, dt
 
 

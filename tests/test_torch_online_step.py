@@ -13,9 +13,13 @@ JAX package on CPU float64.
 * end to end: the port builds its own model and preconditioner; at
   tol=1e-12 the independently built coarse bases (rounding-level
   differences) leave U within 1e-9 of JAX;
-* the port imports no jax (subprocess), online step and matrix-free solve.
+* the port imports neither jax nor the JAX package (subprocess, online
+  step and matrix-free solve; and no such import line in its sources),
+  its copies of the grid and space tables equal the JAX package's, and
+  its entry points need ``device="cpu"`` where CUDA is absent.
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -82,7 +86,7 @@ def batched_args():
 @pytest.fixture(scope="module")
 def models():
     dj, _ = jax_discretize(jax_problem(CFG))
-    dt, _ = discretize(init_grid_and_problem(CFG))
+    dt, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     return dj, dt
 
 
@@ -213,7 +217,7 @@ def test_port_imports_no_jax():
         "import pylrbms_tpu_torch.convert, pylrbms_tpu_torch.ops.hopper_kernels\n"
         "cfg = {'num_subdomains': [2, 2], "
         "'half_num_fine_elements_per_subdomain_and_dim': 1, 'num_refinements': 1}\n"
-        "d, _ = discretize(init_grid_and_problem(cfg))\n"
+        "d, _ = discretize(init_grid_and_problem(cfg), device='cpu')\n"
         "U, ind = make_online_step(d, tol=1e-8)(torch.tensor([1.0, 0.5]), torch.tensor([1.0]),"
         " {'diffusion': torch.tensor([0.5])})\n"
         "assert U.shape == (4, 24) and bool(torch.isfinite(ind).all())\n"
@@ -221,9 +225,96 @@ def test_port_imports_no_jax():
         "r = d.assemble(d.parse_parameter(0.5)).apply(U) - d.rhs(d.parse_parameter(0.5))\n"
         "assert int(d.last_solve_iters) > 0 and float(r.norm()) < 1e-8\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
+        "assert not ref, ref\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_sources_have_no_reference_import():
+    """No line of the port's package or of chip_smoke.py imports the JAX
+    package (docstrings may still name its files)."""
+    pattern = re.compile(r"^\s*(from|import) pylrbms_tpu(\.|\s|$)")
+    files = sorted(os.path.join(root, f)
+                   for root, _, names in os.walk(os.path.join(REPO, "pylrbms_tpu_torch"))
+                   for f in names if f.endswith(".py"))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    hits = [f"{path}:{i}" for path in files
+            for i, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]
+    assert not hits, hits
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without CUDA and without a device, the entry points raise: the port
+    runs on the card unless the caller names the CPU."""
+    from pylrbms_tpu_torch.model import StationaryBlockModel
+    from pylrbms_tpu_torch.parameters import evaluate_coefficients
+    from pylrbms_tpu_torch.utils.precision import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"num_subdomains": [2, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1, "num_refinements": 1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        discretize(init_grid_and_problem(cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StationaryBlockModel(None, None, None, [], None, [], None, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_coefficients([1.0], {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device("cuda")
+    assert device("cpu") == torch.device("cpu")
+    d, _ = discretize(init_grid_and_problem(cfg), device="cpu")
+    assert d.device == torch.device("cpu") and d.rhs_q.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cfg", [
+    {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+     "num_refinements": 1},                                    # the entry config
+    {"num_subdomains": [8, 8], "half_num_fine_elements_per_subdomain_and_dim": 2,
+     "num_refinements": 2},                                    # the serving config
+], ids=["entry", "serving"])
+def test_copied_grid_and_space_tables_equal_jax(cfg):
+    """The port's copies of grid/basis/quadrature/ops.spaces give the JAX
+    package's tables: integer tables equal, coordinates and tabulations
+    with zero difference."""
+    from pylrbms_tpu.ops.spaces import BlockDGSpace as JaxSpace
+    from pylrbms_tpu_torch.ops.spaces import BlockDGSpace
+
+    gj, gt = jax_problem(cfg)["grid"], init_grid_and_problem(cfg)["grid"]
+    assert type(gt).__module__ == "pylrbms_tpu_torch.grid"
+    assert vars(gt) == vars(gj)
+    np.testing.assert_array_equal(gt.subdomain_cell_origins(), gj.subdomain_cell_origins())
+    assert [gt.neighborhood_of(i) for i in range(gt.num_subdomains)] == \
+        [gj.neighborhood_of(i) for i in range(gj.num_subdomains)]
+    sj, st = JaxSpace(gj), BlockDGSpace(gt)
+    assert (st.K, st.N, st.nb, st.T, st.N_rt) == (sj.K, sj.N, sj.nb, sj.T, sj.N_rt)
+    for name in ("vol_qp", "vol_w", "vol_phi", "vol_dphi", "tri_centroids", "nodes_unit",
+                 "face_t", "subdomain_origins", "cell_origins_local"):
+        np.testing.assert_array_equal(getattr(st, name), getattr(sj, name), err_msg=name)
+    np.testing.assert_array_equal(st.node_coords_phys(), sj.node_coords_phys())
+    np.testing.assert_array_equal(st.rt_local_to_global(), sj.rt_local_to_global())
+    for side in ("left", "right", "bottom", "top"):
+        np.testing.assert_array_equal(st.side_dofs(side), sj.side_dofs(side))
+    for a, b in zip(st.rt_cell_tab(), sj.rt_cell_tab()):
+        np.testing.assert_array_equal(a, b)
+    fam_t, fam_j = st.interior_face_sets(), sj.interior_face_sets()
+    assert sorted(fam_t) == sorted(fam_j)
+    for fam in fam_t:
+        for a, b in zip(fam_t[fam], fam_j[fam]):
+            np.testing.assert_array_equal(a, b)
+    assert sorted(st.face_tabs) == sorted(sj.face_tabs)
+    for key, tab in st.face_tabs.items():
+        ref = sj.face_tabs[key]
+        for field in ("phi_m", "dphi_m", "phi_p", "dphi_p", "normal", "w",
+                      "pts_unit_m", "pts_unit_p", "centroid_m", "centroid_p"):
+            a, b = getattr(tab, field), getattr(ref, field)
+            assert (a is None) == (b is None), (key, field)
+            if a is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f"{key}.{field}")
+        assert (tab.length, tab.pen_len, tab.tri_m, tab.tri_p) == \
+            (ref.length, ref.pen_len, ref.tri_m, ref.tri_p)
