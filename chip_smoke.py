@@ -44,11 +44,32 @@ phase passes:
 9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
-   the card at phase 3's tolerances, timed as in phase 3.
+   the card at phase 3's tolerances, timed as in phase 3;
+10. model order reduction at the serving config in f64 (K=64, N=384):
+   ``LRBMSReductor`` with one snapshot and ``reduce()``: the ROM estimate
+   against the FOM estimate of the reconstruction (1e-8), ``residual_norm``
+   against the true residual (1e-6); from that reduced model
+   ``AdaptiveEnrichment`` (Doerfler 0.33, max age 4, target 1e-2) for 3
+   random mus (seed 7) x 3 steps: eta not increasing (to 1% a step); one
+   corrector batch against the dense patch solve for 2 marked subdomains
+   (1e-6); ``weak_greedy`` over ``sample_uniformly(6)`` with 4 extensions
+   (criterion 'residual', with Gramians): the last max error a tenth of
+   the first or less; both kernels launched (dense corrector apply,
+   Gramian applies, PCG snapshots);
+11. the greedy at 98 304 dofs in f64 (16x16 subdomains, half 2, nref 2:
+   K=256, N=384): the same ``weak_greedy`` call, which here takes the
+   direct FOM residual, the lean incremental re-reduction and matrix-free
+   snapshot solves; the ROM against a FOM solve at a training mu; then one
+   mu of ``AdaptiveEnrichment`` x 2 steps (target 1e-12 so that both run;
+   stencil corrector apply);
+   indicators finite and non-negative; precond_dot launched.
+   Phases 10 and 11 print seconds per greedy iteration and enrichment round
+   and per span, corrector PCG iterations, RB sizes and peak memory.
 
-Each main path (phases 5, 7 and 8) runs with the kernel launch counts and
-signatures cleared just before it and read just after; the summary's
-``launches`` is the sum of the counts.
+Phases run in the order 1-8, 10, 11, 9.  Each main path (phases 5, 7, 8,
+10 and 11) runs with the kernel launch counts and signatures cleared just
+before it and read just after; the summary's ``launches`` is the sum of the
+counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -74,6 +95,9 @@ SERVING = {"num_subdomains": [8, 8],
 SCALE = {"num_subdomains": [8, 8],
          "half_num_fine_elements_per_subdomain_and_dim": 2,
          "num_refinements": 3}
+NORTH_STAR = {"num_subdomains": [16, 16],
+              "half_num_fine_elements_per_subdomain_and_dim": 2,
+              "num_refinements": 2}
 B_SERVE = 256
 # kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
 # f64: rounding of a different summation order over N <= 384 terms;
@@ -242,21 +266,31 @@ def kernel_phase(hk, torch, dev):
     return summary, checked
 
 
-def path_shape_phase(hk, torch, dev, launched, checked):
-    """Every kernel shape the main paths launched (``launched``: kernel ->
-    signatures from ``hk.launch_signatures()``) that the kernel phase did
-    not already check, against its plain version on the card (phase 8's
-    K=64, N=1536 blocks, the harvest's power-iteration lane, ...)."""
+def path_shape_phase(hk, torch, dev, paths, checked):
+    """Every kernel shape the main paths launched (``paths``: path name ->
+    (launch counts, kernel -> {signature: launches} from
+    ``hk.launch_signature_counts()``)), with its launches per path; those
+    the kernel phase did not already check are held against their plain
+    version on the card (phase 8's K=64, N=1536 blocks, the harvest's
+    power-iteration lane, the corrector's lane counts, ...)."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     randn = lambda shape: torch.randn(shape, generator=g, device=dev,  # noqa: E731
                                       dtype=torch.float64)
-    todo = sorted({(kind, *sig) for kind, sigs in launched.items() for sig in sigs}
-                  - checked, key=str)
-    log(f"main-path kernel shapes not in the kernel phase: {len(todo)}")
-    for kind, G, K, N, B, mdt, vdt in todo:
-        kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
-        torch.cuda.empty_cache()
+    per_shape = {}
+    for path, (_, shapes) in paths.items():
+        for kind, sigs in shapes.items():
+            for sig, n in sigs.items():
+                per_shape.setdefault((kind, *sig), {})[path] = n
+    todo = sorted(set(per_shape) - checked, key=str)
+    log(f"main-path kernel shapes: {len(per_shape)}, not in the kernel phase: {len(todo)}")
+    for shape in sorted(per_shape, key=str):
+        kind, G, K, N, B, mdt, vdt = shape
+        log(f"launches of {kind} G={G} K={K} N={N} B={B} {str(mdt)[6:]} x {str(vdt)[6:]}"
+            f"{'' if shape in todo else ' (checked in the kernel phase)'}: {per_shape[shape]}")
+        if shape in todo:
+            kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
+            torch.cuda.empty_cache()
 
 
 def entry_phase(torch, dev):
@@ -316,7 +350,7 @@ def serving_phase(hk, torch, dev, smi):
     U1, ind1 = fn(thetas[0], theta_fs[0], mu0)
     Ub, indb = fn(thetas, theta_fs, mus_b)
     torch.cuda.synchronize()
-    launches, shapes = hk.launch_counts(), hk.launch_signatures()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"serving main path (step build {t_build:.2f} s + 1 single + 1 batched "
         f"B={B_SERVE} call): kernel launches {launches}")
 
@@ -419,7 +453,7 @@ def stencil_step_phase(hk, torch, dev, smi, ref):
     U1, ind1 = fn(thetas[0], theta_fs[0], mu0)
     Ub, indb = fn(thetas, theta_fs, mus_b)
     torch.cuda.synchronize()
-    launches, shapes = hk.launch_counts(), hk.launch_signatures()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"stencil step main path (step build {t_build:.2f} s + 1 single + 1 batched "
         f"B={B_SERVE} call): 'stencils' in step.arrays: {'stencils' in fn.arrays}; "
         f"kernel launches {launches}")
@@ -498,7 +532,7 @@ def scale_solve_phase(hk, torch, dev, smi):
             raise AssertionError("solve 'auto' did not take the mf_pcg path")
         err = rel(U.double().cpu().numpy().reshape(-1), u_ref)
         results[mixed].append((t_solve, int(d.last_solve_iters), err))
-    launches, shapes = hk.launch_counts(), hk.launch_signatures()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"scale solve main path (prepare_solver + 4 solves): kernel launches {launches}")
     for mixed, runs in results.items():
         label = "mixed=True" if mixed else "mf_pcg f64"
@@ -508,6 +542,235 @@ def scale_solve_phase(hk, torch, dev, smi):
             f"scipy splu rel err {err:.3e} (tol 1e-06) {'ok' if err <= 1e-6 else 'FAIL'} [{smi}]")
         if not err <= 1e-6:
             raise AssertionError(f"scale solve ({label}) off the sparse LU solution")
+    return launches, shapes
+
+
+def _spans(T, prefix):
+    """``name median (max) ms x calls`` of the timer spans starting with
+    ``prefix``."""
+    return "; ".join(
+        f"{name[len(prefix):].strip()} {1e3 * float(np.median(ts)):.1f} "
+        f"({1e3 * max(ts):.1f}) ms x{len(ts)}"
+        for name, ts in sorted(T.spans.items()) if name.startswith(prefix))
+
+
+def _check(name, err, tol):
+    log(f"{name}: {err:.3e} (tol {tol:.0e}) {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError(f"{name}: {err:.3e} > {tol:.0e}")
+
+
+def _greedy(torch, d, smi, label):
+    """The bench's greedy call; prints its spans; returns the result."""
+    from pylrbms_tpu_torch.greedy import weak_greedy
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS as T
+
+    T.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = weak_greedy(d, d.parameter_space.sample_uniformly(6), target_error=1e-12,
+                      max_extensions=4)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    n_it = max(1, res.fom_solves)
+    log(f"{label} greedy: {t_all:.2f} s for {len(res.max_etas)} sweeps and {res.fom_solves} "
+        f"snapshots ({t_all / n_it:.3f} s per iteration, the initial reduction included); "
+        f"max errors {', '.join(f'{e:.3e}' for e in res.max_etas)}; RB size "
+        f"{res.rd.solution_dim} (local max {int(res.rd.sizes.max())}, r_max {res.rd.r_max}); "
+        f"Gramians {'yes' if res.rd.G_AA is not None else 'no (lean, incremental)'}; "
+        f"snapshot Krylov iterations (last) "
+        f"{'n/a' if d.last_solve_iters is None else int(d.last_solve_iters)} [{smi}]")
+    log(f"{label} greedy spans, median (max) [{smi}]: {_spans(T, 'greedy:')}")
+    return res
+
+
+def _enrich(torch, gpd, d, red, rd, mus, steps, smi, label, target=1e-2):
+    """``AdaptiveEnrichment`` over ``mus`` x ``steps`` from the reduced model
+    ``rd`` of ``red``; prints its spans; returns (loop, per-mu eta lists)."""
+    from pylrbms_tpu_torch.online_enrichment import AdaptiveEnrichment
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS as T
+
+    loop = AdaptiveEnrichment(gpd, d, d.space, red, rd, target_error=target,
+                              marking_doerfler_theta=0.33, marking_max_age=4)
+    T.clear()
+    all_etas, pcg_its, marks = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for mu in mus:
+        etas = []
+
+        def cb(rd, u, mu_, info, etas=etas):
+            etas.append(info["eta"])
+            if info["local_problem_solves"]:
+                marks.append(info["local_problem_solves"])
+                pcg_its.append(loop._corrector.last_iters)
+
+        loop.solve(mu, enrichment_steps=steps, callback=cb)
+        all_etas.append(etas)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    rounds = max(1, len(marks))
+    log(f"{label} enrichment: {t_all:.2f} s for {len(mus)} mus, {len(marks)} rounds "
+        f"({t_all / rounds:.3f} s per round); eta per mu "
+        f"{[[float(f'{e:.4e}') for e in etas] for etas in all_etas]}; marked per round {marks}; "
+        f"corrector PCG iterations per round {pcg_its} "
+        f"({'stencil' if loop._corrector is not None and loop._corrector.stencils is not None else 'dense'} "
+        f"apply); RB size {loop.rd.solution_dim} (local max {int(loop.rd.sizes.max())}, "
+        f"r_max {loop.rd.r_max}) [{smi}]")
+    log(f"{label} enrichment spans, median (max) [{smi}]: {_spans(T, 'enrich:')}")
+    return loop, all_etas
+
+
+def mor_serving_phase(hk, torch, dev, smi, cfg=None):
+    """Phase 10: reductor, greedy and adaptive enrichment at the serving
+    config in f64."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.reductor import LRBMSReductor
+    from pylrbms_tpu_torch.online_enrichment import doerfler_marking
+
+    gpd = init_grid_and_problem(cfg or SERVING)
+    t0 = time.perf_counter()
+    d, _ = discretize(gpd, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    log(f"MOR serving config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
+        f"discretize {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.reset_launch_counts()
+
+    # ---- reductor: order 0 + one snapshot, reduce (with Gramians)
+    mu = d.parse_parameter(1.0)
+    red = LRBMSReductor(d, order=0)
+    red.extend_basis(d.solve(mu))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rd = red.reduce()
+    torch.cuda.synchronize()
+    t_red = time.perf_counter() - t0
+    mu2 = d.parse_parameter(0.3)
+    t_step = timed_median(torch, lambda: rd.online_step(mu2), reps=3)
+    log(f"MOR serving reduce (full, with Gramians, r_max {rd.r_max}): {t_red:.3f} s; "
+        f"rd.online_step {t_step * 1e3:.2f} ms (median of 3) [{smi}]")
+    c = rd.solve(mu2)
+    U_rec = red.reconstruct(c)
+    eta_r, _, ind_r = rd.estimate(c, mu2, decompose=True)
+    eta_f, _, ind_f = d.estimate(U_rec, mu2, decompose=True)
+    _check("MOR serving ROM estimate vs FOM estimate of the reconstruction, rel err",
+           abs(float(eta_r) - float(eta_f)) / abs(float(eta_f)), 1e-8)
+    _check("MOR serving ROM indicators vs FOM indicators, rel err",
+           rel(ind_r.cpu(), ind_f.cpu()), 1e-8)
+    r_true = float(torch.linalg.norm((d.rhs(mu2) - d.assemble(mu2).apply(U_rec)).reshape(-1)))
+    _check("MOR serving residual_norm vs the true residual norm, rel err",
+           abs(float(rd.residual_norm(c, mu2)) - r_true) / r_true, 1e-6)
+
+    # ---- adaptive enrichment from that reduced model (order 0 + the
+    # snapshot at mu = 1, the flow of scripts/online_adaptive_lrbms.py)
+    mus = d.parameter_space.sample_randomly(3, seed=7)
+    loop, all_etas = _enrich(torch, gpd, d, red, rd, mus, 3, smi, "MOR serving")
+    if loop._corrector is None:
+        raise AssertionError("no enrichment round ran: eta met the target at once")
+    # the estimate is not monotone under Galerkin enrichment (the reference's
+    # own test allows it): near its discretization floor it wiggles in the
+    # 4th digit, so "not increasing" is held up to 1% a step
+    for etas in all_etas:
+        if not all(b <= 1.01 * a for a, b in zip(etas, etas[1:])):
+            raise AssertionError(f"enrichment eta increased: {etas}")
+
+    # ---- one corrector batch against the dense patch solve
+    mu3 = d.parse_parameter(mus[0])
+    c, _, ind = loop.rd.online_step(mu3)
+    marked = sorted(doerfler_marking(ind, 0.33))
+    u_full = loop.rd.reconstruct(c)
+    W = loop._corrector.solve(marked, mu3, current_solution=u_full)
+    for i in sorted({0, len(marked) - 1}):
+        w = d.solve_for_local_correction(marked[i], None, mu3, current_solution=u_full)
+        _check(f"MOR serving batched corrector ({len(marked)} marked, "
+               f"{loop._corrector.last_iters} PCG iterations) vs dense patch solve, "
+               f"subdomain {marked[i]}, rel err", rel(W[i].cpu(), w.cpu()), 1e-6)
+    del loop, red, rd
+
+    # ---- greedy (its own reductor)
+    res = _greedy(torch, d, smi, "MOR serving")
+    if res.rd.G_AA is None:
+        raise AssertionError("the serving greedy should use the Gramian residual")
+    if not res.max_etas[-1] <= 0.1 * res.max_etas[0]:
+        raise AssertionError(f"greedy max error did not fall tenfold: {res.max_etas}")
+    if res.fom_solves != 4:
+        raise AssertionError(f"greedy made {res.fom_solves} snapshot solves, expected 4")
+    torch.cuda.synchronize()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"MOR serving main path: kernel launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the MOR serving path")
+    return launches, shapes
+
+
+def mor_scale_phase(hk, torch, dev, smi, cfg=None):
+    """Phase 11: the greedy and one enrichment at 98 304 dofs in f64."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.online_enrichment import doerfler_marking
+
+    gpd = init_grid_and_problem(cfg or NORTH_STAR)
+    t0 = time.perf_counter()
+    d, _ = discretize(gpd, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    log(f"MOR scale config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
+        f"discretize {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.reset_launch_counts()
+
+    res = _greedy(torch, d, smi, "MOR scale")
+    if res.rd.G_AA is not None or d.last_solve_iters is None:
+        raise AssertionError("the scale greedy should take the lean projection and mf_pcg")
+    if not res.max_etas[-1] < res.max_etas[0]:
+        raise AssertionError(f"greedy max error did not fall: {res.max_etas}")
+
+    # the ROM against a FOM solve at a training mu: the relative l2 error is
+    # held to the last max error (a residual norm over the training set,
+    # taken before the last extension) relative to ||b||, scale 1; the
+    # measured ratio is printed
+    mu = d.parse_parameter(d.parameter_space.sample_uniformly(6)[2])
+    U_fom = d.solve(mu, inverse_options={"precision": 1e-10})
+    U_rom = res.reductor.reconstruct(res.rd.solve(mu))
+    err = float(torch.linalg.norm(U_rom - U_fom) / torch.linalg.norm(U_fom))
+    bnorm = float(torch.linalg.norm(d.rhs(mu)))
+    bound = res.max_etas[-1] / bnorm
+    log(f"MOR scale ROM vs FOM solve at mu={float(mu['diffusion']):.2f}: rel l2 err {err:.3e}; "
+        f"last max error / ||b|| = {res.max_etas[-1] / bnorm:.3e} (ratio "
+        f"{err / bound:.2e}, limit 1) {'ok' if err <= bound else 'FAIL'}")
+    if not err <= bound:
+        raise AssertionError("the greedy's ROM is off the FOM solve")
+
+    mus = d.parameter_space.sample_randomly(1, seed=7)
+    # target 1e-12: below the discretization floor of eta, so both steps run
+    loop, all_etas = _enrich(torch, gpd, d, res.reductor, res.rd, mus, 2, smi, "MOR scale",
+                             target=1e-12)
+    if loop._corrector is None or loop._corrector.stencils is None:
+        raise AssertionError("the scale corrector should take the stencil apply")
+    mu3 = d.parse_parameter(mus[0])
+    c, eta, ind_t = loop.rd.online_step(mu3)
+    ind = ind_t.cpu().numpy()
+    if not (np.isfinite(ind).all() and (ind >= 0).all() and np.isfinite(float(eta))):
+        raise AssertionError("scale indicators not finite and non-negative")
+
+    # ---- one stencil corrector batch against the dense patch solve
+    marked = sorted(doerfler_marking(ind_t, 0.33))
+    u_full = loop.rd.reconstruct(c)
+    W = loop._corrector.solve(marked, mu3, current_solution=u_full)
+    for i in sorted({0, len(marked) - 1}):
+        w = d.solve_for_local_correction(marked[i], None, mu3, current_solution=u_full)
+        _check(f"MOR scale stencil corrector ({len(marked)} marked, "
+               f"{loop._corrector.last_iters} PCG iterations) vs dense patch solve, "
+               f"subdomain {marked[i]}, rel err", rel(W[i].cpu(), w.cpu()), 1e-6)
+    torch.cuda.synchronize()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"MOR scale main path: kernel launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
+    if launches["precond_dot"] <= 0:
+        raise AssertionError("precond_dot was not launched on the MOR scale path")
     return launches, shapes
 
 
@@ -546,10 +809,14 @@ def main() -> int:
         paths["stencil step"] = stencil_step_phase(hk, torch, dev, smi, ref)
         del ref
         paths["scale solve"] = scale_solve_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        paths["MOR serving"] = mor_serving_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        paths["MOR scale"] = mor_scale_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
-        launched = {k: set().union(*(p[1][k] for p in paths.values())) for k in summary}
-        path_shape_phase(hk, torch, dev, launched, checked)
+        path_shape_phase(hk, torch, dev, paths, checked)
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
                     "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}

@@ -1,10 +1,14 @@
 """pylrbms_tpu_torch — the PyTorch/CUDA port of :mod:`pylrbms_tpu`.
 
 The JAX package stays the reference; this package mirrors its module layout
-for the ported slice (the OS2015 2D tri P1 block-SWIPDG online step:
-discretize -> ``make_online_step`` -> single or batched queries, and the
-detailed solve, with the matrix-free stencil operator at scale) and runs
-on an NVIDIA H100 with two hand-written CUDA kernels
+for the ported slices (2D tri P1 block SWIPDG): discretize ->
+``make_online_step`` -> single or batched queries, and the detailed solve,
+with the matrix-free stencil operator at scale; the localized reduced basis
+method on top (``reductor.LRBMSReductor`` / ``ReducedModel``,
+``greedy.weak_greedy``, ``online_enrichment.AdaptiveEnrichment`` with the
+batched patch correctors of ``ops/corrector.py``); the OS2015 and SPE10
+problems and the monolithic K=1 discretizer.  It runs on an NVIDIA H100
+with two hand-written CUDA kernels
 (:mod:`pylrbms_tpu_torch.ops.hopper_kernels`).
 
 Rules of the package: it imports ``torch`` and neither ``jax`` nor
@@ -23,4 +27,9 @@ Typical use::
                       dtype=torch.float32)
     step = make_online_step(d, matrix_free="affine")
     U, indicators = step(thetas, theta_fs, {"diffusion": mus})
+
+    from pylrbms_tpu_torch.greedy import weak_greedy
+    d64, _ = discretize(init_grid_and_problem(cfg), device="cuda")
+    res = weak_greedy(d64, d64.parameter_space.sample_uniformly(6))
+    c, eta, indicators = res.rd.online_step(0.5)
 """

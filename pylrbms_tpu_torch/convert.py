@@ -6,8 +6,10 @@
 dtype, :func:`stencils_from_numpy` its affine stencils
 (``step.arrays["stencils"]``, or a stencil operator's ``.stencils``) and
 :func:`precond_from_numpy` the frozen preconditioner ``(bf, C, ci)`` of the
-reference's matrix-free model solve, so that both implementations can be fed
-identical state.  This module imports no jax: array leaves are read with
+reference's matrix-free model solve, :func:`bases_from_numpy` the local
+reduced bases of a reference reductor and :func:`reduced_from_numpy` the
+tensors of a reference ``ReducedModel``, so that both implementations can
+be fed identical state.  This module imports no jax: array leaves are read with
 ``np.asarray``.
 """
 from __future__ import annotations
@@ -50,3 +52,31 @@ def precond_from_numpy(pre, device=None, dtype=torch.float64) -> tuple:
     """The frozen matrix-free preconditioner ``(block factors, coarse basis,
     coarse inverse)`` -> tensors; None entries (one-level) stay None."""
     return tuple(None if a is None else _tensor(a, device, dtype) for a in pre)
+
+
+def bases_from_numpy(d, bases, **kwargs):
+    """A reference ``LRBMSReductor.bases`` list (one ``[r_k, N]`` array per
+    subdomain, each taken as ``np.asarray``) -> an
+    :class:`~pylrbms_tpu_torch.reductor.LRBMSReductor` on the model ``d``
+    with the same bases (no shape functions are added)."""
+    from .reductor import LRBMSReductor
+    return LRBMSReductor(d, bases=[np.asarray(b, np.float64) for b in bases],
+                         order=None, **kwargs)
+
+
+def reduced_from_numpy(reductor, fields: dict):
+    """The array fields of a reference ``ReducedModel``
+    (``ReducedModel._ARRAY_FIELDS`` as numpy; absent or None Gramians stay
+    None) -> a :class:`~pylrbms_tpu_torch.reductor.ReducedModel` over
+    ``reductor``, in float64 on its model's device.  The padded width is
+    read off ``A_red``; the sizes are the reductor's."""
+    from .reductor import ReducedModel
+    d = reductor.d
+    K = d.space.K
+    r_max = int(np.asarray(fields["A_red"]).shape[-1]) // K
+    nbhd_idx, _, _ = reductor._bucket_rows(d.grid, K, r_max)
+    tensors = {n: (None if fields.get(n) is None
+                   else _tensor(fields[n], d.device, torch.float64))
+               for n in ReducedModel._ARRAY_FIELDS}
+    return ReducedModel(reductor=reductor, sizes=reductor.basis_sizes(), r_max=r_max,
+                        nbhd_idx=nbhd_idx, **tensors)

@@ -67,8 +67,10 @@
 //    mma.sync, not wgmma + TMA: a right kernel first; a warp-specialised
 //    pipeline is later work.
 //  * tiles (every other dtype pair at many lanes: f64 x f64, f32 x f32 in
-//    precond_dot, bf16 x f64).  No main path launches these; kept
-//    unchanged from the first port: SIMT FMA with shared-memory tiles, a
+//    precond_dot, bf16 x f64).  The model order reduction launches them in
+//    f64 (the Gramians' operator applies at 128 lanes, correctors with more
+//    than 16 marked patches); kept unchanged from the first port, 3-4x behind
+//    cuBLAS there (PERF.md): SIMT FMA with shared-memory tiles, a
 //    block owns one subdomain k, TI rows and LB lanes, each thread an
 //    RPT x LPT register tile.
 //
@@ -321,7 +323,11 @@ int launch_stream_cfg(const TS* A, const TA* x, const TA* coef, TA* y, TA* rz,
     bytes = (size_t)LB * XJ * sizeof(TA);
   }
   auto kernel = stream_kernel<TS, TA, VECL, LB, PD>;
-  if (bytes > 48 * 1024)
+  // the 48 KB a launch gets without opting in hold static and dynamic
+  // shared memory together: precond_dot's red[][] and flag are static
+  // (f64, 16 lanes, N = 384 stages exactly 48 KB of x and was refused)
+  constexpr size_t fixed = PD ? sizeof(TA) * STREAM_WARPS * LB + 16 : 0;
+  if (bytes + fixed > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   dim3 grid((N + ROWS_PER_BLOCK * C - 1) / (ROWS_PER_BLOCK * C), K);
   kernel<<<grid, 32 * STREAM_WARPS, bytes, s>>>(A, x, coef, y, rz, partials, tickets,

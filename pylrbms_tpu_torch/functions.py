@@ -1,7 +1,8 @@
 """Coefficient / data functions evaluated at quadrature points.
 
 The port of ``pylrbms_tpu/functions.py`` for the functions the OS2015 slice
-uses: expression and constant functions and their algebra.  A function is a
+uses: expression and constant functions and their algebra, and the
+cellwise-constant data field of the SPE10 problem.  A function is a
 callable ``f(x)`` on a tensor ``x`` of shape ``(..., 2)`` returning ``(...,)``
 (scalar) or ``(..., 2, 2)`` (matrix) on ``x``'s device and dtype.
 """
@@ -120,3 +121,18 @@ def make_constant_function_2x2(matrix, name: str = "constant_matrix") -> MatrixF
         return m.expand(x.shape[:-1] + (2, 2))
 
     return MatrixFunction(fn, name=name, order=0)
+
+
+def make_cellwise_function_1x1(grid, cell_values, name: str = "cellwise") -> ScalarFunction:
+    """Piecewise constant per fine cell (SPE10-style data fields):
+    ``cell_values[Sy, Sx]`` on the grid's global quad-cell raster."""
+    vals = np.asarray(cell_values, dtype=float)
+
+    def fn(x):
+        fx = (x[..., 0] - grid.lower_left[0]) / grid.hx
+        fy = (x[..., 1] - grid.lower_left[1]) / grid.hy
+        ix = torch.clamp(torch.floor(fx).long(), 0, grid.global_nx - 1)
+        iy = torch.clamp(torch.floor(fy).long(), 0, grid.global_ny - 1)
+        return torch.as_tensor(vals, dtype=x.dtype, device=x.device)[iy, ix]
+
+    return ScalarFunction(fn, name=name, order=0)

@@ -197,6 +197,20 @@ class AssembledBlockOp:
                 C[:, :, j] = cols[j - 1]
         return C
 
+    def coarse_matrix(self) -> torch.Tensor:
+        """Galerkin coarse matrix on the subdomain-constant space:
+        A0[k, k'] = 1_k^T A 1_k'  ([K, K])."""
+        st = self.static
+        K = st.K
+        A0 = torch.zeros((K * K,), dtype=self.A_diag.dtype, device=self.A_diag.device)
+        ar = torch.arange(K, device=A0.device)
+        A0[ar * K + ar] = self.A_diag.sum(dim=(1, 2))
+        for name, _ro, _ri, k_r, k_c in st.families():
+            if k_r.size:
+                A0.index_add_(0, torch.as_tensor(k_r * K + k_c, device=A0.device),
+                              getattr(self, name).sum(dim=(1, 2, 3)))
+        return A0.reshape(K, K)
+
     def coarse_matrix_general(self, C) -> torch.Tensor:
         """Galerkin coarse matrix on a per-subdomain basis C [K, N, m]:
         Ac[(k,i),(k',j)] = C_k[:,i]^T A_{kk'} C_k'[:,j]  ([K*m, K*m]),

@@ -4,7 +4,8 @@ The port of the 2D part of ``pylrbms_tpu/model.py``: the
 :class:`StationaryBlockModel` container (theta, rhs, assemble, the detailed
 solve — dense, block-Jacobi PCG, or the matrix-free two-level stencil PCG
 at scale — with its post-checks, caching and frozen preconditioner,
-estimate) and :func:`make_online_step`, the LRBMS online step
+estimate, and the dense oversampled-patch corrector solve of the online
+enrichment) and :func:`make_online_step`, the LRBMS online step
 ``(theta, theta_f, mu) -> (U, indicators)`` for one query or for B queries
 in one call (``vmap`` becomes an explicit leading lane axis).
 """
@@ -344,6 +345,106 @@ class StationaryBlockModel:
             xn = sp.node_coords_phys()[subdomain].reshape(sp.N, 2)
             vecs += [xn[:, 0], xn[:, 1], xn[:, 0] * xn[:, 1]]
         return torch.as_tensor(np.stack(vecs), dtype=self.dtype, device=self.device)
+
+    def assemble_patch(self, subdomain: int, mu=None):
+        """Assemble the oversampled-neighborhood corrector system: the fresh
+        neighborhood SWIPDG assembly with local all-Dirichlet boundary info,
+        as dense host matrices (the oracle the batched corrector of
+        ``ops/corrector.py`` is held to).
+
+        Returns (members, A [m*N, m*N] per affine component, b [m*N]).
+        Patch-boundary faces (interfaces leaving the patch) get the one-sided
+        Dirichlet penalty blocks; intra-patch interfaces keep their coupling
+        quadruples; physical-boundary faces keep the true Dirichlet terms."""
+        grid, sp = self.grid, self.space
+        members = grid.neighborhood_of(subdomain)
+        m = len(members)
+        pos = {ii: i for i, ii in enumerate(members)}
+        N, s = sp.N, sp.s
+        kx, ky = grid.kx, grid.ky
+        st = self.op.static
+        eR = {(int(l), int(r)): e for e, (l, r) in enumerate(zip(st.left_k, st.right_k))}
+        eU = {(int(l), int(u)): e for e, (l, u) in enumerate(zip(st.low_k, st.up_k))}
+        side_rows = st.side_rows
+        side_neighbor = {"left": -1, "right": +1, "bottom": -kx, "top": +kx}
+        mem_t = torch.as_tensor(members, device=self.device)
+
+        def host(t):
+            return t.detach().to("cpu", torch.float64).numpy()
+
+        mats = []
+        for comp in self.components:
+            A = np.zeros((m * N, m * N))
+            A_loc = host(comp.A_loc[mem_t])
+            D_side = {side: host(comp.D_side[side][mem_t]) for side in side_rows}
+            quads = {nm: host(getattr(comp, nm)) for nm in
+                     ("R_in_in", "R_in_out", "R_out_in", "R_out_out",
+                      "U_in_in", "U_in_out", "U_out_in", "U_out_out")}
+            for ii in members:
+                i = pos[ii]
+                blk = A_loc[i].copy()
+                sx, sy = grid.subdomain_coords(ii)
+                on_bnd = {"left": sx == 0, "right": sx == kx - 1,
+                          "bottom": sy == 0, "top": sy == ky - 1}
+                for side, rows in side_rows.items():
+                    if on_bnd[side] or ii + side_neighbor[side] not in pos:
+                        Ds = D_side[side][i]                     # [s, nb, nb]
+                        for f in range(s):
+                            blk[np.ix_(rows[f], rows[f])] += Ds[f]
+                A[i * N:(i + 1) * N, i * N:(i + 1) * N] += blk
+            # intra-patch interface terms
+            for ii in members:
+                i = pos[ii]
+                sx, sy = grid.subdomain_coords(ii)
+                for side, fam, emap, other in (("right", "R", eR, "left"),
+                                               ("top", "U", eU, "bottom")):
+                    if (side == "right" and sx >= kx - 1) or (side == "top" and sy >= ky - 1):
+                        continue
+                    jj = ii + side_neighbor[side]
+                    if jj not in pos:
+                        continue
+                    j = pos[jj]
+                    e = emap[(ii, jj)]
+                    rm, rp = side_rows[side], side_rows[other]
+                    q_ii, q_io, q_oi, q_oo = (quads[f"{fam}_{q}"][e] for q in
+                                              ("in_in", "in_out", "out_in", "out_out"))
+                    for f in range(s):
+                        r_i = rm[f] + i * N
+                        r_j = rp[f] + j * N
+                        A[np.ix_(r_i, r_i)] += q_ii[f]
+                        A[np.ix_(r_i, r_j)] += q_io[f]
+                        A[np.ix_(r_j, r_i)] += q_oi[f]
+                        A[np.ix_(r_j, r_j)] += q_oo[f]
+            mats.append(torch.as_tensor(A, dtype=self.dtype, device=self.device))
+
+        b = torch.einsum("q,qmn->mn", self.theta_f(mu or {}),
+                         self.rhs_q[:, mem_t]).reshape(m * N)
+        return members, mats, b
+
+    def solve_for_local_correction(self, subdomain: int, Us=None, mu=None,
+                                   inverse_options=None, current_solution=None,
+                                   mode: str = "residual"):
+        """Local corrector solve on the oversampled patch (dense LU).
+
+        mode='reference': A_patch(mu) w = f with homogeneous Dirichlet on the
+        patch boundary; mu-only, so repeated enrichment at one mu stalls.
+
+        mode='residual' (default, the OS2015 paper's corrector):
+        A_patch(mu) w = (f - A(mu) u_current)|_patch.  As the reduced
+        solution improves the corrector shrinks; w = 0 exactly when
+        u_current solves the FOM."""
+        mu = self.parse_parameter(mu)
+        members, mats, b = self.assemble_patch(subdomain, mu)
+        if mode == "residual" and current_solution is not None:
+            cur = torch.as_tensor(current_solution, device=self.device).to(self.dtype)
+            r = self.rhs(mu) - self.assemble(mu).apply(cur)
+            b = r[torch.as_tensor(members, device=self.device)].reshape(-1)
+        theta = self.theta(mu)
+        A = sum(t * M for t, M in zip(theta, mats))
+        w = torch.linalg.solve(A, b)
+        i = members.index(subdomain)
+        N = self.space.N
+        return w[i * N:(i + 1) * N]
 
 
 def _frozen_preconditioner(d, theta, two_level, coarse_space, coarse_modes,

@@ -21,9 +21,9 @@ block_matvec) and ``tiles`` (SIMT, every other pair at many lanes).
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
 the kernel or raises — there is no fallback and no switch.  Each wrapper
-counts its kernel launches in its ``launches`` attribute and records the
-shape and dtypes of each launch in its ``signatures`` set, so a caller can
-hold the kernel to its plain version at exactly the shapes a path gave it.
+counts its kernel launches in its ``launches`` attribute and, per shape and
+dtypes, in its ``signatures`` dict, so a caller can hold the kernel to its
+plain version at exactly the shapes a path gave it.
 
 The library is compiled with ``nvcc`` from the package's own sources into
 ``pylrbms_tpu_torch/_build/`` at first use and loaded with ``ctypes``
@@ -140,18 +140,17 @@ def _stream_chunks(G, K, N, lanes, sv):
 
 def bound(kind, G, K, N, B, mdt, vdt):
     """(ms, "bytes" | "operations"): the least time the card could take for
-    one call on the route :func:`plan` picks — bytes over the HBM rate, or
-    the operations that route does over its peak (the split f32 products on
-    the tensor cores do three products per product), whichever is
-    larger."""
+    one call — bytes over the HBM rate, or the operations over the card's
+    best rate for the operand types, whichever is larger.  The rate does
+    not depend on the route :func:`plan` picks (a SIMT kernel does not lower
+    the roofline): f64 vectors at the f64 tensor-core peak; f32 vectors at
+    the TF32 peak (bf16 peak for a bf16 matrix) with three products per
+    product, the split that keeps f32 accuracy on the tensor cores."""
     ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
-    route = plan(kind, G, K, N, B, mdt, vdt).route
-    if route in (TENSOR, RING) and vdt == torch.float64:
+    if vdt == torch.float64:
         rate = PEAK_OPS_PER_S["f64 tensor"]
-    elif route in (TENSOR, RING):
-        ops, rate = 3 * ops, PEAK_OPS_PER_S["bf16" if mdt == torch.bfloat16 else "tf32"]
     else:
-        rate = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
+        ops, rate = 3 * ops, PEAK_OPS_PER_S["bf16" if mdt == torch.bfloat16 else "tf32"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
@@ -312,8 +311,7 @@ def block_matvec(A, x, coef=None):
             p.route, p.lanes, p.chunks, _DTYPE_CODE[A.dtype], _DTYPE_CODE[x.dtype],
             A.data_ptr(), x.data_ptr(), None if coef is None else coef.data_ptr(),
             y.data_ptr(), G, K, N, B)
-    block_matvec.launches += 1
-    block_matvec.signatures.add((G, K, N, B, A.dtype, x.dtype))
+    _count(block_matvec, (G, K, N, B, A.dtype, x.dtype))
     return y
 
 
@@ -341,16 +339,20 @@ def precond_dot(F, r):
             p.route, p.lanes, p.chunks, _DTYPE_CODE[F.dtype], _DTYPE_CODE[r.dtype],
             F.data_ptr(), r.data_ptr(), z.data_ptr(), rz.data_ptr(), partials, tickets,
             K, N, B)
-    precond_dot.launches += 1
-    precond_dot.signatures.add((1, K, N, B, F.dtype, r.dtype))
+    _count(precond_dot, (1, K, N, B, F.dtype, r.dtype))
     return z, rz
+
+
+def _count(fn, signature) -> None:
+    fn.launches += 1
+    fn.signatures[signature] = fn.signatures.get(signature, 0) + 1
 
 
 def reset_launch_counts() -> None:
     """Set both wrappers' launch counts to 0 and clear their signatures."""
     for fn in (block_matvec, precond_dot):
         fn.launches = 0
-        fn.signatures = set()
+        fn.signatures = {}
 
 
 def launch_counts() -> dict:
@@ -361,8 +363,14 @@ def launch_counts() -> dict:
 def launch_signatures() -> dict:
     """Per kernel, the distinct ``(G, K, N, B, matrix dtype, vector dtype)``
     it was launched with since the last :func:`reset_launch_counts`."""
-    return {"block_matvec": set(block_matvec.signatures),
-            "precond_dot": set(precond_dot.signatures)}
+    return {name: set(counts) for name, counts in launch_signature_counts().items()}
+
+
+def launch_signature_counts() -> dict:
+    """Per kernel, ``{signature: launches}`` since the last
+    :func:`reset_launch_counts` (signatures as in :func:`launch_signatures`)."""
+    return {"block_matvec": dict(block_matvec.signatures),
+            "precond_dot": dict(precond_dot.signatures)}
 
 
 reset_launch_counts()

@@ -154,3 +154,111 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
     assert _rel(U1, U0) <= 1e-8
     assert n0 == {"block_matvec": 0, "precond_dot": 0}
     assert n1["precond_dot"] > 0
+
+
+@pytest.mark.parametrize("B", [2, 8, 32, 256])
+def test_corrector_shapes_match_plain_versions(cuda, B):
+    """The batched corrector's launches at the north-star width: f64 x f64,
+    G=1, K=256, N=384, B marked patches (stream, ring and SIMT tiles
+    routes), after a K=64 launch so precond_dot's scratch has to grow."""
+    rng = np.random.default_rng(5)
+    f64 = torch.float64
+    for K in (64, 256):
+        A = torch.tensor(rng.normal(size=(1, K, 384, 384)), device=cuda)
+        x = torch.tensor(rng.normal(size=(B, K, 384)), device=cuda)
+        y, yp = hk.block_matvec(A, x), hk.block_matvec_plain(A, x)
+        (z, rz), (zp, rzp) = hk.precond_dot(A[0], x), hk.precond_dot_plain(A[0], x)
+        (z2, rz2) = hk.precond_dot(A[0], x)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= 1e-12 and _rel(z, zp) <= 1e-12 and _rel(rz, rzp) <= 1e-12
+        assert torch.equal(rz, rz2) and torch.equal(z, z2)
+        assert (1, K, 384, B, f64, f64) in hk.launch_signatures()["precond_dot"]
+
+
+@pytest.mark.parametrize("stencil", [False, True], ids=["dense", "stencil"])
+def test_corrector_on_cuda_matches_dense_patch_solve(cuda, stencil):
+    """3x3 subdomains, half 1, nref 2 (N=96), f64: the batched corrector on
+    the card against the port's dense patch solve (1e-8 at PCG tol 1e-10);
+    the dense apply launches both kernels, the stencil apply precond_dot."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.ops.corrector import BatchedCorrector
+
+    cfg = {"num_subdomains": [3, 3],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2}
+    d, _ = discretize(init_grid_and_problem(cfg), device=cuda)
+    mu = d.parse_parameter(0.6)
+    U0 = 0.4 * d.solve(mu)
+    bc = BatchedCorrector(d)
+    if stencil:
+        bc.enable_stencil()
+    marked = [0, 4, 5]
+    hk.reset_launch_counts()
+    W = bc.solve(marked, mu, current_solution=U0)
+    n = hk.launch_counts()
+    # one launch per PCG body evaluation (and one for r0); the body runs in
+    # chunks of 16 between convergence checks, frozen once converged
+    assert bc.last_iters + 1 <= n["precond_dot"] <= bc.last_iters + 16
+    # the residual rhs takes one block apply; the dense patch apply one per body
+    assert n["block_matvec"] == (1 if stencil else n["precond_dot"])
+    for i, k in enumerate(marked):
+        w = d.solve_for_local_correction(k, None, mu, current_solution=U0)
+        assert _rel(W[i], w) <= 1e-8
+
+
+def test_reduce_and_greedy_on_cuda_match_cpu(cuda):
+    """2x2 subdomains, f64: the reduced tensors (1e-10), the greedy's
+    selections and max_etas (1e-6) on the card against the CPU run; the
+    Gramians' operator applies launch block_matvec."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.greedy import weak_greedy
+    from pylrbms_tpu_torch.reductor import ReducedModel
+
+    cfg = {"num_subdomains": [2, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1}
+    out = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev)
+        hk.reset_launch_counts()
+        res = weak_greedy(d, d.parameter_space.sample_uniformly(6), target_error=1e-12,
+                          max_extensions=3)
+        out.append((res, hk.launch_counts()))
+    (r0, n0), (r1, n1) = out
+    assert n0["block_matvec"] == 0 and n1["block_matvec"] > 0
+    assert r1.rd.A_red.is_cuda
+    assert [float(m["diffusion"]) for m in r1.chosen_mus] == \
+        [float(m["diffusion"]) for m in r0.chosen_mus]
+    np.testing.assert_allclose(r1.max_etas, r0.max_etas, rtol=1e-6)
+    for name in ReducedModel._ARRAY_FIELDS:
+        assert _rel(getattr(r1.rd, name).cpu(), getattr(r0.rd, name)) <= 1e-10, name
+
+
+def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda):
+    """precond_dot f64 x f64 at 16 lanes, N=384 stages exactly 48 KB of x
+    beside its static reduction scratch: the launch has to opt in to the
+    larger shared memory.  The opt-in sticks to the kernel for the life of a
+    process, so this runs as the first launch of a fresh one."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch\n"
+        "from pylrbms_tpu_torch.ops import hopper_kernels as hk\n"
+        "g = torch.Generator(device='cuda').manual_seed(1)\n"
+        "F = torch.randn((8, 384, 384), generator=g, device='cuda', dtype=torch.float64)\n"
+        "r = torch.randn((8, 8, 384), generator=g, device='cuda', dtype=torch.float64)\n"
+        "assert hk.plan('precond_dot', 1, 8, 384, 8, F.dtype, r.dtype).lanes == 16\n"
+        "z, rz = hk.precond_dot(F, r)\n"
+        "zp, rzp = hk.precond_dot_plain(F, r)\n"
+        "torch.cuda.synchronize()\n"
+        "assert float((z - zp).abs().max() / zp.abs().max()) <= 1e-12\n"
+        "assert float((rz - rzp).abs().max() / rzp.abs().max()) <= 1e-12\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                         env=dict(os.environ, PYTHONPATH=repo), text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -197,6 +197,10 @@ MAIN_PATH_SHAPES = [
     ("block_matvec", 1, 64, 384, 12, f32, f32, hk.RING, 0.0118, "bytes"),    # serving harvest
     ("block_matvec", 1, 64, 384, 1, f32, f32, hk.STREAM, 0.0113, "bytes"),
     ("precond_dot", 1, 64, 384, 1, bf16, f32, hk.STREAM, 0.0057, "bytes"),   # single query M
+    # the SIMT tiles are charged at the card's f64 rate (67e12 on the tensor
+    # cores), not at the rate of the route they take
+    ("block_matvec", 1, 64, 384, 128, f64, f64, hk.TILES, 0.0376, "bytes"),  # Gramian applies
+    ("precond_dot", 1, 256, 384, 256, f64, f64, hk.TILES, 0.2885, "operations"),
 ]
 
 
@@ -237,3 +241,21 @@ def test_plan_takes_the_ring_only_for_block_matvec_f64_and_f32_at_5_to_16_lanes(
     assert hk.plan("precond_dot", 1, 64, 384, 12, f32, f32).route == hk.STREAM
     assert hk.plan("block_matvec", 1, 64, 400, 12, f32, f32).route == hk.STREAM
     assert hk.plan("block_matvec", 1, 64, 384, 12, f32, f32, aligned=False).route == hk.STREAM
+
+
+def test_launches_are_counted_per_signature():
+    """The wrappers count launches in total and per (G, K, N, B, dtypes);
+    CPU tensors launch nothing, so the counter is driven directly here."""
+    hk.reset_launch_counts()
+    hk.block_matvec(torch.ones((1, 2, 3, 3)), torch.ones((4, 2, 3)))
+    assert hk.launch_counts() == {"block_matvec": 0, "precond_dot": 0}
+    sig = (1, 2, 3, 4, torch.float64, torch.float64)
+    hk._count(hk.precond_dot, sig)
+    hk._count(hk.precond_dot, sig)
+    hk._count(hk.precond_dot, (1, 2, 3, 8, torch.float64, torch.float64))
+    assert hk.launch_counts()["precond_dot"] == 3
+    assert hk.launch_signature_counts()["precond_dot"][sig] == 2
+    assert hk.launch_signatures() == {"block_matvec": set(),
+                                      "precond_dot": {sig, sig[:3] + (8,) + sig[4:]}}
+    hk.reset_launch_counts()
+    assert hk.launch_signature_counts() == {"block_matvec": {}, "precond_dot": {}}

@@ -224,6 +224,19 @@ def test_port_imports_no_jax():
         "U = d.solve(0.5, {'type': 'mf_pcg', 'precision': 1e-10})\n"
         "r = d.assemble(d.parse_parameter(0.5)).apply(U) - d.rhs(d.parse_parameter(0.5))\n"
         "assert int(d.last_solve_iters) > 0 and float(r.norm()) < 1e-8\n"
+        "from pylrbms_tpu_torch.reductor import ParallelLRBMSReductor\n"
+        "from pylrbms_tpu_torch.greedy import weak_greedy\n"
+        "from pylrbms_tpu_torch.online_enrichment import AdaptiveEnrichment\n"
+        "import pylrbms_tpu_torch.utils.checkpoint, pylrbms_tpu_torch.utils.logging\n"
+        "import pylrbms_tpu_torch.problems.spe10, pylrbms_tpu_torch.discretize_elliptic_swipdg\n"
+        "red = ParallelLRBMSReductor(d, order=0)\n"
+        "rd = red.reduce()\n"
+        "sizes = []\n"
+        "AdaptiveEnrichment(None, d, d.space, red, rd, target_error=1e-9).solve(\n"
+        "    0.5, enrichment_steps=1, callback=lambda rd, u, mu, m: sizes.append(m['global RB size']))\n"
+        "assert sizes[0] == 4 and sizes[1] > 4, sizes\n"
+        "res = weak_greedy(d, d.parameter_space.sample_uniformly(3), max_extensions=1)\n"
+        "assert res.fom_solves == 1 and res.max_etas[0] > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
         "assert not ref, ref\n"
