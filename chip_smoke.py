@@ -64,10 +64,29 @@ phase passes:
    stencil corrector apply);
    indicators finite and non-negative; precond_dot launched.
    Phases 10 and 11 print seconds per greedy iteration and enrichment round
-   and per span, corrector PCG iterations, RB sizes and peak memory.
+   and per span, corrector PCG iterations, RB sizes and peak memory;
+12. the parabolic path at 98 304 dofs (SPE10 with raster (8, 8), nearest,
+   contrast 1e4; 16x16 subdomains, half 2, nref 2; f64, T=1, nt=10): the
+   matrix-free implicit-Euler trajectory (two-level, 12 harvested modes)
+   timed per step with its iterations, its final step against a host scipy
+   splu implicit Euler (1e-6), ``solve`` ('auto') against it (1e-6),
+   ``solve_batch`` of 16 mus with the shared preconditioner, each lane
+   against its single-mu trajectory (1e-6), and the snapshot ROM
+   (``ParabolicLRBMSReductor`` on 8 strided steps): its error against the
+   FOM trajectory and the projected against the unprojected estimate
+   (1e-8);
+13. artificial channels at the serving grid (8x8 subdomains, half 2, nref
+   2: 24 576 dofs; f64, T=1, nt=20): the block-PCG trajectory at the seeded
+   mu of ``scripts/parabolic.py``, its parabolic estimate (five groups
+   finite and >= 0), ``ParabolicAdaptiveEnrichment`` from the order-0
+   basis x 3 steps (the ROM's error against the FOM trajectory falls) and
+   ``pod_greedy`` over 5 mus, 3 extensions of 2 POD modes (the max
+   estimate falls), run a second time with ``batched_gs``; prints seconds
+   per round and iteration with their spans and peak memory.
+   Phases 12 and 13 launch both kernels.
 
-Phases run in the order 1-8, 10, 11, 9.  Each main path (phases 5, 7, 8,
-10 and 11) runs with the kernel launch counts and signatures cleared just
+Phases run in the order 1-8, 10-13, 9.  Each main path (phases 5, 7, 8,
+10-13) runs with the kernel launch counts and signatures cleared just
 before it and read just after; the summary's ``launches`` is the sum of the
 counts.
 
@@ -774,6 +793,222 @@ def mor_scale_phase(hk, torch, dev, smi, cfg=None):
     return launches, shapes
 
 
+def _launched_both(hk, label):
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"{label} main path: kernel launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    return launches, shapes
+
+
+def parabolic_scale_phase(hk, torch, dev, smi, cfg=None, nt=10, B=16):
+    """Phase 12: the parabolic FOM and its snapshot ROM at 98 304 dofs."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+    from pylrbms_tpu_torch.reductor import ParabolicLRBMSReductor
+
+    gpd = init_grid_and_problem(cfg or NORTH_STAR, raster=(8, 8), raster_mode="nearest",
+                                max_contrast=1e4)
+    t0 = time.perf_counter()
+    im, _ = discretize(gpd, T=1.0, nt=nt, device=dev, dtype=torch.float64)
+    st = im.stationary
+    K, N = st.space.K, st.space.N
+    torch.cuda.synchronize()
+    log(f"parabolic scale config (SPE10, f64): K={K} N={N} dofs={K * N}, nt={nt}; discretize "
+        f"{time.perf_counter() - t0:.2f} s")
+    dt = 1.0 / nt
+    mu0 = im.parse_parameter([1.0])
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.reset_launch_counts()
+
+    # ---- the FOM trajectory (bench.py's parabolic leg)
+    t0 = time.perf_counter()
+    traj, its = im._solve_mf(mu0, dt, two_level=True, coarse_modes=12, return_iters=True)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = im._solve_mf(mu0, dt, two_level=True, coarse_modes=12)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    step_ms = float(np.median(ts)) / nt * 1e3
+    log(f"parabolic trajectory (mf, two-level, 12 harvested modes): {step_ms:.3f} ms/step "
+        f"(median of 3; runs {', '.join(f'{t:.3f}' for t in ts)} s); first call {t_first:.2f} s "
+        f"with the coarse freeze; PCG iterations per step {its.tolist()} [{smi}]")
+    Q = st.op.A_diag.shape[0]
+    A_q = [to_scipy_csr(st.op.assemble(torch.eye(Q, dtype=torch.float64, device=dev)[q]))
+           for q in range(Q)]
+    th0 = st.theta(mu0).cpu().numpy()
+    b0 = st.rhs(mu0).double().cpu().numpy().reshape(-1)
+    M_np = im.mass.cpu().numpy()
+    M_csr = sp.block_diag([sp.csr_matrix(M_np[k]) for k in range(K)], format="csr")
+    t0 = time.perf_counter()
+    lu = spla.splu((M_csr + dt * sum(float(t) * Aq for t, Aq in zip(th0, A_q))).tocsc())
+    u = np.zeros(K * N)
+    for _ in range(nt):
+        u = lu.solve(M_csr @ u + dt * b0)
+    host_ms = (time.perf_counter() - t0) / nt * 1e3
+    _check(f"parabolic final step vs host scipy splu implicit Euler ({host_ms:.1f} ms/step "
+           f"factorize included), max rel err", rel(traj[-1].cpu().numpy().reshape(-1), u), 1e-6)
+    U_auto = im.solve(mu0)
+    _check("parabolic solve 'auto' (mf, 16 modes) vs the 12-mode trajectory, rel err",
+           rel(U_auto.cpu(), traj.cpu()), 1e-6)
+
+    # ---- B trajectories in one call, the preconditioner shared
+    lo, hi = st.parameter_space.minimum, st.parameter_space.maximum
+    mus = [im.parse_parameter([m]) for m in np.linspace(lo, hi, B)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Ub = im.solve_batch(mus)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    its_b = im.last_solve_iters
+    errs = []
+    for b, m in enumerate(mus):
+        U1 = im._solve_mf(m, dt)
+        errs.append(float(torch.linalg.norm(Ub[b] - U1) / torch.linalg.norm(U1)))
+    log(f"parabolic solve_batch B={B} (shared block factors at mu_bar): {t_b:.3f} s = "
+        f"{t_b / nt / B * 1e3:.3f} ms per step per mu; lock-step PCG iterations per step "
+        f"{its_b.max(dim=0).values.tolist()} [{smi}]")
+    _check(f"parabolic solve_batch lanes vs single-mu trajectories, max rel l2 err",
+           max(errs), 1e-6)
+
+    # ---- the snapshot ROM (scripts/spe10_parabolic.py --rom)
+    sel = np.unique(np.linspace(0, nt, 8).astype(int))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red = ParabolicLRBMSReductor(st)
+    red.extend_basis(traj[torch.as_tensor(sel, device=dev)])
+    rd = red.reduce().attach_instationary(im)
+    torch.cuda.synchronize()
+    t_red = time.perf_counter() - t0
+    t_rom = timed_median(torch, lambda: rd.solve(mu0), reps=3)
+    c = rd.solve(mu0)
+    err = float(torch.linalg.norm(red.reconstruct(c) - traj) / torch.linalg.norm(traj))
+    t_est = timed_median(torch, lambda: rd.estimate(c, mu0, projected=True), reps=3)
+    eta_p, _ = rd.estimate(c, mu0, projected=True)
+    eta_r, _ = rd.estimate(c, mu0, projected=False)
+    log(f"parabolic ROM: {len(sel)} snapshots, reduce {t_red:.2f} s (r_max {rd.r_max}, "
+        f"{K * rd.r_max} reduced dofs); ROM trajectory {t_rom * 1e3:.2f} ms, projected estimate "
+        f"{t_est * 1e3:.2f} ms, eta {float(eta_p):.6e}; ROM vs FOM trajectory rel l2 err "
+        f"{err:.3e}; peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB "
+        f"[{smi}]")
+    if not err < 1e-2:
+        raise AssertionError(f"the snapshot ROM is off its own trajectory: {err:.3e}")
+    _check("parabolic ROM projected vs unprojected estimate, rel err",
+           abs(float(eta_p) - float(eta_r)) / abs(float(eta_r)), 1e-8)
+    torch.cuda.synchronize()
+    return _launched_both(hk, "parabolic scale")
+
+
+def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
+    """Phase 13: artificial channels at the serving grid: the block-PCG
+    trajectory, its estimate, parabolic enrichment and the POD-greedy."""
+    from pylrbms_tpu_torch.problems.artificial_channels import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
+    from pylrbms_tpu_torch.greedy import pod_greedy
+    from pylrbms_tpu_torch.online_enrichment import ParabolicAdaptiveEnrichment
+    from pylrbms_tpu_torch.reductor import ParabolicLRBMSReductor
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS as T
+
+    t0 = time.perf_counter()
+    im, _ = discretize(init_grid_and_problem(cfg or SERVING), T=1.0, nt=nt, device=dev,
+                       dtype=torch.float64)
+    st = im.stationary
+    K, N = st.space.K, st.space.N
+    torch.cuda.synchronize()
+    log(f"parabolic serving config (artificial channels, f64): K={K} N={N} dofs={K * N}, "
+        f"nt={nt}; discretize {time.perf_counter() - t0:.2f} s")
+    mu = im.parameter_space.sample_randomly(1, seed=11)[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.reset_launch_counts()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U = im.solve(mu)
+    torch.cuda.synchronize()
+    t_fom = time.perf_counter() - t0
+    if im.last_solve_iters is None:
+        raise AssertionError("the serving trajectory should take the block-PCG route")
+    t0 = time.perf_counter()
+    eta, parts = im.estimate(U, mu)
+    torch.cuda.synchronize()
+    t_est = time.perf_counter() - t0
+    names = ("nc", "r", "df", "time residual", "time-derivative nc")
+    log(f"parabolic serving trajectory at switch={float(mu['switch'][0]):.4f} (block PCG): "
+        f"{t_fom:.3f} s ({t_fom / nt * 1e3:.2f} ms/step), PCG iterations per step "
+        f"{im.last_solve_iters.tolist()}; estimate {t_est:.3f} s, eta {float(eta):.6e}, "
+        f"groups {', '.join(f'{n} {float(torch.linalg.norm(p)):.3e}' for n, p in zip(names, parts))} "
+        f"[{smi}]")
+    for n, p in zip(names, parts):
+        if not (bool(torch.isfinite(p).all()) and bool((p >= 0).all())):
+            raise AssertionError(f"parabolic estimate group {n} not finite and non-negative")
+
+    # ---- parabolic adaptive enrichment from the order-0 basis
+    T.clear()
+    red = ParabolicLRBMSReductor(st, order=0)
+    loop = ParabolicAdaptiveEnrichment(im, red, red.reduce().attach_instationary(im),
+                                       target_error=0.0, marking_doerfler_theta=0.33)
+    hist = []
+
+    def cb(rd, c, mu_, info):
+        err = float(torch.linalg.norm(red.reconstruct(c) - U) / torch.linalg.norm(U))
+        hist.append((info["eta"], err, info["local_problem_solves"],
+                     None if loop._corrector is None else loop._corrector.last_iters))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.solve(mu, enrichment_steps=3, callback=cb)
+    torch.cuda.synchronize()
+    t_enr = time.perf_counter() - t0
+    log(f"parabolic enrichment: {t_enr:.2f} s for 3 rounds ({t_enr / 3:.3f} s per round); "
+        f"(eta, ROM vs FOM rel l2 err, marked, corrector PCG iterations) per step "
+        f"{[(float(f'{e:.4e}'), float(f'{r:.4e}'), m, i) for e, r, m, i in hist]}; RB size "
+        f"{loop.rd.solution_dim} [{smi}]")
+    log(f"parabolic enrichment spans, median (max) [{smi}]: {_spans(T, 'parabolic enrich:')}")
+    if not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"the enriched ROM's error did not fall: {hist}")
+
+    # ---- POD-greedy, host Gram-Schmidt, then the batched one
+    train = im.parameter_space.sample_uniformly(5)
+    runs = {}
+    for batched in (False, True):
+        T.clear()
+        ParabolicLRBMSReductor.batched_gs = batched
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pod_greedy(im, train, target_error=1e-6, max_extensions=3, pod_modes=2)
+            torch.cuda.synchronize()
+            t_pod = time.perf_counter() - t0
+        finally:
+            ParabolicLRBMSReductor.batched_gs = False
+        runs[batched] = res
+        n_it = max(1, res.fom_solves)
+        label = "batched_gs=True" if batched else "host Gram-Schmidt"
+        log(f"POD-greedy ({label}): {t_pod:.2f} s for {len(res.max_etas)} sweeps and "
+            f"{res.fom_solves} FOM trajectories ({t_pod / n_it:.3f} s per iteration, the "
+            f"initial reduction included); max estimates "
+            f"{', '.join(f'{e:.4e}' for e in res.max_etas)}; RB size "
+            f"{int(res.reductor.basis_sizes().sum())} (r_max {res.rd.r_max}) [{smi}]")
+        log(f"POD-greedy ({label}) spans, median (max) [{smi}]: {_spans(T, 'pod-greedy:')}")
+    res, res_b = runs[False], runs[True]
+    if not res.max_etas[-1] < res.max_etas[0]:
+        raise AssertionError(f"POD-greedy max estimate did not fall: {res.max_etas}")
+    _check("POD-greedy batched_gs vs host Gram-Schmidt max estimates, max rel diff",
+           rel(res_b.max_etas, res.max_etas), 1e-6)
+    torch.cuda.synchronize()
+    log(f"parabolic serving peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
+    return _launched_both(hk, "parabolic serving")
+
+
 def main() -> int:
     try:
         import torch
@@ -813,6 +1048,10 @@ def main() -> int:
         paths["MOR serving"] = mor_serving_phase(hk, torch, dev, smi)
         torch.cuda.empty_cache()
         paths["MOR scale"] = mor_scale_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        paths["parabolic scale"] = parabolic_scale_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        paths["parabolic serving"] = parabolic_serving_phase(hk, torch, dev, smi)
         torch.cuda.empty_cache()
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")

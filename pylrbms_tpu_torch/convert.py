@@ -9,7 +9,9 @@ dtype, :func:`stencils_from_numpy` its affine stencils
 reference's matrix-free model solve, :func:`bases_from_numpy` the local
 reduced bases of a reference reductor and :func:`reduced_from_numpy` the
 tensors of a reference ``ReducedModel``, so that both implementations can
-be fed identical state.  This module imports no jax: array leaves are read with
+be fed identical state, and :func:`instationary_from_numpy` builds the
+port's implicit-Euler model from a reference model's time grid and mass.
+This module imports no jax: array leaves are read with
 ``np.asarray``.
 """
 from __future__ import annotations
@@ -67,16 +69,37 @@ def bases_from_numpy(d, bases, **kwargs):
 def reduced_from_numpy(reductor, fields: dict):
     """The array fields of a reference ``ReducedModel``
     (``ReducedModel._ARRAY_FIELDS`` as numpy; absent or None Gramians stay
-    None) -> a :class:`~pylrbms_tpu_torch.reductor.ReducedModel` over
-    ``reductor``, in float64 on its model's device.  The padded width is
-    read off ``A_red``; the sizes are the reductor's."""
-    from .reductor import ReducedModel
+    None; ``"parabolic"``, a dict of the projected parabolic tensors, when
+    present) -> a :class:`~pylrbms_tpu_torch.reductor.ReducedModel` over
+    ``reductor``, in float64 on its model's device.  With ``"M_red"`` (the
+    reduced mass of a reference ``ReducedParabolicModel``) the result is a
+    :class:`~pylrbms_tpu_torch.reductor.ReducedParabolicModel` around it.
+    The padded width is read off ``A_red``; the sizes are the reductor's."""
+    from .reductor import ReducedModel, ReducedParabolicModel
     d = reductor.d
     K = d.space.K
     r_max = int(np.asarray(fields["A_red"]).shape[-1]) // K
     nbhd_idx, _, _ = reductor._bucket_rows(d.grid, K, r_max)
-    tensors = {n: (None if fields.get(n) is None
-                   else _tensor(fields[n], d.device, torch.float64))
-               for n in ReducedModel._ARRAY_FIELDS}
-    return ReducedModel(reductor=reductor, sizes=reductor.basis_sizes(), r_max=r_max,
-                        nbhd_idx=nbhd_idx, **tensors)
+
+    def conv(a):
+        return None if a is None else _tensor(a, d.device, torch.float64)
+
+    tensors = {n: conv(fields.get(n)) for n in ReducedModel._ARRAY_FIELDS}
+    pb = fields.get("parabolic")
+    rd = ReducedModel(reductor=reductor, sizes=reductor.basis_sizes(), r_max=r_max,
+                      nbhd_idx=nbhd_idx, **tensors,
+                      parabolic=None if pb is None else {k: conv(v) for k, v in pb.items()})
+    if fields.get("M_red") is None:
+        return rd
+    return ReducedParabolicModel(rd, conv(fields["M_red"]))
+
+
+def instationary_from_numpy(stationary, T: float, nt: int, mass=None):
+    """The port's :class:`~pylrbms_tpu_torch.model.InstationaryBlockModel`
+    on the port's ``stationary`` model with a reference model's time grid
+    ``(T, nt)`` and its mass (``[K, N, N]`` as numpy; None: the stationary
+    model's L2 product)."""
+    from .model import InstationaryBlockModel
+    return InstationaryBlockModel(
+        stationary=stationary, T=float(T), nt=int(nt),
+        mass=None if mass is None else _tensor(mass, stationary.device, stationary.dtype))

@@ -1,6 +1,7 @@
-"""Localized a-posteriori error estimator (elliptic, 2D, order 1).
+"""Localized a-posteriori error estimators (elliptic and parabolic, 2D,
+order 1).
 
-The port of the elliptic part of ``pylrbms_tpu/estimators.py`` — the
+The port of the 2D part of ``pylrbms_tpu/estimators.py`` — the
 OS2015/RS2017 localized estimator
 
   eta_nc_sq[ii] = || u - I_os(u) ||^2_{lambda_bar, ii}
@@ -10,7 +11,8 @@ OS2015/RS2017 localized estimator
         + (1/sqrt(alpha(mu,mu_hat))) ||eta_r_sq + eta_df_sq|| )
 
 with the reference's as-executed quirks (alpha from the first component
-only; squared locals entering the norms).  U may carry a leading lane axis
+only; squared locals entering the norms), and :class:`ParabolicEstimator`
+for implicit-Euler trajectories.  U may carry a leading lane axis
 and mu lane-batched leaves; theta and theta_f then carry the lane axis too
 (``[B, Q]``), which is what the batched online step feeds in.
 """
@@ -117,9 +119,16 @@ class EllipticEstimator:
         th = th.reshape(th.shape + (1,) * (t_q.ndim - th.ndim))
         return (th * t_q).sum(0)
 
-    def local_quantities(self, U, mu, tensors: dict | None = None):
+    def local_quantities(self, U, mu, tensors: dict | None = None,
+                         elliptic_reconstruction: bool = False, d_model=None):
         """Matrix-form squared local quantities; U [..., K, N] -> each
-        [..., K] (needs the non-lean estimator tensors)."""
+        [..., K] (needs the non-lean estimator tensors).
+
+        ``elliptic_reconstruction`` adds the parabolic extension of the
+        residual part, per subdomain (``d_model`` supplies the operator, the
+        rhs and the inverse mass):
+          eta_r += (M^-1 B u)^T L2 (M^-1 B u) - (M^-1 F)^T L2 (M^-1 F)
+                   - 2 (M^-1 (B u - F))^T L2 div(t)."""
         d = self.data
         g = (tensors or {}).get
         dtype, dev = U.dtype, U.device
@@ -131,8 +140,22 @@ class EllipticEstimator:
         rf = torch.einsum("...p,...r,prk->...k", theta_f, theta_f, g("rf_qq", d.rf_qq))
         r_fd = torch.einsum("...p,pkn,...kn->...k", theta_f, g("d_vec", d.d_vec), t)
         r_dd = torch.einsum("...kn,knm,...km->...k", t, g("R_dd", d.R_dd), t)
+        eta_r = rf - 2.0 * r_fd + r_dd
+        if elliptic_reconstruction:
+            if d_model is None:
+                raise ValueError("elliptic_reconstruction needs the model (d_model=)")
+            L2 = g("L2", d.L2)
+            BU_R = d_model.l2_solve(d_model.operator_apply(U, mu))
+            F_R = d_model.l2_solve(d_model.rhs(mu)).expand(U.shape)
+            div_t = torch.einsum("nr,...kr->...kn", d.A_div, t)
+
+            def form(a, b):
+                return torch.einsum("...kn,knm,...km->...k", a, L2, b)
+
+            eta_r = (eta_r + form(BU_R, BU_R) - form(F_R, F_R)
+                     - 2.0 * form(BU_R - F_R, div_t))
         scale = (self.poincare_constant / g("min_ev", d.min_ev)) * g("diam", d.diam) ** 2
-        eta_r = (rf - 2.0 * r_fd + r_dd) * scale
+        eta_r = eta_r * scale
         aa = torch.einsum("...p,...r,prknm,...kn,...km->...k",
                           theta, theta, g("M_aa", d.M_aa), U, U)
         bb = torch.einsum("...kn,knm,...km->...k", t, g("BB", d.BB), t)
@@ -186,13 +209,58 @@ class EllipticEstimator:
         return eta_nc, eta_r, eta_df
 
     def estimate(self, U, mu, decompose: bool = False,
-                 paper_convention: bool = False):
+                 paper_convention: bool = False, d=None,
+                 elliptic_reconstruction: bool = False):
         """U [K, N] or [B, K, N] at one mu.  Returns eta and, with
-        ``decompose``, the local triples [K, B] and indicators [K, B]."""
+        ``decompose``, the local triples [K, B] and indicators [K, B].
+        ``elliptic_reconstruction`` (the parabolic residual extension, with
+        the model ``d``) needs the matrix-form tensors of a non-lean model."""
         Ub = U[None] if U.ndim == 2 else U
-        if self.data.M_aa is None:
+        if self.data.M_aa is None and not elliptic_reconstruction:
             eta_nc, eta_r, eta_df = self.local_quantities_positive(Ub, mu)
+        elif self.data.M_aa is None:
+            raise ValueError(
+                "lean models (discretize(lean=True)) carry no matrix-form "
+                "estimator tensors; the elliptic-reconstruction (parabolic) "
+                "estimate needs them: discretize with lean=False")
         else:
-            eta_nc, eta_r, eta_df = self.local_quantities(Ub, mu)
+            eta_nc, eta_r, eta_df = self.local_quantities(
+                Ub, mu, elliptic_reconstruction=elliptic_reconstruction, d_model=d)
         return aggregate_eta(self, mu, eta_nc, eta_r, eta_df, decompose,
                              paper_convention=paper_convention)
+
+
+class ParabolicEstimator(EllipticEstimator):
+    """The parabolic estimator of an implicit-Euler trajectory U
+    [nt+1, K, N]; needs the model ``d`` (an ``InstationaryBlockModel``: its
+    operator, rhs, inverse mass and time grid).
+
+    The elliptic parts (with the elliptic-reconstruction extension) are
+    evaluated at ``_t = 0`` unless mu carries a time, and scaled by
+    2 sqrt(dt/3); the time-stepping residual is dt/3 ||B(u^{n+1}-u^n)||^2_{M^-1}
+    per step; the time-derivative nonconformity is the Oswald error of the
+    increments in the E_bar product over dt."""
+
+    def estimate(self, U, mu, d=None, decompose: bool = False):
+        if d is None:
+            raise ValueError("the parabolic estimate needs the model (d=)")
+        data = self.data
+        mu = dict(mu)
+        mu.setdefault("_t", 0.0)
+        dt = d.T / d.nt
+        eta, (nc, r, df), _ = super().estimate(
+            U, mu, decompose=True, d=d, elliptic_reconstruction=True)
+        dU = U[1:] - U[:-1]
+        BdU = d.operator_apply(dU, mu)
+        MinvBdU = d.l2_solve(BdU)
+        time_res = torch.sqrt(dt / 3.0 * torch.einsum("bkn,bkn->b", MinvBdU, BdU))
+        c = 2.0 * math.sqrt(dt / 3.0)
+        eta = eta * c
+        nc, r, df = nc * c, r * c, df * c
+        U_o = data.oswald.apply(U)
+        dU_o = U_o[1:] - U_o[:-1]
+        tdnc = torch.einsum("bkn,knm,bkm->kb", dU_o, data.E_bar, dU_o) / dt
+        tdnc = torch.sqrt(torch.clamp(tdnc, min=0.0))
+        est = (torch.linalg.norm(torch.atleast_1d(eta)) + torch.linalg.norm(time_res)
+               + torch.linalg.norm(tdnc))
+        return est, (nc, r, df, time_res, tdnc)

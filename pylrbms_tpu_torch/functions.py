@@ -1,7 +1,8 @@
 """Coefficient / data functions evaluated at quadrature points.
 
-The port of ``pylrbms_tpu/functions.py`` for the functions the OS2015 slice
-uses: expression and constant functions and their algebra, and the
+The port of the 2D part of ``pylrbms_tpu/functions.py``: expression and
+constant functions and their algebra, the checkerboard and box-indicator
+functions of the thermal-block and channel problems, and the
 cellwise-constant data field of the SPE10 problem.  A function is a
 callable ``f(x)`` on a tensor ``x`` of shape ``(..., 2)`` returning ``(...,)``
 (scalar) or ``(..., 2, 2)`` (matrix) on ``x``'s device and dtype.
@@ -9,7 +10,7 @@ callable ``f(x)`` on a tensor ``x`` of shape ``(..., 2)`` returning ``(...,)``
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -134,5 +135,42 @@ def make_cellwise_function_1x1(grid, cell_values, name: str = "cellwise") -> Sca
         ix = torch.clamp(torch.floor(fx).long(), 0, grid.global_nx - 1)
         iy = torch.clamp(torch.floor(fy).long(), 0, grid.global_ny - 1)
         return torch.as_tensor(vals, dtype=x.dtype, device=x.device)[iy, ix]
+
+    return ScalarFunction(fn, name=name, order=0)
+
+
+def make_checkerboard_function_1x1(lower_left, upper_right, num_elements,
+                                   values, name: str = "checkerboard") -> ScalarFunction:
+    """Checkerboard with dune-xt cell ordering: index = ix + nx*iy.
+    ``values`` may be a flat list or a list of 1-element lists (dune style)."""
+    ll = np.asarray(lower_left, dtype=float)
+    ur = np.asarray(upper_right, dtype=float)
+    nx, ny = int(num_elements[0]), int(num_elements[1])
+    vals = np.asarray([v[0] if isinstance(v, (list, tuple)) else v for v in values],
+                      dtype=float).reshape(ny, nx)  # vals[iy, ix]
+
+    def fn(x):
+        fx = (x[..., 0] - ll[0]) / (ur[0] - ll[0]) * nx
+        fy = (x[..., 1] - ll[1]) / (ur[1] - ll[1]) * ny
+        ix = torch.clamp(torch.floor(fx).long(), 0, nx - 1)
+        iy = torch.clamp(torch.floor(fy).long(), 0, ny - 1)
+        return torch.as_tensor(vals, dtype=x.dtype, device=x.device)[iy, ix]
+
+    return ScalarFunction(fn, name=name, order=0)
+
+
+def make_indicator_function_1x1(boxes_and_values: Sequence,
+                                name: str = "indicator") -> ScalarFunction:
+    """Sum of closed box indicators: ``[[[ll, ur], value], ...]``."""
+    parsed = [(np.asarray(box[0], dtype=float), np.asarray(box[1], dtype=float),
+               float(value)) for box, value in boxes_and_values]
+
+    def fn(x):
+        out = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for ll, ur, value in parsed:
+            inside = ((x[..., 0] >= ll[0]) & (x[..., 0] <= ur[0]) &
+                      (x[..., 1] >= ll[1]) & (x[..., 1] <= ur[1]))
+            out = out + value * inside.to(x.dtype)
+        return out
 
     return ScalarFunction(fn, name=name, order=0)

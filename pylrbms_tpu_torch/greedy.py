@@ -1,8 +1,7 @@
 """Offline weak-greedy basis construction, batched over the training set.
 
-The port of ``pylrbms_tpu/greedy.py`` (``weak_greedy``; the parabolic
-``pod_greedy`` and the device-mesh sharding of the sweep are not ported
-yet).  The greedy's inner loop — "estimate the reduced error for every
+The port of ``pylrbms_tpu/greedy.py``: ``weak_greedy`` and the parabolic
+``pod_greedy`` (the device-mesh sharding of the sweep is not ported yet).  The greedy's inner loop — "estimate the reduced error for every
 training parameter" — is ONE lane-batched evaluation over the whole training
 set: the reduced solves are one batched dense ``[B, R, R]`` LU, the
 localized estimator and the residual Gramian forms are batched einsums, and
@@ -17,7 +16,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .reductor import LRBMSReductor, ExtensionError
+from .reductor import LRBMSReductor, ExtensionError, ParabolicLRBMSReductor
 from .utils.checkpoint import load_greedy_state, save_greedy_state
 from .utils.logging import getLogger
 from .utils.timers import GLOBAL_TIMINGS
@@ -182,3 +181,89 @@ def weak_greedy(d, training_set, target_error: float = 1e-4,
         prep_t.join()
     return GreedyResult(reductor=red, rd=rd, max_etas=max_etas,
                         chosen_mus=chosen, fom_solves=solves)
+
+
+def pod_greedy(im, training_set, target_error: float = 1e-4,
+               max_extensions: int = 20, products=None, pod_modes: int = 1,
+               order: int = 0, checkpoint_path: Optional[str] = None,
+               resume: bool = False) -> GreedyResult:
+    """POD-greedy for the parabolic LRBMS model ``im``: until the worst
+    projected parabolic ROM estimate over the training set drops below
+    ``target_error``, pick the worst parameter, solve its FOM trajectory,
+    subtract the ROM reconstruction, and extend each local basis with the
+    ``pod_modes`` leading POD modes of the local error trajectory in the
+    local energy product (a host eigh of the [nt+1, nt+1] snapshot
+    correlation).  The sweep is one batched reduced solve and B projected
+    estimates.  The estimate is floored by the FOM discretization error.
+
+    ``checkpoint_path`` / ``resume``: as :func:`weak_greedy` (bases and
+    selection state after every extension)."""
+    logger = getLogger("pylrbms.pod_greedy")
+    d = im.stationary
+    mus = [d.parse_parameter(mu) for mu in training_set]
+    max_ests: List[float] = []
+    chosen_idx: List[int] = []
+    it0 = 0
+    red = None
+    if resume and checkpoint_path is not None:
+        p = checkpoint_path if checkpoint_path.endswith(".npz") else checkpoint_path + ".npz"
+        if os.path.exists(p):
+            red, it0, _, max_ests, chosen_idx = load_greedy_state(
+                d, p, products=products, cls=ParabolicLRBMSReductor)
+            logger.info(f"pod-greedy: resumed from {p} at iteration {it0} "
+                        f"(RB size {sum(b.shape[0] for b in red.bases)})")
+    if red is None:
+        red = ParabolicLRBMSReductor(d, products=products, order=order)
+    T = GLOBAL_TIMINGS
+    with T.span('pod-greedy: initial reduction') as _s:
+        rd = red.reduce().attach_instationary(im)
+        _s["sync"] = rd.A_red
+    chosen = [mus[i] for i in chosen_idx]
+    fom_solves = 0
+
+    def _save(it_next):
+        if checkpoint_path is not None:
+            save_greedy_state(red, checkpoint_path, it=it_next,
+                              retired=np.zeros(len(mus), dtype=bool),
+                              max_etas=max_ests, chosen_idx=chosen_idx)
+
+    for it in range(it0, max_extensions):
+        with T.span('pod-greedy: surrogate sweep'):
+            cs = rd.solve_batch(mus)
+            ests = rd.estimate_batch(cs, mus).detach().cpu().numpy()
+        worst = int(np.argmax(ests))
+        max_ests.append(float(ests[worst]))
+        logger.info(f"pod-greedy iter {it}: max estimate {ests[worst]:.3e} "
+                    f"at training index {worst} (RB size {int(red.basis_sizes().sum())})")
+        if ests[worst] <= target_error:
+            _save(it + 1)
+            break
+        mu_w = mus[worst]
+        with T.span('pod-greedy: FOM trajectory solve') as _s:
+            U = im.solve(mu_w)                                 # [nt+1, K, N]
+            _s["sync"] = U
+        fom_solves += 1
+        chosen.append(mu_w)
+        chosen_idx.append(worst)
+        with T.span('pod-greedy: POD of the error trajectory'):
+            E = U.detach().cpu().numpy() - red.reconstruct(cs[worst]).cpu().numpy()
+            modes = np.zeros((pod_modes,) + E.shape[1:])       # [m, K, N]
+            for k in range(d.space.K):
+                Ek = E[:, k, :]
+                w, Vv = np.linalg.eigh(Ek @ red.products[k] @ Ek.T)
+                idx = np.argsort(w)[::-1][:pod_modes]
+                idx = idx[w[idx] > max(float(w.max()), 0.0) * 1e-12]
+                modes[:idx.size, k] = Vv[:, idx].T @ Ek
+        try:
+            with T.span('pod-greedy: basis extension (GS)'):
+                red.extend_basis(modes)
+        except ExtensionError:
+            logger.info("pod-greedy: no local basis grew — stopping")
+            _save(it + 1)
+            break
+        with T.span('pod-greedy: re-reduction (projection)') as _s:
+            rd = red.reduce().attach_instationary(im)
+            _s["sync"] = rd.A_red
+        _save(it + 1)
+    return GreedyResult(reductor=red, rd=rd, max_etas=max_ests,
+                        chosen_mus=chosen, fom_solves=fom_solves)

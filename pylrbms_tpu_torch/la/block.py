@@ -254,12 +254,12 @@ class AssembledBlockOp:
 
 
 def block_jacobi_factors(A_diag: torch.Tensor) -> torch.Tensor:
-    """Jacobi-scaled explicit inverses of diagonal blocks [K, N, N]:
+    """Jacobi-scaled explicit inverses of diagonal blocks [..., K, N, N]:
     M^-1 = S inv(S A S) S with S = diag(A)^{-1/2}."""
     dvec = torch.abs(torch.diagonal(A_diag, dim1=-2, dim2=-1))
     s = 1.0 / torch.sqrt(torch.clamp(dvec, min=1e-300))
-    As = A_diag * s[:, :, None] * s[:, None, :]
-    return torch.linalg.inv(As) * s[:, :, None] * s[:, None, :]
+    S = s[..., :, None] * s[..., None, :]
+    return torch.linalg.inv(A_diag * S) * S
 
 
 def solve_pcg(op, b, tol=1e-12, maxiter=2000, factors=None, coarse_inv=None,

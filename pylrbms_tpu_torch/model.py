@@ -1,4 +1,4 @@
-"""Stationary block model and the online step.
+"""Stationary and instationary block models and the online step.
 
 The port of the 2D part of ``pylrbms_tpu/model.py``: the
 :class:`StationaryBlockModel` container (theta, rhs, assemble, the detailed
@@ -7,7 +7,10 @@ at scale — with its post-checks, caching and frozen preconditioner,
 estimate, and the dense oversampled-patch corrector solve of the online
 enrichment) and :func:`make_online_step`, the LRBMS online step
 ``(theta, theta_f, mu) -> (U, indicators)`` for one query or for B queries
-in one call (``vmap`` becomes an explicit leading lane axis).
+in one call (``vmap`` becomes an explicit leading lane axis); and
+:class:`InstationaryBlockModel`, the implicit-Euler trajectory on top of it
+(dense LU, block-Jacobi PCG or the matrix-free stencil PCG by size; B
+parameter lanes in one call with :meth:`InstationaryBlockModel.solve_batch`).
 """
 from __future__ import annotations
 
@@ -24,19 +27,25 @@ import torch
 from .config import validate_solver_options
 from .utils.precision import pin_precision, device as _device
 from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
-                       geneo_coarse_basis, harvested_coarse_basis, neumann_blocks,
-                       prepare_coarse, reblock, unblock)
-from .ops.matrixfree import StencilOperator, assemble_swipdg_stencil, cast
+                       block_jacobi_factors, geneo_coarse_basis,
+                       harvested_coarse_basis, neumann_blocks, prepare_coarse,
+                       reblock, unblock)
+from .ops.hopper_kernels import block_matvec
+from .ops.matrixfree import (StencilOperator, assemble_swipdg_stencil, cast,
+                             mass_stencil)
 from .ops.ir import diag_of_blocks, solve_ir
 from .ops.fluxreco import FluxReconstructor
 from .parameters import (CubicParameterSpace, evaluate_coefficients,
                          parse_parameter)
-from .estimators import EllipticEstimator
+from .estimators import EllipticEstimator, ParabolicEstimator
 
 # dof counts from which the reference takes the stencil operator: in the
 # online step (matrix_free=None) and in solve's 'auto' (mf_pcg)
 STENCIL_STEP_MIN_DOFS = 16384
 MF_SOLVE_MIN_DOFS = 32768
+# the implicit-Euler trajectory takes a dense global LU up to this many dofs,
+# block-Jacobi PCG up to MF_SOLVE_MIN_DOFS and the stencil PCG above
+TRAJ_DENSE_MAX_DOFS = 6144
 
 
 class SolverError(RuntimeError):
@@ -317,8 +326,11 @@ class StationaryBlockModel:
                                        paper_convention=paper_convention)
 
     def l2_solve(self, V):
-        """Apply the inverse of the block-diagonal L2 product to V [..., K, N]."""
-        return torch.linalg.solve(self.products["l2"], V.unsqueeze(-1)).squeeze(-1)
+        """Apply the inverse of the block-diagonal L2 product to V [..., K, N]
+        (one solve per subdomain block with the lanes as its columns)."""
+        K, N = self.space.K, self.space.N
+        X = V.reshape(-1, K, N).permute(1, 2, 0)                     # [K, N, lanes]
+        return torch.linalg.solve(self.products["l2"], X).permute(2, 0, 1).reshape(V.shape)
 
     @property
     def l2_product(self):
@@ -651,3 +663,304 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     step.iters_probe = iters_probe
     step.arrays = arrays
     return step
+
+
+@dataclass
+class InstationaryBlockModel:
+    """Implicit-Euler time stepping of a stationary block model: per step
+    (M + dt A(mu)) u^{n+1} = M u^n + dt f(t_{n+1}), u^0 = 0.
+
+    Time enters through the ``'_t'`` parameter of the rhs coefficients,
+    evaluated on the host in float64 at t = (n + 1) dt (one copy to the
+    device per trajectory); G = M + dt A(mu) is
+    time-independent, so its factorization or preconditioner is built once
+    per mu and reused over the nt steps.  ``last_solve_iters`` holds the
+    Krylov counts per step of the last PCG trajectory ([nt], or [B, nt]
+    after :meth:`solve_batch`; None after a dense solve)."""
+    stationary: StationaryBlockModel
+    T: float
+    nt: int
+    mass: Optional[torch.Tensor] = None        # [K, N, N] block-diagonal L2 mass
+    name: str = "InstationaryBlockModel"
+    last_solve_iters: Optional[torch.Tensor] = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.mass is None:
+            self.mass = self.stationary.products["l2"]
+
+    # ---- passthroughs
+    def parse_parameter(self, mu):
+        return self.stationary.parse_parameter(mu)
+
+    @property
+    def parameter_space(self):
+        return self.stationary.parameter_space
+
+    @property
+    def products(self):
+        return self.stationary.products
+
+    def operator_apply(self, U, mu):
+        return self.stationary.operator_apply(U, mu)
+
+    def rhs(self, mu):
+        return self.stationary.rhs(mu)
+
+    def l2_solve(self, V):
+        return self.stationary.l2_solve(V)
+
+    def unblock(self, U):
+        return unblock(U)
+
+    def mass_apply(self, u):
+        """M u for u [..., K, N]: one :func:`block_matvec` launch (G = 1, the
+        lanes of u as its lanes)."""
+        ub = u.reshape((-1,) + u.shape[-2:]).contiguous()
+        return block_matvec(self.mass[None].contiguous(), ub).reshape(u.shape)
+
+    def estimate(self, U, mu, decompose: bool = False):
+        """The parabolic estimate of a trajectory U [nt+1, K, N]:
+        (eta, (nc, r, df, time_res, tdnc)); the groups are always returned
+        (``decompose`` is the reference's signature)."""
+        mu = self.parse_parameter(mu)
+        return ParabolicEstimator(self.stationary.estimator.data).estimate(U, mu, d=self)
+
+    # ---- trajectories
+    def _theta_f_steps(self, mu, dt: float):
+        """theta_f at t = (n + 1) dt for the nt steps, [nt, Qf] (or
+        [nt, B, Qf] for lane-batched mu): the '_t' coefficients are evaluated
+        on the host in float64 (the channels' 0/1 switch sin(4 pi t) > 0 is
+        decided there) and moved to the device in one copy, so the time loop
+        waits for no host value."""
+        st = self.stationary
+        return torch.stack([
+            evaluate_coefficients(st.f_coeffs, dict(mu, _t=(n + 1.0) * dt), st.dtype, "cpu")
+            for n in range(self.nt)]).to(st.device)
+
+    def _euler_operator(self, A: AssembledBlockOp, dt: float) -> AssembledBlockOp:
+        """G = M + dt A as a block operator."""
+        return AssembledBlockOp(A.static, self.mass + dt * A.A_diag, dt * A.C_R_io,
+                                dt * A.C_R_oi, dt * A.C_U_io, dt * A.C_U_oi)
+
+    def _uses_stencil(self) -> bool:
+        st = self.stationary
+        return (st.estimator is not None
+                and bool(getattr(st.estimator.data, "lambda_funcs", None)))
+
+    def solve(self, mu):
+        """Trajectory [nt+1, K, N]: a dense global LU of G up to
+        :data:`TRAJ_DENSE_MAX_DOFS` dofs, block-Jacobi PCG on the block
+        operator G (tol 1e-10, maxiter 500) up to :data:`MF_SOLVE_MIN_DOFS`,
+        and the matrix-free :meth:`_solve_mf` above."""
+        st = self.stationary
+        mu = self.parse_parameter(mu)
+        dt = self.T / self.nt
+        K, N = st.space.K, st.space.N
+        if K * N > MF_SOLVE_MIN_DOFS and self._uses_stencil():
+            return self._solve_mf(mu, dt)
+        G = self._euler_operator(st.assemble(mu), dt)
+        its = []
+        if K * N <= TRAJ_DENSE_MAX_DOFS:
+            lu, piv = torch.linalg.lu_factor(G.to_dense())
+
+            def solve_step(rhs):
+                return torch.linalg.lu_solve(lu, piv, rhs.reshape(-1, 1)).reshape(K, N)
+        else:
+            factors = G.block_jacobi_factors()
+
+            def solve_step(rhs):
+                x, it = G.solve_pcg(rhs, tol=1e-10, maxiter=500, factors=factors,
+                                    return_iters=True)
+                its.append(it)
+                return x
+
+        theta_f = self._theta_f_steps(mu, dt)
+        u = torch.zeros((K, N), dtype=st.dtype, device=st.device)
+        traj = [u]
+        for n in range(self.nt):
+            f = torch.einsum("q,qkn->kn", theta_f[n], st.rhs_q)
+            u = solve_step(self.mass_apply(u) + dt * f)
+            traj.append(u)
+        self.last_solve_iters = torch.stack(its) if its else None
+        return torch.stack(traj)
+
+    def _solve_mf(self, mu, dt, tol: float = 1e-10, maxiter: int = 500,
+                  two_level: bool = None, coarse_modes: int = 16,
+                  coarse_space: str = "harvested", precision: str = None,
+                  extrapolate: bool = True, return_iters: bool = False,
+                  inner: str = None):
+        """Matrix-free implicit Euler: G = M + dt A as one stencil family
+        (the mass is its first component, :func:`mass_stencil`), the M
+        apply is the mass component alone, the per-mu block-Jacobi factors
+        of G are applied in f32 through ``precond_dot``; ``two_level``
+        (default: above 32 768 dofs) adds the harvested coarse level on G,
+        frozen at the first theta per (dt, coarse_space, coarse_modes) and
+        applied in f32.  Each step warm-starts from u + (u - u_prev)
+        (``extrapolate``) or u.  ``precision`` 'f64' (default) runs f64 PCG,
+        'mixed' the f32 iterative refinement of ``ops/ir.solve_ir``;
+        ``inner`` 'stencil' (default) only.  Returns the trajectory (and the
+        iterations per step with ``return_iters``)."""
+        st = self.stationary
+        mu = self.parse_parameter(mu)
+        G_sop, M_op = self._mf_parab_setup()
+        theta = st.theta(mu)
+        theta_G = torch.cat([torch.ones_like(theta[:1]), dt * theta])
+        bf = self._parab_factors(dt * theta)
+        if two_level is None:
+            two_level = st.space.K * st.space.N > MF_SOLVE_MIN_DOFS
+        C = ci = None
+        if two_level:
+            C, ci = self._mf_parab_coarse(dt, theta, coarse_space, coarse_modes)
+        precision = self._resolve_traj_precision(precision)
+        self._resolve_traj_inner(inner)
+        traj, its = self._mf_traj(G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol,
+                                  maxiter, precision, extrapolate)
+        self.last_solve_iters = its
+        return (traj, its) if return_iters else traj
+
+    @staticmethod
+    def _resolve_traj_inner(inner):
+        if inner in (None, "stencil"):
+            return "stencil"
+        if inner == "halo":
+            raise NotImplementedError(
+                "inner='halo' needs the halo-dense operator of "
+                "pylrbms_tpu/ops/halodense.py, which is not ported yet")
+        raise ValueError(f"unknown trajectory inner form {inner!r}")
+
+    @staticmethod
+    def _resolve_traj_precision(precision):
+        precision = "f64" if precision is None else precision
+        if precision not in ("f64", "mixed"):
+            raise ValueError(f"unknown trajectory precision {precision!r}")
+        return precision
+
+    def _mf_parab_setup(self):
+        """(G_sop, M_op): the stencil family of G = M + dt A (the mass
+        first, built once per stationary model) and the assembled mass."""
+        st = self.stationary
+        sop = st.mf_operator()
+        with st._mf_lock:
+            m_st = st._mf_cache.get("mass_stencil")
+            if m_st is None:
+                m_st = st._mf_cache["mass_stencil"] = mass_stencil(st.space, sop.stencils[0])
+        G_sop = StencilOperator(st.space, (m_st,) + tuple(sop.stencils))
+        M_op = StencilOperator(st.space, (m_st,)).assemble(
+            torch.ones((1,), dtype=m_st.vol.dtype, device=m_st.vol.device))
+        return G_sop, M_op
+
+    def _parab_factors(self, dt_theta):
+        """Block-Jacobi factors of M + dt A(theta) for dt_theta [Q], or one
+        set per lane for [B, Q]."""
+        A_diag = self.stationary.op.A_diag
+        return block_jacobi_factors(
+            self.mass + torch.einsum("...q,qkij->...kij", dt_theta.to(A_diag), A_diag))
+
+    def _parab_diag_q(self):
+        """[1+Q, K, N] diagonals of (mass, A_1..A_Q): with theta_G they
+        give diag(G(theta)), the Jacobi scaling of the mixed solve."""
+        st = self.stationary
+        with st._mf_lock:
+            dq = st._mf_cache.get("parab_diag_q")
+            if dq is None:
+                dq = st._mf_cache["parab_diag_q"] = torch.cat(
+                    [torch.diagonal(self.mass, dim1=-2, dim2=-1)[None],
+                     diag_of_blocks(st.op.A_diag)])
+        return dq
+
+    def _mf_parab_coarse(self, dt, theta, coarse_space, coarse_modes):
+        """The harvested two-level coarse space on G = M + dt A(theta),
+        frozen at the first theta seen per (dt, coarse_space, coarse_modes):
+        (C [K, N, m], inverse of the coarse matrix)."""
+        st = self.stationary
+        key = ("parab_precond", float(dt), coarse_space, int(coarse_modes))
+        with st._mf_lock:
+            pre = st._mf_cache.get(key)
+            if pre is None:
+                G0 = self._euler_operator(st.op.assemble(theta), dt)
+                C_np = harvested_coarse_basis(G0, G0.block_jacobi_factors(), st.space,
+                                              n_harvest=coarse_modes, extra_modal=3)
+                pre = st._mf_cache[key] = prepare_coarse(G0, C_np)
+        return pre
+
+    def _mf_traj(self, G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol, maxiter,
+                 precision, extrapolate):
+        """The trajectory loop for theta_G [1+Q] (one mu) or [B, 1+Q] (B
+        lanes of one per-lane frozen PCG, mu with [B, ...] leaves).
+        Returns (trajectory [(B,) nt+1, K, N], iterations [(B,) nt])."""
+        st = self.stationary
+        K, N = st.space.K, st.space.N
+        lanes = tuple(theta_G.shape[:-1])
+        G = G_sop.assemble(theta_G)
+        if precision == "mixed":
+            if lanes:
+                raise ValueError("the mixed trajectory takes one mu at a time")
+            dvec = torch.einsum("q,qkn->kn", theta_G, self._parab_diag_q())
+            G32 = cast(G, torch.float32)
+        theta_f = self._theta_f_steps(mu, dt)
+        u = u_prev = torch.zeros(lanes + (K, N), dtype=st.dtype, device=st.device)
+        traj, its = [u], []
+        for n in range(self.nt):
+            f = torch.einsum("...q,qkn->...kn", theta_f[n], st.rhs_q)
+            rhs = M_op.apply(u) + dt * f
+            x0 = u + (u - u_prev) if extrapolate else u
+            if precision == "mixed":
+                u_next, it32, _, it64 = solve_ir(
+                    G, G32, rhs, dvec, tol=tol, maxiter=maxiter, block_factors=bf,
+                    coarse_basis=C, coarse_inv=ci, x0=x0, return_info=True)
+                it = it32 + it64
+            else:
+                u_next, it = G.solve_pcg(rhs, tol=tol, maxiter=maxiter, block_factors=bf,
+                                         coarse_basis=C, coarse_inv=ci, coarse_f32=True,
+                                         x0=x0, return_iters=True)
+            u_prev, u = u, u_next
+            traj.append(u)
+            its.append(it)
+        return torch.stack(traj, dim=len(lanes)), torch.stack(its, dim=-1)
+
+    def solve_batch(self, mus, shared_preconditioner: bool = True,
+                    tol: float = 1e-10, maxiter: int = 500,
+                    two_level: bool = None, coarse_modes: int = 16,
+                    coarse_space: str = "harvested", precision: str = None,
+                    extrapolate: bool = True, inner: str = None):
+        """B implicit-Euler trajectories in one call: [B, nt+1, K, N].
+
+        The lanes run one per-lane frozen chunked PCG through the
+        lane-batched stencil of G (lane b's iterate sequence is its own);
+        the coarse level is frozen at ``mus[0]`` (per dt) and the block
+        factors are shared at mu_bar (``shared_preconditioner``) or built
+        exactly per mu (B x [K, N, N], folded into one ``precond_dot``
+        launch per apply).  ``precision='mixed'`` answers the lanes one by
+        one."""
+        st = self.stationary
+        if not self._uses_stencil():
+            raise NotImplementedError("solve_batch needs the matrix-free stencil path "
+                                      "(estimator data with lambda_funcs)")
+        dt = self.T / self.nt
+        mus = [self.parse_parameter(m) for m in mus]
+        G_sop, M_op = self._mf_parab_setup()
+        thetas = torch.stack([st.theta(m) for m in mus])                  # [B, Q]
+        theta_G = torch.cat([torch.ones_like(thetas[:, :1]), dt * thetas], dim=1)
+        if two_level is None:
+            two_level = st.space.K * st.space.N > MF_SOLVE_MIN_DOFS
+        C = ci = None
+        if two_level:
+            C, ci = self._mf_parab_coarse(dt, thetas[0], coarse_space, coarse_modes)
+        if shared_preconditioner:
+            bf = self._parab_factors(dt * _resolve_theta_bar(st))
+        else:
+            bf = self._parab_factors(dt * thetas)                         # [B, K, N, N]
+        precision = self._resolve_traj_precision(precision)
+        self._resolve_traj_inner(inner)
+        if precision == "mixed":
+            outs = [self._mf_traj(G_sop, M_op, theta_G[b],
+                                  bf if shared_preconditioner else bf[b], C, ci, mus[b],
+                                  dt, tol, maxiter, precision, extrapolate)
+                    for b in range(len(mus))]
+            traj, its = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        else:
+            stacked = {k: torch.stack([torch.as_tensor(m[k]) for m in mus]) for k in mus[0]}
+            traj, its = self._mf_traj(G_sop, M_op, theta_G, bf, C, ci, stacked, dt, tol,
+                                      maxiter, precision, extrapolate)
+        self.last_solve_iters = its
+        return traj

@@ -133,6 +133,30 @@ def assemble_swipdg_stencil(space, lam_fn, kappa_fn=None,
     return SwipdgStencil(vol=vol, D=Dq, V=Vq, H=Hq, R=Rq, U=Uq, D_side=D_side)
 
 
+def mass_stencil(space, like: SwipdgStencil) -> SwipdgStencil:
+    """The L2 mass in stencil form: volume blocks only, zero face families
+    shaped like ``like``, so that it joins an affine
+    :class:`StencilOperator` family and the implicit-Euler operator
+    G = M + dt A is one more affine component."""
+    dtype, dev = like.vol.dtype, like.vol.device
+    phi = asm.tensor(space.vol_phi, dtype, dev)
+    w = asm.tensor(space.vol_w, dtype, dev)
+    area = space.hx * space.hy
+    if space.percell:
+        elem = area * torch.einsum("yxtq,yxtqi,yxtqj->yxtij", w, phi, phi)
+        vol = elem[None].expand(like.vol.shape)
+    else:
+        elem = area * torch.einsum("tq,tqi,tqj->tij", w, phi, phi)
+        vol = elem[None, None, None].expand(like.vol.shape)
+
+    def zeros(t):
+        return tuple(torch.zeros_like(b) for b in t)
+
+    return SwipdgStencil(vol=vol.contiguous(), D=zeros(like.D), V=zeros(like.V),
+                         H=zeros(like.H), R=zeros(like.R), U=zeros(like.U),
+                         D_side={k: torch.zeros_like(v) for k, v in like.D_side.items()})
+
+
 @dataclass(eq=False)
 class StencilOperator:
     """Affine family of stencils with a fused matrix-free apply."""
@@ -175,7 +199,8 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
     """Preconditioner of the matrix-free solves, ``r [..., K, N] -> (z, rz)``
     for vectors in ``dtype``.
 
-    Fine level: with ``block_factors`` [K, N, N] the subdomain block-Jacobi
+    Fine level: with ``block_factors`` [K, N, N] (or one set per lane,
+    [B, K, N, N], for r [B, K, N]) the subdomain block-Jacobi
     as the reference applies it — r rounded to f32, the factors in f32 (or
     bf16 as stored), f32 accumulation in one :func:`precond_dot` launch, z
     widened to ``dtype``; with ``factors`` the per-cell blocks (cell_shape
@@ -188,12 +213,17 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
     f32 = torch.float32
     if block_factors is not None:
         Binv = (block_factors if block_factors.dtype == torch.bfloat16
-                else block_factors.to(f32)).contiguous()
-        K, N = Binv.shape[0], Binv.shape[1]
+                else block_factors.to(f32))
+        K, N = Binv.shape[-3], Binv.shape[-2]
+        # per-lane factors [B, K, N, N] fold the lanes into the subdomain
+        # axis: one launch over B*K blocks with one vector lane
+        per_lane = Binv.ndim == 4
+        Binv = Binv.reshape(-1, N, N).contiguous()
         fused = dtype == f32
 
         def M_fine(r):
-            z, rz = precond_dot(Binv, r.to(f32).reshape(-1, K, N).contiguous())
+            rr = r.to(f32).reshape((1, -1, N) if per_lane else (-1, K, N)).contiguous()
+            z, rz = precond_dot(Binv, rr)
             return (z.reshape(r.shape).to(r.dtype),
                     rz.reshape(r.shape[:-2] + (K,)).sum(-1) if fused else None)
     elif factors is not None:

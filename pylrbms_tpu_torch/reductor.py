@@ -22,8 +22,13 @@ hosting of the online step; every backend gate takes its CPU branch (f64
 storage, Gramians unless ``force_lean``).  The ``lax.map`` / ``fori_loop``
 chunk loops are Python loops over the same chunks, which bound the
 ``[chunk, K, N]`` temporaries.  ``r_max`` is still rounded up to a multiple
-of ``R_BUCKET``: it fixes the padded shapes.  Not ported yet: ``mesh=``
-(K-sharded projections, ``solve_sharded``), the parabolic reductor and 3D.
+of ``R_BUCKET``: it fixes the padded shapes.
+
+:class:`ParabolicLRBMSReductor` adds the reduced mass and the projected
+parabolic estimator tensors (built through an f64 inverse of the L2
+blocks); its :class:`ReducedParabolicModel` runs implicit Euler on the
+reduced system and the N-independent parabolic estimate.  Not ported yet:
+``mesh=`` (K-sharded projections, ``solve_sharded``) and 3D.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from .estimators import aggregate_eta
 from .la.block import AssembledBlockOp
+from .ops.hopper_kernels import block_matvec
 from .model import StationaryBlockModel
 from .parameters import evaluate_coefficients
 
@@ -108,6 +114,9 @@ class ReducedModel:
     G_bb: torch.Tensor = None   # [Qf, Qf]
     G_Ab: torch.Tensor = None   # [Q, Qf, R]
     G_AA: torch.Tensor = None   # [Q, Q, R, R]
+    # ---- projected parabolic estimator tensors (ParabolicLRBMSReductor):
+    # G_MAA, G_BLB, G_BLdiv, G_FLF, G_BLF, G_FLdiv ----
+    parabolic: Optional[dict] = None
 
     _ARRAY_FIELDS = ("A_red", "b_red", "G_nc", "AA", "ABT", "BBT", "DV",
                      "RD", "rf_qq", "min_ev", "diam", "G_bb", "G_Ab", "G_AA")
@@ -250,7 +259,7 @@ class LRBMSReductor:
     # r_max is bucketed (rounded up to a multiple of 4): the padded shapes
     # of the reduced tensors only change at bucket boundaries
     R_BUCKET = 4
-    # Device-batched Gram-Schmidt for single-snapshot extensions: off by
+    # Device-batched Gram-Schmidt, one snapshot row at a time: off by
     # default like the reference's (equivalent, tested)
     batched_gs = False
     # colored image computation is exact (disjoint supports): the flag
@@ -261,6 +270,8 @@ class LRBMSReductor:
     force_chunk = None
     force_lean = False
     force_full_projection = False
+    # the parabolic reductor adds the projected parabolic estimator tensors
+    parabolic_tensors = False
     # most new basis columns one incremental image update takes at once
     UPD_CHUNK = 512
 
@@ -296,12 +307,22 @@ class LRBMSReductor:
         return added.shape[0]
 
     def extend_basis(self, U) -> int:
-        """Blockwise extension with a global snapshot [.., K, N]."""
+        """Blockwise extension with global snapshots [.., K, N] (rows in
+        order; an all-zero local row adds nothing).  With ``batched_gs``
+        each row is one device-batched extension of all subdomains."""
         U = _host(U)
         if U.ndim == 2:
             U = U[None]
-        if self.batched_gs and U.shape[0] == 1:
-            return self._extend_basis_batched(U[0])
+        if self.batched_gs:
+            total = 0
+            for u in U:
+                try:
+                    total += self._extend_basis_batched(u)
+                except ExtensionError:
+                    pass
+            if total == 0:
+                raise ExtensionError("no new basis vectors on any subdomain")
+            return total
         total = 0
         for ii in range(self.d.space.K):
             try:
@@ -592,33 +613,67 @@ class LRBMSReductor:
         for q, lf in enumerate(ed.lambda_funcs):
             Tk[q] += ed.flux.apply(lf, B_chunk).to(Tk.dtype)[gi, kk, :] * sel
 
-    def _gramians(self, op_arrays, rhs_q, Vm, ch: int, chV: int):
-        """The algebraic-residual Gramians G_bb [Qf, Qf], G_Ab [Q, Qf, R],
-        G_AA [Q, Q, R, R]: every basis column goes through each affine
-        component's block apply in chunks of ``chV`` columns (the diagonal
-        blocks through :func:`~pylrbms_tpu_torch.ops.hopper_kernels.block_matvec`),
-        then chunked block dots, per-subdomain partials summed over K."""
+    def _operator_images(self, op_arrays, Vm, chV: int):
+        """Q x [R, K, N]: every basis column through each affine component's
+        block apply, in chunks of ``chV`` columns (the diagonal blocks
+        through :func:`~pylrbms_tpu_torch.ops.hopper_kernels.block_matvec`).
+        A list, not a stacked [Q, R, K, N] copy."""
         st = self.d.op.static
         K, r_max, _ = Vm.shape
         R_all = K * r_max
-        Q = op_arrays[0].shape[0]
-        AVs = []                                   # Q x [R, K, N]
-        for q in range(Q):
+        AVs = []
+        for q in range(op_arrays[0].shape[0]):
             Aq = AssembledBlockOp(st, *(a[q] for a in op_arrays))
             AVs.append(torch.cat([Aq.apply(self._column_chunk(Vm, c0, chV))
                                   for c0 in range(0, R_all, chV)]))
+        return AVs
+
+    @staticmethod
+    def _gram(X, Y, ch: int):
+        """[Rx, Ry] Gramian of the [R, K, N] stacks X and Y in row chunks of
+        ``ch``: per-subdomain partial dots summed over K."""
+        return torch.cat([torch.einsum("ckn,skn->cks", X[c0:c0 + ch], Y).sum(dim=1)
+                          for c0 in range(0, X.shape[0], ch)])
+
+    def _gramians(self, AVs, rhs_q, ch: int):
+        """The algebraic-residual Gramians G_bb [Qf, Qf], G_Ab [Q, Qf, R],
+        G_AA [Q, Q, R, R] from the operator images ``AVs``."""
         G_bb = torch.einsum("pkn,rkn->pr", rhs_q, rhs_q)
-
-        def rows(f, B):
-            return torch.cat([f(B[c0:c0 + ch]) for c0 in range(0, R_all, ch)])
-
-        G_Ab = torch.stack([
-            rows(lambda c: torch.einsum("ckn,fkn->ckf", c, rhs_q).sum(dim=1), AVq).T
-            for AVq in AVs])                                         # [Q, Qf, R]
-        G_AA = torch.stack([torch.stack([
-            rows(lambda c, Aq=Aq: torch.einsum("ckn,skn->cks", c, Aq).sum(dim=1), Ap)
-            for Aq in AVs]) for Ap in AVs])                          # [Q, Q, R, R]
+        G_Ab = torch.stack([self._gram(AVq, rhs_q, ch).T for AVq in AVs])   # [Q, Qf, R]
+        G_AA = torch.stack([torch.stack([self._gram(Ap, Aq, ch) for Aq in AVs])
+                            for Ap in AVs])                                 # [Q, Q, R, R]
         return G_bb, G_Ab, G_AA
+
+    def _parabolic(self, AVs, rhs_q, Tk, rows_t, valid_t, ch: int, chV: int):
+        """The projected parabolic estimator tensors, through an f64
+        inverse of the L2 blocks: with B_q = M^-1 A_q V (per column, in
+        chunks of ``chV`` through ``block_matvec``) and F_R = M^-1 F,
+        G_MAA [Q, Q, R, R] = (A_p V)^T M^-1 (A_q V) (the time residual) and
+        the neighborhood-padded G_BLB, G_BLdiv [Q, Q, K, P, P], G_FLF
+        [Qf, Qf, K], G_BLF [Q, Qf, K, P], G_FLdiv [Qf, Q, K, P] (the
+        elliptic-reconstruction parts of eta_r)."""
+        ed = self.d.estimator.data
+        L2, A_div = ed.L2.to(WIDE), ed.A_div.to(WIDE)
+        Linv = torch.linalg.inv(L2)[None].contiguous()                       # [1, K, N, N]
+        R_all = AVs[0].shape[0]
+        MAVs = [torch.cat([block_matvec(Linv, AVq[c0:c0 + chV].contiguous())
+                           for c0 in range(0, R_all, chV)]) for AVq in AVs]  # Q x [R, K, N]
+        FR = block_matvec(Linv, rhs_q.contiguous())                          # [Qf, K, N]
+        G_MAA = torch.stack([torch.stack([self._gram(MAVp, Aq, ch) for Aq in AVs])
+                             for MAVp in MAVs])                              # [Q, Q, R, R]
+        kk = torch.arange(L2.shape[0], device=L2.device)[:, None]
+        Bk = (torch.stack([MAVq[rows_t, kk, :] for MAVq in MAVs])
+              * valid_t[None, :, :, None])                                   # [Q, K, P, N]
+        divTk = torch.einsum("nr,qkur->qkun", A_div, Tk)                     # [Q, K, P, N]
+        BL = torch.einsum("pkun,knm->pkum", Bk, L2)
+        FL = torch.einsum("fkn,knm->fkm", FR, L2)
+        return dict(
+            G_MAA=G_MAA,
+            G_BLB=torch.einsum("pkum,qkvm->pqkuv", BL, Bk),
+            G_BLdiv=torch.einsum("pkum,qkvm->pqkuv", BL, divTk),
+            G_FLF=torch.einsum("fkm,gkm->fgk", FL, FR),
+            G_BLF=torch.einsum("pkum,fkm->pfku", BL, FR),
+            G_FLdiv=torch.einsum("fkm,qkum->fqku", FL, divTk))
 
     @staticmethod
     def _bucket_rows(grid, K: int, r_max: int):
@@ -664,15 +719,20 @@ class LRBMSReductor:
         # the algebraic-residual Gramians: always, unless force_lean (set by
         # tests, and by weak_greedy when its criterion never reads them)
         with_gramians = not self.force_lean
+        parabolic = self.parabolic_tensors
 
-        Wk, Tk = self._images(Vm, sizes, r_max, rows_t, valid_t, lean=not with_gramians)
+        Wk, Tk = self._images(Vm, sizes, r_max, rows_t, valid_t,
+                              lean=not (with_gramians or parabolic))
         A_red, b_red = self._project(op_arrays, rhs_q, Vm, mask, st.side_rows, edges)
         out = self._est_projections(ed_arrays, Vm, Wk, Tk)
-        out.update(A_red=A_red, b_red=b_red, G_bb=None, G_Ab=None, G_AA=None)
-        if with_gramians:
+        out.update(A_red=A_red, b_red=b_red, G_bb=None, G_Ab=None, G_AA=None, parabolic=None)
+        if with_gramians or parabolic:
             ch, chV = self._chunks(K, r_max)
-            out["G_bb"], out["G_Ab"], out["G_AA"] = self._gramians(
-                op_arrays, rhs_q, Vm, ch, chV)
+            AVs = self._operator_images(op_arrays, Vm, chV)
+            if with_gramians:
+                out["G_bb"], out["G_Ab"], out["G_AA"] = self._gramians(AVs, rhs_q, ch)
+            if parabolic:
+                out["parabolic"] = self._parabolic(AVs, rhs_q, Tk, rows_t, valid_t, ch, chV)
         return self._build_reduced(out, sizes, r_max, nbhd_idx)
 
     def _chunks(self, K: int, r_max: int):
@@ -742,7 +802,8 @@ class LRBMSReductor:
             sizes=sizes, r_max=r_max, nbhd_idx=nbhd_idx,
             G_nc=out["G_nc"], AA=out["AA"], ABT=out["ABT"], BBT=out["BBT"],
             DV=out["DV"], RD=out["RD"], rf_qq=ed.rf_qq.to(WIDE), min_ev=ed.min_ev.to(WIDE),
-            diam=ed.diam.to(WIDE), G_bb=out["G_bb"], G_Ab=out["G_Ab"], G_AA=out["G_AA"])
+            diam=ed.diam.to(WIDE), G_bb=out["G_bb"], G_Ab=out["G_Ab"], G_AA=out["G_AA"],
+            parabolic=out["parabolic"])
 
 
 class ParallelLRBMSReductor(LRBMSReductor):
@@ -750,3 +811,133 @@ class ParallelLRBMSReductor(LRBMSReductor):
     projection over a device mesh by default.  The K-sharded projection is
     not ported yet, so this is the single-device reductor under the name the
     scripts use; it takes no mesh."""
+
+
+class ParabolicLRBMSReductor(LRBMSReductor):
+    """<-> ``reductor.ParabolicLRBMSReductor``: adds the reduced mass matrix
+    and the fully projected parabolic estimator tensors."""
+
+    parabolic_tensors = True
+
+    def reduce(self) -> "ReducedParabolicModel":
+        rd = super().reduce()
+        d = self.d
+        K, r_max = d.space.K, rd.r_max
+        V = torch.as_tensor(self._padded_bases(r_max), device=d.device)
+        diag = torch.einsum("kan,knm,kbm->kab", V, d.products["l2"].to(WIDE), V)
+        blk = (torch.arange(K, device=d.device)[:, None] * r_max
+               + torch.arange(r_max, device=d.device)[None, :])
+        M_red = torch.zeros((K * r_max, K * r_max), dtype=WIDE, device=d.device)
+        M_red[blk[:, :, None], blk[:, None, :]] = diag
+        return ReducedParabolicModel(rd, M_red)
+
+
+@dataclass
+class ReducedParabolicModel:
+    """Implicit Euler on the reduced system and the parabolic reduced
+    estimate; other attributes are the elliptic reduced model's.
+    :meth:`attach_instationary` supplies the time grid (T, nt) and the FOM
+    the unprojected estimate reconstructs into."""
+    elliptic: ReducedModel
+    M_red: torch.Tensor                    # [R, R] block-diagonal reduced mass
+
+    def __getattr__(self, name):
+        if name == "elliptic":
+            raise AttributeError(name)
+        return getattr(self.elliptic, name)
+
+    def attach_instationary(self, im):
+        self._instationary = im
+        return self
+
+    def solve(self, mu, T: float = None, nt: int = None):
+        """Reduced implicit-Euler trajectory [nt+1, K, r_max] (one f64 LU of
+        M_red + dt A_red(mu))."""
+        im = self._instationary
+        T = im.T if T is None else T
+        nt = int(im.nt if nt is None else nt)
+        return self._trajectory(self.elliptic.parse_parameter(mu), T / nt, nt)
+
+    def solve_batch(self, mus, T: float = None, nt: int = None):
+        """B reduced trajectories [B, nt+1, K, r_max] (one batched LU)."""
+        im = self._instationary
+        T = im.T if T is None else T
+        nt = int(im.nt if nt is None else nt)
+        mus = [self.elliptic.parse_parameter(m) for m in mus]
+        stacked = {k: torch.stack([torch.as_tensor(m[k]) for m in mus]) for k in mus[0]}
+        return self._trajectory(stacked, T / nt, nt)
+
+    def _trajectory(self, mu, dt: float, nt: int):
+        rd = self.elliptic
+        d = rd.d
+        dev = rd.A_red.device
+        theta = evaluate_coefficients(d.lambda_coeffs, mu, WIDE, dev)       # [Q] | [B, Q]
+        G = self.M_red + dt * torch.einsum("...q,qij->...ij", theta, rd.A_red)
+        # keep padding rows solvable
+        G = G + torch.diag_embed((torch.diagonal(G, dim1=-2, dim2=-1) == 0).to(G.dtype))
+        lu, piv = torch.linalg.lu_factor(G)
+        lanes = tuple(G.shape[:-2])
+        # theta_f of every step on the host in f64, one copy to the device
+        theta_f = torch.stack([
+            evaluate_coefficients(d.f_coeffs, dict(mu, _t=(n + 1.0) * dt), WIDE, "cpu")
+            for n in range(nt)]).to(dev)
+        c = torch.zeros(lanes + (G.shape[-1],), dtype=WIDE, device=dev)
+        traj = [c]
+        for n in range(nt):
+            f = torch.einsum("...q,qi->...i", theta_f[n], rd.b_red)
+            rhs = (torch.einsum("ij,...j->...i", self.M_red, c) + dt * f).expand(c.shape)
+            c = torch.linalg.lu_solve(lu, piv, rhs.unsqueeze(-1)).squeeze(-1)
+            traj.append(c)
+        traj = torch.stack(traj, dim=len(lanes))
+        return traj.reshape(traj.shape[:-1] + (len(rd.sizes), rd.r_max))
+
+    def estimate(self, c, mu, decompose: bool = False, projected: bool = True):
+        """Parabolic reduced estimate of c [nt+1, K, r_max]:
+        (eta, (nc, r, df, time_res, tdnc)).
+
+        projected=True: fully projected, N-independent (the time residual
+        from G_MAA, the elliptic-reconstruction additions from the G_BL* /
+        G_FL* tensors); projected=False: the FOM estimate of the
+        reconstruction (the validation path)."""
+        im = self._instationary
+        rd = self.elliptic
+        if not projected or rd.parabolic is None:
+            return im.estimate(rd.reconstruct(c), mu, decompose=decompose)
+        d = rd.d
+        pb = rd.parabolic
+        mu = dict(rd.parse_parameter(mu))
+        mu.setdefault("_t", 0.0)
+        dt = im.T / im.nt
+        theta, theta_f = rd._thetas(mu)
+
+        eta_nc, eta_r, eta_df = rd.local_quantities(c, mu)                  # [nt+1, K]
+        ch = rd._gather_neighborhood(c)                                      # [nt+1, K, P]
+        tt = torch.einsum("p,r->pr", theta, theta)
+        blb = torch.einsum("pr,prkuv,...ku,...kv->...k", tt, pb["G_BLB"], ch, ch)
+        flf = torch.einsum("f,g,fgk->k", theta_f, theta_f, pb["G_FLF"])
+        bld = torch.einsum("pr,prkuv,...ku,...kv->...k", tt, pb["G_BLdiv"], ch, ch)
+        fld = torch.einsum("f,q,fqku,...ku->...k", theta_f, theta, pb["G_FLdiv"], ch)
+        scale = (1.0 / (np.pi ** 2) / rd.min_ev) * rd.diam ** 2
+        eta_r = eta_r + (blb - flf - 2.0 * (bld - fld)) * scale
+        eta = aggregate_eta(d.estimator, mu, eta_nc, eta_r, eta_df)
+
+        dc = (c[1:] - c[:-1]).reshape(c.shape[0] - 1, -1)                  # [nt, R]
+        G_M = torch.einsum("pr,prij->ij", tt, pb["G_MAA"])
+        tr2 = torch.einsum("bi,ij,bj->b", dc, G_M, dc)
+        time_res = torch.sqrt(dt / 3.0 * torch.clamp(tr2, min=0.0))
+
+        cscale = 2.0 * np.sqrt(dt / 3.0)
+        eta = eta * cscale
+        nc, r, df = (torch.movedim(v, 0, -1) * cscale for v in (eta_nc, eta_r, eta_df))
+        dch = rd._gather_neighborhood(c[1:] - c[:-1])
+        tdnc = torch.einsum("bkp,kpr,bkr->kb", dch, rd.G_nc, dch) / dt
+        tdnc = torch.sqrt(torch.clamp(tdnc, min=0.0))
+        out = (torch.linalg.norm(torch.atleast_1d(eta)) + torch.linalg.norm(time_res)
+               + torch.linalg.norm(tdnc))
+        return out, (nc, r, df, time_res, tdnc)
+
+    def estimate_batch(self, cs, mus):
+        """Projected estimates [B] of the trajectories cs [B, nt+1, K, r_max]
+        at the B parameters ``mus``."""
+        return torch.stack([self.estimate(cs[b], mu, projected=True)[0]
+                            for b, mu in enumerate(mus)])

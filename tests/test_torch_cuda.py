@@ -262,3 +262,39 @@ def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda):
                          env=dict(os.environ, PYTHONPATH=repo), text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_parabolic_paths_on_cuda_match_cpu(cuda):
+    """Artificial channels, 3x2 subdomains, f64, nt=4: the dense and the
+    matrix-free trajectories, solve_batch with exact per-mu factors (one
+    precond_dot launch over B*K blocks), the parabolic reductor's tensors and
+    the reduced estimate on the card against the CPU run.  The matrix-free
+    routes apply f32 block factors: U to 1e-8 (solve tolerance 1e-10)."""
+    from pylrbms_tpu_torch.problems.artificial_channels import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
+    from pylrbms_tpu_torch.reductor import ParabolicLRBMSReductor
+
+    cfg = {"num_subdomains": [3, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1}
+    mus = [{"switch": s} for s in (0.2, 0.5, 0.9)]
+    out = []
+    for dev in ("cpu", cuda):
+        im, _ = discretize(init_grid_and_problem(cfg), T=1.0, nt=4, device=dev)
+        hk.reset_launch_counts()
+        U = im.solve(mus[1])
+        U_mf = im._solve_mf(im.parse_parameter(mus[1]), 0.25, two_level=True, coarse_modes=4)
+        Ub = im.solve_batch(mus, shared_preconditioner=False, two_level=True, coarse_modes=4)
+        red = ParabolicLRBMSReductor(im.stationary)
+        red.extend_basis(U[1::2])
+        rd = red.reduce().attach_instationary(im)
+        eta, _ = rd.estimate(rd.solve(mus[0]), mus[0])
+        out.append((U, U_mf, Ub, rd, eta, hk.launch_counts()))
+    (U0, M0, B0, rd0, e0, n0), (U1, M1, B1, rd1, e1, n1) = out
+    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
+    assert U1.is_cuda and _rel(U1.cpu(), U0) <= 1e-10
+    assert _rel(M1.cpu(), M0) <= 1e-8 and _rel(B1.cpu(), B0) <= 1e-8
+    for name, t in rd0.parabolic.items():
+        assert _rel(rd1.parabolic[name].cpu(), t) <= 1e-10, name
+    assert abs(float(e1) - float(e0)) <= 1e-9 * abs(float(e0))

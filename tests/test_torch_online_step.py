@@ -237,6 +237,20 @@ def test_port_imports_no_jax():
         "assert sizes[0] == 4 and sizes[1] > 4, sizes\n"
         "res = weak_greedy(d, d.parameter_space.sample_uniformly(3), max_extensions=1)\n"
         "assert res.fom_solves == 1 and res.max_etas[0] > 0\n"
+        "from pylrbms_tpu_torch.problems.artificial_channels_problem import "
+        "init_grid_and_problem as channels\n"
+        "import pylrbms_tpu_torch.problems.thermalblock_problem, "
+        "pylrbms_tpu_torch.problems.local_thermalblock_problem\n"
+        "import pylrbms_tpu_torch.problems.non_parametric_problem, "
+        "pylrbms_tpu_torch.problems.OS2015_academic_problem\n"
+        "from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize as parabolic\n"
+        "import pylrbms_tpu_torch.discretize_parabolic_swipdg\n"
+        "from pylrbms_tpu_torch.greedy import pod_greedy\n"
+        "from pylrbms_tpu_torch.online_enrichment import ParabolicAdaptiveEnrichment\n"
+        "im, _ = parabolic(channels(cfg), T=1.0, nt=4, device='cpu')\n"
+        "eta, parts = im.estimate(im.solve({'switch': 0.5}), {'switch': 0.5})\n"
+        "pg = pod_greedy(im, im.parameter_space.sample_uniformly(2), max_extensions=1)\n"
+        "assert pg.fom_solves == 1 and len(parts) == 5 and float(eta) > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
         "assert not ref, ref\n"

@@ -126,3 +126,95 @@ def test_monolithic_discretizer_device_and_mesh_rules(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         monolithic(os2015(CFG))
+
+
+# ---------------------------------------------------------------------------
+# the remaining 2D problems: thermal block, local thermal block,
+# non-parametric, artificial channels
+# ---------------------------------------------------------------------------
+
+PROBLEMS = {
+    "thermalblock": ([0.3, 0.6, 0.9, 0.45], dict(num_subdomains=[2, 2])),
+    "local_thermalblock": (2.1, dict(num_subdomains=[3, 3])),
+    "non_parametric": (None, dict(num_subdomains=[2, 2])),
+    "artificial_channels": (0.27, dict(num_subdomains=[2, 2])),
+}
+CFG_TB = {"half_num_fine_elements_per_subdomain_and_dim": 1, "num_refinements": 1}
+
+
+def _problem_pair(name):
+    import importlib
+    mu, cfg = PROBLEMS[name]
+    cfg = dict(CFG_TB, **cfg)
+    # the reference's module names (``*_problem``) are aliases of these
+    port = importlib.import_module(f"pylrbms_tpu_torch.problems.{name}_problem")
+    ref = importlib.import_module(f"pylrbms_tpu.problems.{name}")
+    return port.init_grid_and_problem(cfg), ref.init_grid_and_problem(cfg), mu
+
+
+def _affine_parts(obj):
+    return (list(obj["functions"]), list(obj["coefficients"])) if isinstance(obj, dict) \
+        else ([obj], [1.0])
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_problem_data_equals_jax_exactly(name):
+    """lambda_q, lambda_bar, lambda_hat and f_q at the quadrature points of
+    the port's space, theta(mu) and theta_f(mu, t) (t at the quarter
+    steps, where the channels' switch sin(4 pi t) > 0 turns) equal JAX's
+    bit for bit; the problem metadata is the same."""
+    from pylrbms_tpu.parameters import evaluate_coefficients as jax_coefficients
+    from pylrbms_tpu_torch.ops.assembly import vol_points
+    from pylrbms_tpu_torch.ops.spaces import BlockDGSpace
+    from pylrbms_tpu_torch.parameters import evaluate_coefficients, parse_parameter
+    gt, gj, mu = _problem_pair(name)
+    for key in ("parameter_type", "mu_bar", "mu_hat", "mu_min", "mu_max", "parameter_range"):
+        assert gt[key] == gj[key], key
+    xq = vol_points(BlockDGSpace(gt["grid"], order=1))
+    xt = torch.as_tensor(xq)
+    fns_t = _affine_parts(gt["lambda"])[0] + _affine_parts(gt["f"])[0] + \
+        [gt["lambda_bar"], gt["lambda_hat"]]
+    fns_j = _affine_parts(gj["lambda"])[0] + _affine_parts(gj["f"])[0] + \
+        [gj["lambda_bar"], gj["lambda_hat"]]
+    for ft, fj in zip(fns_t, fns_j):
+        assert np.array_equal(ft(xt).numpy(), np.asarray(fj(xq)))
+    pt = gt["parameter_type"]
+    mut = parse_parameter(pt, mu) if pt else {}
+    muj = {k: np.asarray(v) for k, v in mut.items()}
+    for i, (ct, cj) in enumerate(zip(_affine_parts(gt["lambda"])[1],
+                                     _affine_parts(gj["lambda"])[1])):
+        assert float(evaluate_coefficients([ct], mut, device="cpu")[0]) == \
+            float(np.asarray(jax_coefficients([cj], muj))[0]), i
+    f_t, f_j = _affine_parts(gt["f"])[1], _affine_parts(gj["f"])[1]
+    for t in np.arange(9) / 4.0 + 0.125 * (name == "thermalblock"):
+        th = evaluate_coefficients(f_t, dict(mut, _t=float(t)), device="cpu").numpy()
+        thj = np.asarray(jax_coefficients(f_j, dict(muj, _t=float(t))))
+        assert np.array_equal(th, thj), t
+
+
+@pytest.mark.parametrize("name", sorted(set(PROBLEMS) - {"artificial_channels"}))
+def test_problem_solves_equal_jax(name):
+    """The stationary solve (dense) and theta on the port's and JAX's
+    discretizations; the channels' solves are compared in
+    tests/test_torch_parabolic.py."""
+    gt, gj, mu = _problem_pair(name)
+    dt, _ = discretize(gt, device="cpu", lean=True)
+    dj, _ = jax_discretize(gj, lean=True)
+    mu_t = {} if mu is None else dt.parse_parameter(mu)
+    mu_j = {} if mu is None else dj.parse_parameter(mu)
+    Ut = dt.solve(mu_t, {"type": "dense"})
+    Uj = dj.solve(mu_j, {"type": "dense"})
+    assert rel(Ut, Uj) <= TOL
+    assert rel(dt.theta(mu_t), dj.theta(mu_j)) == 0.0
+
+
+def test_non_parametric_exact_solution():
+    """lambda == 1: the solution is cos(pi x/2) cos(pi y/2) up to the
+    discretization error (the check of tests/test_problems.py)."""
+    from pylrbms_tpu_torch.problems.non_parametric import init_grid_and_problem
+    gpd = init_grid_and_problem(dict(CFG_TB, num_subdomains=[2, 2], num_refinements=2))
+    d, _ = discretize(gpd, device="cpu")
+    U = d.solve({})
+    xn = d.space.node_coords_phys()
+    exact = np.cos(0.5 * np.pi * xn[..., 0]) * np.cos(0.5 * np.pi * xn[..., 1])
+    assert np.abs(U.numpy().reshape(exact.shape) - exact).max() < 0.1
