@@ -10,7 +10,8 @@ phase passes:
    sm_90a) and prints the build time and the compiler's resource report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving shapes (G=2, K=64, N=384, B=1 and 256; f64, f32, bf16
-   matrices), the serving harvest (B=12) and at tail shapes (K=4, N=24;
+   matrices), the serving harvest (B=12), the order-2 blocks (K=64, N=576
+   and 768; f64 and f32 x f32; B=1, 12, 16) and at tail shapes (K=4, N=24;
    N=96 with 13 lanes on the ring), with the tolerances stated
    below, and precond_dot's rz bitwise equal across two launches; per
    shape the route ``plan`` picked, the kernel's time with the 50 MB L2
@@ -83,12 +84,34 @@ phase passes:
    ``pod_greedy`` over 5 mus, 3 extensions of 2 POD modes (the max
    estimate falls), run a second time with ``batched_gs``; prints seconds
    per round and iteration with their spans and peak memory.
-   Phases 12 and 13 launch both kernels.
+   Phases 12 and 13 launch both kernels;
+14. the reference's golden triple: OS2015 crisscross, 4x4 subdomains,
+   half 1, nref 1, f64, paper convention: eta_nc / eta_r / eta_df to rel
+   1e-4 of 1.656117e-01 / 1.446952e-01 / 3.548075e-01, the card within
+   1e-10 of the port on the CPU;
+15. crisscross at full width: phase 5 and phase 7 at the serving grid
+   (K=64, N=384, f32, B=256; same gates), phase 8 at nref 3 (98 304
+   dofs, f64) and phase 10 (reductor, enrichment, greedy; same gates);
+16. order 2: P2 tri at the serving grid (K=64, N=768, 49 152 dofs, lean,
+   f64): ``solve`` 'auto' (mf_pcg through the order-2 stencil) against
+   scipy splu (1e-6), the positive-form estimate (finite, >= 0), the RT1
+   local conservation of the splu solution (1e-9); crisscross P2 and quad
+   Q2 at the entry config, card against CPU (1e-10);
+17. EOC: the paper-convention ``StationaryEocStudy`` (OS2015, 2x2, half 1,
+   nref 1, p_ref 2, one refinement) on tri and crisscross, the table
+   against the port on the CPU (1e-8), indicator EOC in (0.7, 1.4),
+   efficiency constant to 25%; a small ``InstationaryEocStudy`` (thermal
+   block) to its end, its error falling;
+18. phase 12's SPE10 trajectory with ``precision='mixed'``,
+   ``inner='halo'`` against ``inner='stencil'``: ms/step and iterations
+   per step, each final step against host splu (1e-6); the banded apply
+   against the stencil apply at the serving grid in f64 (1e-12), timed
+   beside the stencil and block applies.
 
-Phases run in the order 1-8, 10-13, 9.  Each main path (phases 5, 7, 8,
-10-13) runs with the kernel launch counts and signatures cleared just
-before it and read just after; the summary's ``launches`` is the sum of the
-counts.
+Phases run in the order 1-8, 10-18, 9.  Each main path (phases 5, 7, 8,
+10-13, 15, 16, 18a) runs with the kernel launch counts and signatures
+cleared just before it and read just after; the summary's ``launches`` is
+the sum of the counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -278,6 +301,11 @@ def kernel_phase(hk, torch, dev):
     case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape (ring)
     for dt in (f64, f32):                                # ring: G=2, a half-empty row tile
         case("block_matvec", 2, 4, 96, 13, dt, dt)
+    for N in (576, 768):                                 # order-2 blocks: Q2 quad, P2 tri
+        for dt in (f64, f32):
+            for B in (1, 12, 16):
+                case("block_matvec", 1, 64, N, B, dt, dt)
+                case("precond_dot", 1, 64, N, B, dt, dt)
     for B in (1, 4, 13):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
@@ -340,7 +368,7 @@ def entry_phase(torch, dev):
             raise AssertionError(f"entry config {name} off by {err:.3e}")
 
 
-def serving_phase(hk, torch, dev, smi):
+def serving_phase(hk, torch, dev, smi, cfg=None, label="serving"):
     import scipy.sparse.linalg as spla
     from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
@@ -349,9 +377,9 @@ def serving_phase(hk, torch, dev, smi):
 
     f32 = torch.float32
     t0 = time.perf_counter()
-    d, _ = discretize(init_grid_and_problem(SERVING), device=dev, dtype=f32)
+    d, _ = discretize(init_grid_and_problem(cfg or SERVING), device=dev, dtype=f32)
     torch.cuda.synchronize()
-    log(f"serving config: K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
+    log(f"{label} config: K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
         f"discretize {time.perf_counter() - t0:.2f} s")
     mus = np.linspace(0.1, 1.0, B_SERVE)
     thetas = np.stack([np.ones(B_SERVE), mus], 1)
@@ -370,16 +398,16 @@ def serving_phase(hk, torch, dev, smi):
     Ub, indb = fn(thetas, theta_fs, mus_b)
     torch.cuda.synchronize()
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
-    log(f"serving main path (step build {t_build:.2f} s + 1 single + 1 batched "
+    log(f"{label} main path (step build {t_build:.2f} s + 1 single + 1 batched "
         f"B={B_SERVE} call): kernel launches {launches}")
 
     ind_np = indb.double().cpu().numpy()
     if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
-        raise AssertionError("serving indicators not finite and non-negative")
+        raise AssertionError(f"{label} indicators not finite and non-negative")
     U1_np = U1.double().cpu().numpy()
     Ub_np = Ub.double().cpu().numpy()
     err0 = rel(Ub_np[0], U1_np)
-    log(f"serving lane 0 vs single query: rel err {err0:.3e} (tol 1e-03) "
+    log(f"{label} lane 0 vs single query: rel err {err0:.3e} (tol 1e-03) "
         f"{'ok' if err0 <= 1e-3 else 'FAIL'}")
     if not err0 <= 1e-3:
         raise AssertionError("batched lane 0 differs from the single query")
@@ -389,13 +417,13 @@ def serving_phase(hk, torch, dev, smi):
         b = d.rhs(mu_i).double().cpu().numpy().reshape(-1)
         u = spla.splu(A.tocsc()).solve(b)
         err = rel(Ub_np[i].reshape(-1), u)
-        log(f"serving lane {i} (mu={mus[i]:.4f}) vs scipy splu (f64): rel err "
+        log(f"{label} lane {i} (mu={mus[i]:.4f}) vs scipy splu (f64): rel err "
             f"{err:.3e} (tol 1e-03) {'ok' if err <= 1e-3 else 'FAIL'}")
         if not err <= 1e-3:
-            raise AssertionError(f"serving lane {i} off the sparse LU solution")
+            raise AssertionError(f"{label} lane {i} off the sparse LU solution")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the serving path")
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
 
     # ---- measurements (launches here are not counted in the summary)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -404,7 +432,7 @@ def serving_phase(hk, torch, dev, smi):
     single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
     it_b = fn.iters_probe(thetas, theta_fs)
     it_1 = fn.iters_probe(thetas[0], theta_fs[0])
-    log(f"serving per-query {per_query * 1e3:.4f} ms (median of 5 batched "
+    log(f"{label} per-query {per_query * 1e3:.4f} ms (median of 5 batched "
         f"B={B_SERVE} calls), single-query {single * 1e3:.3f} ms (median of 5); "
         f"PCG iterations {it_b} (batched, lock-step max) / {it_1} (single); "
         f"peak device memory {peak / 2**20:.1f} MiB [{smi}]")
@@ -457,9 +485,9 @@ def top_device_ops(torch, fn, n=10):
     return [(e.key, self_dev(e) / 1e3, e.count) for e in evs[:n]], total, full
 
 
-def stencil_step_phase(hk, torch, dev, smi, ref):
+def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=True):
     """The reference's default online step at the serving config (the
-    stencil form), against the affine step of phase 5."""
+    stencil form), against the affine step of phase 5 (``ref``)."""
     from pylrbms_tpu_torch.model import make_online_step
 
     d = ref["d"]
@@ -473,7 +501,7 @@ def stencil_step_phase(hk, torch, dev, smi, ref):
     Ub, indb = fn(thetas, theta_fs, mus_b)
     torch.cuda.synchronize()
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
-    log(f"stencil step main path (step build {t_build:.2f} s + 1 single + 1 batched "
+    log(f"{label} main path (step build {t_build:.2f} s + 1 single + 1 batched "
         f"B={B_SERVE} call): 'stencils' in step.arrays: {'stencils' in fn.arrays}; "
         f"kernel launches {launches}")
     if "stencils" not in fn.arrays:
@@ -482,14 +510,14 @@ def stencil_step_phase(hk, torch, dev, smi, ref):
         raise AssertionError("precond_dot was not launched on the stencil path")
     ind_np = np.concatenate([ind1.double().cpu().numpy()[None], indb.double().cpu().numpy()])
     if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
-        raise AssertionError("stencil step indicators not finite and non-negative")
+        raise AssertionError(f"{label} indicators not finite and non-negative")
     e1 = rel(U1.double().cpu().numpy(), ref["U1"])
     eb = rel(Ub.double().cpu().numpy(), ref["Ub"])
     for name, err in (("single query", e1), (f"B={B_SERVE} lanes", eb)):
-        log(f"stencil step {name} U vs affine step U: rel err {err:.3e} (tol 1e-03) "
+        log(f"{label} {name} U vs affine step U: rel err {err:.3e} (tol 1e-03) "
             f"{'ok' if err <= 1e-3 else 'FAIL'}")
         if not err <= 1e-3:
-            raise AssertionError(f"stencil step ({name}) off the affine step")
+            raise AssertionError(f"{label} ({name}) off the affine step")
 
     batched = lambda: fn(thetas, theta_fs, mus_b)       # noqa: E731
     torch.cuda.reset_peak_memory_stats(dev)
@@ -498,10 +526,12 @@ def stencil_step_phase(hk, torch, dev, smi, ref):
     single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
     it_b = fn.iters_probe(thetas, theta_fs)
     it_1 = fn.iters_probe(thetas[0], theta_fs[0])
-    log(f"stencil step per-query {per_query * 1e3:.4f} ms (median of 5 batched B={B_SERVE} "
+    log(f"{label} per-query {per_query * 1e3:.4f} ms (median of 5 batched B={B_SERVE} "
         f"calls), single-query {single * 1e3:.3f} ms (median of 5); PCG iterations "
         f"{it_b} / {it_1} (batched / single; affine step {ref['iters'][0]} / "
         f"{ref['iters'][1]}); peak device memory {peak / 2**20:.1f} MiB [{smi}]")
+    if not profile:
+        return launches, shapes
     t0 = time.perf_counter()
     ops, total, full = top_device_ops(torch, batched)
     log(f"stencil step profile, one batched B={B_SERVE} call: wall "
@@ -512,7 +542,7 @@ def stencil_step_phase(hk, torch, dev, smi, ref):
     return launches, shapes
 
 
-def scale_solve_phase(hk, torch, dev, smi):
+def scale_solve_phase(hk, torch, dev, smi, cfg=None, label="scale"):
     """``StationaryBlockModel.solve`` above 32 768 dofs: 'auto' takes the
     matrix-free two-level PCG; then the same solve with ``mixed=True``."""
     import scipy.sparse.linalg as spla
@@ -521,16 +551,16 @@ def scale_solve_phase(hk, torch, dev, smi):
     from pylrbms_tpu_torch.la.block import to_scipy_csr
 
     t0 = time.perf_counter()
-    d, _ = discretize(init_grid_and_problem(SCALE), device=dev, dtype=torch.float64, lean=True)
+    d, _ = discretize(init_grid_and_problem(cfg or SCALE), device=dev, dtype=torch.float64, lean=True)
     torch.cuda.synchronize()
     dofs = d.space.K * d.space.N
-    log(f"scale config: K={d.space.K} N={d.space.N} dofs={dofs}; discretize "
+    log(f"{label} config: K={d.space.K} N={d.space.N} dofs={dofs}; discretize "
         f"{time.perf_counter() - t0:.2f} s")
     mu = d.parse_parameter(0.5)
     t0 = time.perf_counter()
     u_ref = spla.splu(to_scipy_csr(d.assemble(mu)).tocsc()).solve(
         d.rhs(mu).double().cpu().numpy().reshape(-1))
-    log(f"scale config scipy splu (f64, host): {time.perf_counter() - t0:.2f} s")
+    log(f"{label} config scipy splu (f64, host): {time.perf_counter() - t0:.2f} s")
 
     hk.reset_launch_counts()
     opts = {"precision": 1e-10}
@@ -538,7 +568,7 @@ def scale_solve_phase(hk, torch, dev, smi):
     t0 = time.perf_counter()
     d.prepare_solver(mu, inverse_options=opts)           # the frozen preconditioner
     torch.cuda.synchronize()
-    log(f"scale prepare_solver (block factors + harvested coarse space, frozen at "
+    log(f"{label} prepare_solver (block factors + harvested coarse space, frozen at "
         f"mu=0.5): {time.perf_counter() - t0:.2f} s")
     results = {False: [], True: []}
     for mixed in (False, True, True, False):
@@ -552,15 +582,15 @@ def scale_solve_phase(hk, torch, dev, smi):
         err = rel(U.double().cpu().numpy().reshape(-1), u_ref)
         results[mixed].append((t_solve, int(d.last_solve_iters), err))
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
-    log(f"scale solve main path (prepare_solver + 4 solves): kernel launches {launches}")
+    log(f"{label} solve main path (prepare_solver + 4 solves): kernel launches {launches}")
     for mixed, runs in results.items():
-        label = "mixed=True" if mixed else "mf_pcg f64"
+        kind = "mixed=True" if mixed else "mf_pcg f64"
         err = max(r[2] for r in runs)
-        log(f"scale solve {label}: {', '.join(f'{r[0]:.3f}' for r in runs)} s (turns "
+        log(f"{label} solve {kind}: {', '.join(f'{r[0]:.3f}' for r in runs)} s (turns "
             f"f64, mixed, mixed, f64), {runs[0][1]} iterations, post-check passed; U vs "
             f"scipy splu rel err {err:.3e} (tol 1e-06) {'ok' if err <= 1e-6 else 'FAIL'} [{smi}]")
         if not err <= 1e-6:
-            raise AssertionError(f"scale solve ({label}) off the sparse LU solution")
+            raise AssertionError(f"{label} solve ({kind}) off the sparse LU solution")
     return launches, shapes
 
 
@@ -640,7 +670,7 @@ def _enrich(torch, gpd, d, red, rd, mus, steps, smi, label, target=1e-2):
     return loop, all_etas
 
 
-def mor_serving_phase(hk, torch, dev, smi, cfg=None):
+def mor_serving_phase(hk, torch, dev, smi, cfg=None, label="MOR serving"):
     """Phase 10: reductor, greedy and adaptive enrichment at the serving
     config in f64."""
     from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
@@ -652,7 +682,7 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None):
     t0 = time.perf_counter()
     d, _ = discretize(gpd, device=dev, dtype=torch.float64)
     torch.cuda.synchronize()
-    log(f"MOR serving config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
+    log(f"{label} config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
         f"discretize {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats(dev)
     hk.reset_launch_counts()
@@ -668,24 +698,24 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None):
     t_red = time.perf_counter() - t0
     mu2 = d.parse_parameter(0.3)
     t_step = timed_median(torch, lambda: rd.online_step(mu2), reps=3)
-    log(f"MOR serving reduce (full, with Gramians, r_max {rd.r_max}): {t_red:.3f} s; "
+    log(f"{label} reduce (full, with Gramians, r_max {rd.r_max}): {t_red:.3f} s; "
         f"rd.online_step {t_step * 1e3:.2f} ms (median of 3) [{smi}]")
     c = rd.solve(mu2)
     U_rec = red.reconstruct(c)
     eta_r, _, ind_r = rd.estimate(c, mu2, decompose=True)
     eta_f, _, ind_f = d.estimate(U_rec, mu2, decompose=True)
-    _check("MOR serving ROM estimate vs FOM estimate of the reconstruction, rel err",
+    _check(f"{label} ROM estimate vs FOM estimate of the reconstruction, rel err",
            abs(float(eta_r) - float(eta_f)) / abs(float(eta_f)), 1e-8)
-    _check("MOR serving ROM indicators vs FOM indicators, rel err",
+    _check(f"{label} ROM indicators vs FOM indicators, rel err",
            rel(ind_r.cpu(), ind_f.cpu()), 1e-8)
     r_true = float(torch.linalg.norm((d.rhs(mu2) - d.assemble(mu2).apply(U_rec)).reshape(-1)))
-    _check("MOR serving residual_norm vs the true residual norm, rel err",
+    _check(f"{label} residual_norm vs the true residual norm, rel err",
            abs(float(rd.residual_norm(c, mu2)) - r_true) / r_true, 1e-6)
 
     # ---- adaptive enrichment from that reduced model (order 0 + the
     # snapshot at mu = 1, the flow of scripts/online_adaptive_lrbms.py)
     mus = d.parameter_space.sample_randomly(3, seed=7)
-    loop, all_etas = _enrich(torch, gpd, d, red, rd, mus, 3, smi, "MOR serving")
+    loop, all_etas = _enrich(torch, gpd, d, red, rd, mus, 3, smi, label)
     if loop._corrector is None:
         raise AssertionError("no enrichment round ran: eta met the target at once")
     # the estimate is not monotone under Galerkin enrichment (the reference's
@@ -703,13 +733,13 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None):
     W = loop._corrector.solve(marked, mu3, current_solution=u_full)
     for i in sorted({0, len(marked) - 1}):
         w = d.solve_for_local_correction(marked[i], None, mu3, current_solution=u_full)
-        _check(f"MOR serving batched corrector ({len(marked)} marked, "
+        _check(f"{label} batched corrector ({len(marked)} marked, "
                f"{loop._corrector.last_iters} PCG iterations) vs dense patch solve, "
                f"subdomain {marked[i]}, rel err", rel(W[i].cpu(), w.cpu()), 1e-6)
     del loop, red, rd
 
     # ---- greedy (its own reductor)
-    res = _greedy(torch, d, smi, "MOR serving")
+    res = _greedy(torch, d, smi, label)
     if res.rd.G_AA is None:
         raise AssertionError("the serving greedy should use the Gramian residual")
     if not res.max_etas[-1] <= 0.1 * res.max_etas[0]:
@@ -718,11 +748,11 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None):
         raise AssertionError(f"greedy made {res.fom_solves} snapshot solves, expected 4")
     torch.cuda.synchronize()
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
-    log(f"MOR serving main path: kernel launches {launches}; peak device memory "
+    log(f"{label} main path: kernel launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the MOR serving path")
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
     return launches, shapes
 
 
@@ -802,13 +832,35 @@ def _launched_both(hk, label):
     return launches, shapes
 
 
-def parabolic_scale_phase(hk, torch, dev, smi, cfg=None, nt=10, B=16):
-    """Phase 12: the parabolic FOM and its snapshot ROM at 98 304 dofs."""
+def host_implicit_euler(torch, im, mu, dt):
+    """The final step of the implicit-Euler trajectory of ``im`` at ``mu``
+    (time-independent rhs) by one scipy splu on the host, and the host's ms
+    per step (the factorization included)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+
+    st = im.stationary
+    K, N = st.space.K, st.space.N
+    Q = st.op.A_diag.shape[0]
+    A_q = [to_scipy_csr(st.op.assemble(torch.eye(Q, dtype=torch.float64, device=st.device)[q]))
+           for q in range(Q)]
+    th = st.theta(mu).cpu().numpy()
+    b = st.rhs(mu).double().cpu().numpy().reshape(-1)
+    M_np = im.mass.cpu().numpy()
+    M_csr = sp.block_diag([sp.csr_matrix(M_np[k]) for k in range(K)], format="csr")
+    t0 = time.perf_counter()
+    lu = spla.splu((M_csr + dt * sum(float(t) * Aq for t, Aq in zip(th, A_q))).tocsc())
+    u = np.zeros(K * N)
+    for _ in range(im.nt):
+        u = lu.solve(M_csr @ u + dt * b)
+    return u, (time.perf_counter() - t0) / im.nt * 1e3
+
+
+def parabolic_scale_phase(hk, torch, dev, smi, cfg=None, nt=10, B=16):
+    """Phase 12: the parabolic FOM and its snapshot ROM at 98 304 dofs."""
     from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem
     from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
-    from pylrbms_tpu_torch.la.block import to_scipy_csr
     from pylrbms_tpu_torch.reductor import ParabolicLRBMSReductor
 
     gpd = init_grid_and_problem(cfg or NORTH_STAR, raster=(8, 8), raster_mode="nearest",
@@ -841,19 +893,7 @@ def parabolic_scale_phase(hk, torch, dev, smi, cfg=None, nt=10, B=16):
     log(f"parabolic trajectory (mf, two-level, 12 harvested modes): {step_ms:.3f} ms/step "
         f"(median of 3; runs {', '.join(f'{t:.3f}' for t in ts)} s); first call {t_first:.2f} s "
         f"with the coarse freeze; PCG iterations per step {its.tolist()} [{smi}]")
-    Q = st.op.A_diag.shape[0]
-    A_q = [to_scipy_csr(st.op.assemble(torch.eye(Q, dtype=torch.float64, device=dev)[q]))
-           for q in range(Q)]
-    th0 = st.theta(mu0).cpu().numpy()
-    b0 = st.rhs(mu0).double().cpu().numpy().reshape(-1)
-    M_np = im.mass.cpu().numpy()
-    M_csr = sp.block_diag([sp.csr_matrix(M_np[k]) for k in range(K)], format="csr")
-    t0 = time.perf_counter()
-    lu = spla.splu((M_csr + dt * sum(float(t) * Aq for t, Aq in zip(th0, A_q))).tocsc())
-    u = np.zeros(K * N)
-    for _ in range(nt):
-        u = lu.solve(M_csr @ u + dt * b0)
-    host_ms = (time.perf_counter() - t0) / nt * 1e3
+    u, host_ms = host_implicit_euler(torch, im, mu0, dt)
     _check(f"parabolic final step vs host scipy splu implicit Euler ({host_ms:.1f} ms/step "
            f"factorize included), max rel err", rel(traj[-1].cpu().numpy().reshape(-1), u), 1e-6)
     U_auto = im.solve(mu0)
@@ -1009,6 +1049,264 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
     return _launched_both(hk, "parabolic serving")
 
 
+# the reference's golden triple (BASELINE.md; its crisscross decomposition
+# script), as the JAX package reproduces it (tests/test_crisscross.py)
+GOLDEN = (1.656117e-01, 1.446952e-01, 3.548075e-01)
+GOLDEN_CFG = {"num_subdomains": [4, 4], "half_num_fine_elements_per_subdomain_and_dim": 1,
+              "num_refinements": 1, "grid_type": "crisscross"}
+CC_SERVING = dict(SERVING, grid_type="crisscross")
+CC_SCALE = dict(SCALE, grid_type="crisscross")
+
+
+def golden_phase(torch, dev):
+    """Phase 14: eta_nc / eta_r / eta_df of the reference's own config on
+    the crisscross family (paper convention: square roots of the summed
+    local quantities) on the card, against the reference's numbers and the
+    port on the CPU."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+
+    def triple(device):
+        d, _ = discretize(init_grid_and_problem(GOLDEN_CFG), device=device)
+        mu = d.parse_parameter(1.0)
+        quantities = d.estimator.local_quantities(d.solve(mu)[None], mu)
+        return np.array([float(torch.sqrt(torch.clamp(v[0], min=0).sum())) for v in quantities])
+
+    card, cpu = triple(dev), triple("cpu")
+    for name, v, ref in zip(("eta_nc", "eta_r", "eta_df"), card, GOLDEN):
+        _check(f"golden triple {name} on the card {v:.6e} vs the reference's {ref:.6e}, rel err",
+               abs(v - ref) / ref, 1e-4)
+    _check("golden triple on the card vs the port on the CPU, max rel err", rel(card, cpu), 1e-10)
+
+
+def rt_conservation_error(torch, d, U, mu):
+    """max over elements of |int_T div t - int_T f| / max |int_T f| for the
+    reconstructed flux t of U (RT0 or RT1, the space's degree): SWIPDG
+    tested with the element's indicator makes it rounding for a solved U."""
+    from pylrbms_tpu_torch.ops import assembly as asm
+    from pylrbms_tpu_torch.ops.rt1 import rt_tab_any_order
+    from pylrbms_tpu_torch.parameters import evaluate_coefficients
+
+    ed = d.estimator.data
+    sp = ed.flux.space
+    t = d.estimator.reconstruct_flux(U, mu)                  # [K, Nrt]
+    _chi, idx, div_q, _ = rt_tab_any_order(sp)
+    nf = idx.shape[-1]
+    t_cell = t[:, torch.as_tensor(idx.reshape(-1), device=t.device)].reshape(
+        sp.K, sp.s, sp.s, sp.T, nf)
+    w = asm.tensor(sp.vol_w, t.dtype, t.device)
+    area = sp.hx * sp.hy
+    div_int = area * torch.einsum(asm.vol_ein(sp, "tq,kyxte,tqe->kyxt"), w, t_cell,
+                                  asm.tensor(div_q, t.dtype, t.device))
+    xq = asm.tensor(asm.vol_points(sp), t.dtype, t.device)
+    theta_f = evaluate_coefficients(ed.f_coeffs, mu, dtype=t.dtype, device=t.device)
+    f_mu = sum(c * ff(xq).to(t.dtype) for c, ff in zip(theta_f, ed.f_funcs))
+    f_int = area * torch.einsum(asm.vol_ein(sp, "tq,kyxtq->kyxt"), w, f_mu)
+    return float((div_int - f_int).abs().max() / f_int.abs().max())
+
+
+def order2_phase(hk, torch, dev, smi):
+    """Phase 16: P2 on 'tri' at the serving grid (K=64, N=768), lean: solve
+    'auto' (the matrix-free PCG through the order-2 stencil) against splu,
+    the positive-form estimate and the RT1 local conservation; then
+    crisscross P2 and quad Q2 at the entry config, card against CPU."""
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+
+    t0 = time.perf_counter()
+    d, _ = discretize(init_grid_and_problem(SERVING), device=dev, dtype=torch.float64,
+                      lean=True, order=2)
+    torch.cuda.synchronize()
+    K, N = d.space.K, d.space.N
+    log(f"order 2 config (P2 tri, lean, f64): K={K} N={N} dofs={K * N}; discretize "
+        f"{time.perf_counter() - t0:.2f} s")
+    mu = d.parse_parameter(0.5)
+    t0 = time.perf_counter()
+    u_ref = spla.splu(to_scipy_csr(d.assemble(mu)).tocsc()).solve(
+        d.rhs(mu).double().cpu().numpy().reshape(-1))
+    t_lu = time.perf_counter() - t0
+    hk.reset_launch_counts()
+    opts = {"precision": 1e-10}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U = d.solve(mu, inverse_options=opts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    if d.last_solve_iters is None:
+        raise AssertionError("order-2 solve 'auto' did not take the mf_pcg path")
+    t_solve = timed_median(torch, lambda: d.solve(mu, inverse_options=opts), reps=3)
+    eta, (nc, r, df), ind = d.estimate(U, mu, decompose=True)
+    torch.cuda.synchronize()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    t_est = timed_median(torch, lambda: d.estimate(U, mu), reps=3)
+    log(f"order 2 main path (solve + estimate): kernel launches {launches}")
+    log(f"order 2 solve 'auto' (mf_pcg, precision 1e-10): {t_solve:.3f} s (median of 3; first "
+        f"{t_first:.2f} s with the preconditioner), {int(d.last_solve_iters)} iterations; "
+        f"scipy splu {t_lu:.2f} s; estimate {t_est * 1e3:.1f} ms, eta {float(eta):.6e} "
+        f"(nc {float(torch.linalg.norm(nc)):.3e}, r {float(torch.linalg.norm(r)):.3e}, "
+        f"df {float(torch.linalg.norm(df)):.3e}) [{smi}]")
+    _check("order 2 solve vs scipy splu, rel err", rel(U.cpu().numpy().reshape(-1), u_ref), 1e-6)
+    ind_np = ind.cpu().numpy()
+    if not (np.isfinite(ind_np).all() and (ind_np >= 0).all() and float(eta) > 0):
+        raise AssertionError("order-2 indicators not finite and non-negative")
+    U_ref = torch.as_tensor(u_ref.reshape(K, N), device=dev)
+    _check("order 2 RT1 local conservation of the splu solution, max rel err",
+           rt_conservation_error(torch, d, U_ref, mu), 1e-9)
+    if launches["precond_dot"] <= 0:
+        raise AssertionError("precond_dot was not launched on the order-2 path")
+
+    for gt in ("crisscross", "quad"):
+        outs = []
+        for device in (dev, "cpu"):
+            m, _ = discretize(init_grid_and_problem(dict(ENTRY, grid_type=gt)), device=device,
+                              order=2)
+            mu_m = m.parse_parameter(0.5)
+            Um = m.solve(mu_m)
+            eta_m, _, ind_m = m.estimate(Um, mu_m, decompose=True)
+            outs.append((Um.cpu(), ind_m.cpu(), float(eta_m)))
+        (U1, i1, e1), (U0, i0, e0) = outs
+        _check(f"order 2 {gt} (nb={m.space.nb}, N={m.space.N}) card vs CPU: U, indicators, "
+               f"eta max rel err", max(rel(U1, U0), rel(i1, i0), abs(e1 - e0) / e0), 1e-10)
+    return launches, shapes
+
+
+def eoc_phase(torch, dev, smi):
+    """Phase 17: the paper-convention StationaryEocStudy (OS2015, 2x2
+    subdomains, half 1, nref 1, p_ref 2, one refinement) on tri and
+    crisscross on the card, against the port on the CPU; then a small
+    InstationaryEocStudy (thermal block, dt halved per level)."""
+    import math
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.problems.thermalblock import init_grid_and_problem as thermalblock
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize as parabolic
+    from pylrbms_tpu_torch.EOC import InstationaryEocStudy, StationaryEocStudy, default_refine
+
+    columns = ("h", "elliptic_mu_bar", "eta_nc", "eta_r", "eta_df", "eta")
+
+    def flat(data):
+        return np.array([v for lvl in sorted(data) for g in ("norm", "indicator", "estimate")
+                         for v in data[lvl][g].values()])
+
+    for gt in ("tri", "crisscross"):
+        def run(device):
+            return StationaryEocStudy(
+                init_grid_and_problem, lambda g: discretize(g, device=device),
+                dict(ENTRY, grid_type=gt), default_refine, mu=1, p_ref=2, max_levels=1,
+                paper_convention=True, device=device).run(columns)
+
+        t0 = time.perf_counter()
+        data = run(dev)
+        t_card = time.perf_counter() - t0
+        _check(f"EOC {gt} ({t_card:.2f} s on the card) table vs the port on the CPU, max rel err",
+               rel(flat(data), flat(run("cpu"))), 1e-8)
+        for ind in ("eta_nc", "eta_r", "eta_df"):
+            rate = math.log(data[1]["indicator"][ind] / data[0]["indicator"][ind]) / math.log(0.5)
+            log(f"EOC {gt} {ind}: {rate:.3f} (gate (0.7, 1.4)) "
+                f"{'ok' if 0.7 < rate < 1.4 else 'FAIL'}")
+            if not 0.7 < rate < 1.4:
+                raise AssertionError(f"EOC {gt} {ind} {rate:.3f} not first order")
+        effs = [data[lvl]["norm"]["elliptic_mu_bar"] / data[lvl]["estimate"]["eta"]
+                for lvl in (0, 1)]
+        _check(f"EOC {gt} efficiency {effs[0]:.4f} -> {effs[1]:.4f}, relative change",
+               abs(effs[1] / effs[0] - 1.0), 0.25)
+
+    def refine_dt(c):
+        out = default_refine(c)
+        out["dt"] = c["dt"] / 2
+        return out
+
+    def disc(gpd, T, nt):
+        im, data = parabolic(gpd, T, nt, device=dev)
+        return im, {"block_space": data["block_space"]}
+
+    base = dict(ENTRY, num_refinements=0, T=0.5, dt=0.125)
+    t0 = time.perf_counter()
+    study = InstationaryEocStudy(thermalblock, disc, base, refine_dt, refine_dt(refine_dt(base)),
+                                 mu=(1, 1, 1, 1), max_levels=1, device=dev)
+    data = study.run(("h", "dt", "L2 - L2", "L2 - elliptic_mu_bar", "eta_nc", "eta_r",
+                      "eta_df", "R_T", "partial_t_nc", "eta"))
+    vals = flat(data)
+    log(f"instationary EOC: {time.perf_counter() - t0:.2f} s on the card [{smi}]")
+    if not (np.isfinite(vals).all() and (vals >= 0).all()):
+        raise AssertionError("instationary EOC table not finite and non-negative")
+    if not data[1]["norm"]["L2 - L2"] < data[0]["norm"]["L2 - L2"]:
+        raise AssertionError("instationary EOC: the error did not fall")
+
+
+def halo_phase(hk, torch, dev, smi, cfg=None, nt=10):
+    """Phase 18a: phase 12's SPE10 trajectory in mixed precision with the
+    halo-dense f32 inner operator against the stencil one, each final step
+    against a host splu implicit Euler."""
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
+
+    gpd = init_grid_and_problem(cfg or NORTH_STAR, raster=(8, 8), raster_mode="nearest",
+                                max_contrast=1e4)
+    im, _ = discretize(gpd, T=1.0, nt=nt, device=dev, dtype=torch.float64)
+    K, N = im.stationary.space.K, im.stationary.space.N
+    dt = 1.0 / nt
+    mu0 = im.parse_parameter([1.0])
+    u, host_ms = host_implicit_euler(torch, im, mu0, dt)
+    log(f"halo config (SPE10, f64, mixed): K={K} N={N} dofs={K * N}, nt={nt}; host splu "
+        f"{host_ms:.1f} ms/step")
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.reset_launch_counts()
+    kw = dict(two_level=True, coarse_modes=12, precision="mixed")
+    runs = {}
+    for inner in ("halo", "stencil"):
+        traj, its = im._solve_mf(mu0, dt, inner=inner, return_iters=True, **kw)
+        runs[inner] = (traj, its)
+    torch.cuda.synchronize()
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"halo main path (the mixed trajectory, halo then stencil inner): kernel launches "
+        f"{launches}")
+    for inner in ("halo", "stencil", "halo", "stencil"):
+        step = timed_median(torch, lambda: im._solve_mf(mu0, dt, inner=inner, **kw), reps=1)
+        runs[inner] += (step / nt * 1e3,)
+    for inner, (traj, its, *ms) in runs.items():
+        log(f"mixed trajectory inner={inner}: {', '.join(f'{m:.3f}' for m in ms)} ms/step (turns "
+            f"halo, stencil, halo, stencil); iterations per step (f32 + f64) {its.tolist()}; "
+            f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
+        _check(f"mixed trajectory inner={inner} final step vs host scipy splu, max rel err",
+               rel(traj[-1].cpu().numpy().reshape(-1), u), 1e-6)
+    if launches["precond_dot"] <= 0:
+        raise AssertionError("precond_dot was not launched on the halo path")
+    return launches, shapes
+
+
+def banded_phase(torch, dev, smi):
+    """Phase 18b: the banded apply against the stencil and block applies at
+    the serving tri config in f64."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.ops.banded import banded_operator
+
+    d, _ = discretize(init_grid_and_problem(SERVING), device=dev, dtype=torch.float64)
+    theta = d.theta(d.parse_parameter(0.5))
+    t0 = time.perf_counter()
+    bop = banded_operator(d.space, d.op)
+    bands = bop.assemble(theta)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    A_st = d.mf_operator().assemble(theta)
+    A_bl = d.assemble(d.parse_parameter(0.5))
+    rng = np.random.default_rng(SEED)
+    for lanes in ((), (16,)):
+        x = torch.as_tensor(rng.standard_normal(lanes + (d.space.K, d.space.N)), device=dev)
+        y_b = bop.apply(bands, x)
+        _check(f"banded apply x{lanes or (1,)} ({len(bop.offsets)} bands) vs stencil apply, "
+               f"rel err", rel(y_b.cpu(), A_st.apply(x).cpu()), 1e-12)
+        ms = {name: cuda_ms(fn) for name, fn in (("banded", lambda: bop.apply(bands, x)),
+                                                 ("stencil", lambda: A_st.apply(x)),
+                                                 ("block", lambda: A_bl.apply(x)))}
+        log(f"apply x{lanes or (1,)} f64 at {d.space.K * d.space.N} dofs: "
+            f"{', '.join(f'{k} {v:.4f} ms' for k, v in ms.items())} (CUDA events, median of "
+            f"20); banded build {t_build:.2f} s [{smi}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -1053,6 +1351,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["parabolic serving"] = parabolic_serving_phase(hk, torch, dev, smi)
         torch.cuda.empty_cache()
+        golden_phase(torch, dev)
+        paths["crisscross serving affine"], ref = serving_phase(
+            hk, torch, dev, smi, cfg=CC_SERVING, label="crisscross serving")
+        paths["crisscross stencil step"] = stencil_step_phase(
+            hk, torch, dev, smi, ref, label="crisscross stencil step", profile=False)
+        del ref
+        paths["crisscross solve"] = scale_solve_phase(hk, torch, dev, smi, cfg=CC_SCALE,
+                                                      label="crisscross scale")
+        torch.cuda.empty_cache()
+        paths["crisscross MOR"] = mor_serving_phase(hk, torch, dev, smi, cfg=CC_SERVING,
+                                                    label="crisscross MOR")
+        torch.cuda.empty_cache()
+        paths["order 2"] = order2_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        eoc_phase(torch, dev, smi)
+        paths["halo trajectory"] = halo_phase(hk, torch, dev, smi)
+        torch.cuda.empty_cache()
+        banded_phase(torch, dev, smi)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         path_shape_phase(hk, torch, dev, paths, checked)

@@ -1,6 +1,6 @@
 """Block SWIPDG discretizer — builds the LRBMS full-order model.
 
-The port of ``pylrbms_tpu/discretize_elliptic_block_swipdg.py`` (order 1):
+The port of ``pylrbms_tpu/discretize_elliptic_block_swipdg.py`` (orders 1-2):
 affine operator components (diag blocks + interface quadruples), affine rhs,
 local products (L2, energy-DG at mu_bar, elliptic at lambda_bar), the
 estimator tensors and constants, and the Oswald + flux-reconstruction
@@ -22,6 +22,7 @@ from .ops import products as prod
 from .ops.swipdg import assemble_swipdg_component
 from .ops.oswald import OswaldOperator
 from .ops.fluxreco import FluxReconstructor
+from .ops.rt1 import FluxReconstructorRT1
 from .ops.assembly import IPDGParams, DEFAULT_IPDG
 from .la.block import AffineBlockOp
 from .estimators import EstimatorData, EllipticEstimator
@@ -42,9 +43,11 @@ def discretize(grid_and_problem_data: dict, solver_options=None, mpi_comm=None,
                device=None, lean: bool = False, order: int = 1):
     """``lean=True`` skips the O(Q^2 K N^2) matrix-form estimator tensors
     (M_aa / M_ab / BB / R_dd); the positive-form estimator path
-    (``make_online_step``) stays fully functional."""
-    if order != 1:
-        raise NotImplementedError("only order-1 discretizations are ported yet")
+    (``make_online_step``) stays fully functional.
+
+    ``order=2`` builds the same pipeline on the P2 (Q2) block space with the
+    degree-matched RT1 flux reconstruction and order-2 Oswald interpolation
+    (``ops/rt1.py``)."""
     pin_precision()
     dev = _device(device)
     solver_options = validate_solver_options(solver_options)
@@ -99,7 +102,8 @@ def discretize(grid_and_problem_data: dict, solver_options=None, mpi_comm=None,
         E_bar=E_bar, L2=L2, M_aa=M_aa, BB=BB, M_ab=M_ab, A_div=A_div,
         R_dd=R_dd, d_vec=d_vec, rf_qq=rf_qq, min_ev=min_ev, diam=diam,
         oswald=OswaldOperator(space, **kw),
-        flux=FluxReconstructor(space, kappa, ipdg, **kw),
+        flux=(FluxReconstructor if order == 1 else FluxReconstructorRT1)(
+            space, kappa, ipdg, **kw),
         lambda_funcs=lambda_funcs,
         lambda_coeffs=[as_functional(c) for c in lambda_coeffs],
         f_coeffs=[as_functional(c) for c in f_coeffs],

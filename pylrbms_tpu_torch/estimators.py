@@ -1,5 +1,5 @@
 """Localized a-posteriori error estimators (elliptic and parabolic, 2D,
-order 1).
+orders 1-2).
 
 The port of the 2D part of ``pylrbms_tpu/estimators.py`` — the
 OS2015/RS2017 localized estimator
@@ -26,7 +26,8 @@ import torch
 
 from .parameters import evaluate_coefficients
 from .ops.oswald import OswaldOperator
-from .ops.fluxreco import FluxReconstructor, rt_tab_any_order
+from .ops.fluxreco import FluxReconstructor
+from .ops.rt1 import rt_tab_any_order
 from .ops import assembly as asm
 
 
@@ -187,25 +188,29 @@ class EllipticEstimator:
         lam_mu = _contract(theta, lam_q)                       # [..., K,s,s,T,nq]
         lam_hat_v = d.lambda_hat(xq).to(dtype)
 
+        # per-cell tables on 'crisscross'; the degree-matched RT basis (RT0
+        # for order 1, RT1 for order 2) with div at the quadrature points
+        ein = lambda e: asm.vol_ein(sp, e)                     # noqa: E731
         dphi = asm.tensor(sp.vol_dphi, dtype, dev)             # [T,nq,nb,2]
         Uc = U.reshape(U.shape[:-2] + (sp.K, sp.s, sp.s, sp.T, sp.nb))
-        gu = torch.einsum("...kyxtj,tqja->...kyxtqa", Uc, dphi)
+        gu = torch.einsum(ein("...kyxtj,tqja->...kyxtqa"), Uc, dphi)
         chi, idx, div_q, _nrt = rt_tab_any_order(sp)
         nf = idx.shape[-1]
         t_cell = t_loc[..., torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
             t_loc.shape[:-1] + (sp.s, sp.s, sp.T, nf))
-        t_q = torch.einsum("...kyxte,tqea->...kyxtqa", t_cell, asm.tensor(chi, dtype, dev))
+        t_q = torch.einsum(ein("...kyxte,tqea->...kyxtqa"), t_cell,
+                           asm.tensor(chi, dtype, dev))
         z = lam_mu[..., None] * gu + t_q                       # kappa = I
         df_int = (z * z).sum(-1) / lam_hat_v
-        eta_df = area * torch.einsum("tq,...kyxtq->...k", w, df_int)
+        eta_df = area * torch.einsum(ein("tq,...kyxtq->...k"), w, df_int)
 
         f_q = torch.stack([ff(xq).to(dtype) for ff in d.f_funcs])
         f_mu = _contract(theta_f, f_q)
-        div_t = torch.einsum("...kyxte,tqe->...kyxtq", t_cell,
+        div_t = torch.einsum(ein("...kyxte,tqe->...kyxtq"), t_cell,
                              asm.tensor(div_q, dtype, dev))
         res = f_mu - div_t
         scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
-        eta_r = area * torch.einsum("tq,...kyxtq->...k", w, res * res) * scale
+        eta_r = area * torch.einsum(ein("tq,...kyxtq->...k"), w, res * res) * scale
         return eta_nc, eta_r, eta_df
 
     def estimate(self, U, mu, decompose: bool = False,

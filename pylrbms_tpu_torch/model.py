@@ -34,6 +34,7 @@ from .ops.hopper_kernels import block_matvec
 from .ops.matrixfree import (StencilOperator, assemble_swipdg_stencil, cast,
                              mass_stencil)
 from .ops.ir import diag_of_blocks, solve_ir
+from .ops.halodense import halo_from_assembled
 from .ops.fluxreco import FluxReconstructor
 from .parameters import (CubicParameterSpace, evaluate_coefficients,
                          parse_parameter)
@@ -797,9 +798,12 @@ class InstationaryBlockModel:
         frozen at the first theta per (dt, coarse_space, coarse_modes) and
         applied in f32.  Each step warm-starts from u + (u - u_prev)
         (``extrapolate``) or u.  ``precision`` 'f64' (default) runs f64 PCG,
-        'mixed' the f32 iterative refinement of ``ops/ir.solve_ir``;
-        ``inner`` 'stencil' (default) only.  Returns the trajectory (and the
-        iterations per step with ``return_iters``)."""
+        'mixed' the f32 iterative refinement of ``ops/ir.solve_ir``, whose
+        f32 inner operator is the stencil (``inner`` 'stencil', the default)
+        or, with ``inner='halo'``, the halo-dense form of the dense G built
+        once per mu (``ops/halodense.py``: one gather and one batched
+        product per apply); the f64 residuals keep the stencil.  Returns the
+        trajectory (and the iterations per step with ``return_iters``)."""
         st = self.stationary
         mu = self.parse_parameter(mu)
         G_sop, M_op = self._mf_parab_setup()
@@ -812,21 +816,23 @@ class InstationaryBlockModel:
         if two_level:
             C, ci = self._mf_parab_coarse(dt, theta, coarse_space, coarse_modes)
         precision = self._resolve_traj_precision(precision)
-        self._resolve_traj_inner(inner)
+        inner = self._resolve_traj_inner(inner, precision)
         traj, its = self._mf_traj(G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol,
-                                  maxiter, precision, extrapolate)
+                                  maxiter, precision, extrapolate, inner)
         self.last_solve_iters = its
         return (traj, its) if return_iters else traj
 
     @staticmethod
-    def _resolve_traj_inner(inner):
-        if inner in (None, "stencil"):
-            return "stencil"
-        if inner == "halo":
-            raise NotImplementedError(
-                "inner='halo' needs the halo-dense operator of "
-                "pylrbms_tpu/ops/halodense.py, which is not ported yet")
-        raise ValueError(f"unknown trajectory inner form {inner!r}")
+    def _resolve_traj_inner(inner, precision):
+        """The f32 inner operator of the mixed trajectory: 'stencil' unless
+        'halo' is asked for (the reference's default picks the halo form
+        only off the CPU; here it stays opt-in)."""
+        inner = "stencil" if inner is None else inner
+        if inner not in ("stencil", "halo"):
+            raise ValueError(f"unknown trajectory inner form {inner!r}")
+        if inner == "halo" and precision != "mixed":
+            raise ValueError("inner='halo' requires precision='mixed'")
+        return inner
 
     @staticmethod
     def _resolve_traj_precision(precision):
@@ -884,7 +890,7 @@ class InstationaryBlockModel:
         return pre
 
     def _mf_traj(self, G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol, maxiter,
-                 precision, extrapolate):
+                 precision, extrapolate, inner="stencil"):
         """The trajectory loop for theta_G [1+Q] (one mu) or [B, 1+Q] (B
         lanes of one per-lane frozen PCG, mu with [B, ...] leaves).
         Returns (trajectory [(B,) nt+1, K, N], iterations [(B,) nt])."""
@@ -896,7 +902,11 @@ class InstationaryBlockModel:
             if lanes:
                 raise ValueError("the mixed trajectory takes one mu at a time")
             dvec = torch.einsum("q,qkn->kn", theta_G, self._parab_diag_q())
-            G32 = cast(G, torch.float32)
+            if inner == "halo":
+                G_dense = self._euler_operator(st.op.assemble(theta_G[1:] / dt), dt)
+                G32 = halo_from_assembled(G_dense, dtype=torch.float32)
+            else:
+                G32 = cast(G, torch.float32)
         theta_f = self._theta_f_steps(mu, dt)
         u = u_prev = torch.zeros(lanes + (K, N), dtype=st.dtype, device=st.device)
         traj, its = [u], []
@@ -951,11 +961,11 @@ class InstationaryBlockModel:
         else:
             bf = self._parab_factors(dt * thetas)                         # [B, K, N, N]
         precision = self._resolve_traj_precision(precision)
-        self._resolve_traj_inner(inner)
+        inner = self._resolve_traj_inner(inner, precision)
         if precision == "mixed":
             outs = [self._mf_traj(G_sop, M_op, theta_G[b],
                                   bf if shared_preconditioner else bf[b], C, ci, mus[b],
-                                  dt, tol, maxiter, precision, extrapolate)
+                                  dt, tol, maxiter, precision, extrapolate, inner)
                     for b in range(len(mus))]
             traj, its = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
         else:

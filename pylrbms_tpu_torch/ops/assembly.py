@@ -7,8 +7,9 @@ requested device/dtype; the integrals are torch einsums.  JAX's functional
 ``A.at[idx].add(v)`` becomes :func:`add_at`, an in-place ``index_add_`` on
 the flattened trailing axes (repeated indices accumulate).
 
-Only the non-per-cell element families are ported (``tri``; ``quad`` shares
-the same tables); ``crisscross`` waits for a later slice.
+All three 2D element families are covered: ``tri`` and ``quad`` share
+cell-invariant tables, ``crisscross`` has per-cell tables ``[s, s, T, ...]``
+that :func:`vol_ein` folds into the volume einsums.
 """
 from __future__ import annotations
 
@@ -67,10 +68,15 @@ def scatter_blocks(A, blocks, rows, cols):
     return add_at(A, (rows[:, :, None], cols[:, None, :]), blocks)
 
 
-def _check_family(space):
-    if space.percell:
-        raise NotImplementedError(
-            "per-cell element tables ('crisscross') are not ported yet")
+def vol_ein(space, expr: str) -> str:
+    """Rewrite a volume einsum for per-cell tables ('crisscross'): every
+    operand subscript that starts with 't' gains the 'yx' cell prefix (the
+    tables are [s, s, T, ...] there)."""
+    if not space.percell:
+        return expr
+    ins, out = expr.split("->")
+    ops = [("yx" + o) if o.startswith("t") else o for o in ins.split(",")]
+    return ",".join(ops) + "->" + out
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +85,11 @@ def _check_family(space):
 
 def vol_points(space) -> np.ndarray:
     """[K, s, s, T, nq, 2] physical volume quadrature points (float64)."""
-    _check_family(space)
     org = (space.subdomain_origins[:, None, None, :]
            + space.cell_origins_local[None, :, :, :])            # [K, s, s, 2]
-    qp = space.vol_qp * np.array([space.hx, space.hy])           # [T, nq, 2]
+    qp = space.vol_qp * np.array([space.hx, space.hy])   # [T, nq, 2] | [s,s,T,nq,2]
+    if space.percell:
+        return org[:, :, :, None, None, :] + qp[None]
     return org[:, :, :, None, None, :] + qp[None, None, None]
 
 
@@ -94,27 +101,32 @@ def volume_elliptic(space, lam_fn, kappa_fn=None, dtype=torch.float64, device=No
     w = tensor(space.vol_w, dtype, device)                     # [T,nq]
     area = space.hx * space.hy
     if kappa_fn is None:
-        integ = torch.einsum("tq,kyxtq,tqia,tqja->kyxtij", w, lam, dphi, dphi)
+        integ = torch.einsum(vol_ein(space, "tq,kyxtq,tqia,tqja->kyxtij"),
+                             w, lam, dphi, dphi)
     else:
         kap = kappa_fn(xq).to(dtype)                           # [K,s,s,T,nq,2,2]
-        integ = torch.einsum("tq,kyxtq,tqia,kyxtqab,tqjb->kyxtij",
+        integ = torch.einsum(vol_ein(space, "tq,kyxtq,tqia,kyxtqab,tqjb->kyxtij"),
                              w, lam, dphi, kap, dphi)
     return _scatter_cell_blocks(space, area * integ, dtype, device)
 
 
 def volume_mass(space, weight_fn=None, dtype=torch.float64, device=None):
     """[K, N, N]: int w(x) phi_i phi_j."""
-    _check_family(space)
     phi = tensor(space.vol_phi, dtype, device)                 # [T,nq,nb]
     w = tensor(space.vol_w, dtype, device)
     area = space.hx * space.hy
     if weight_fn is None:
-        elem = area * torch.einsum("tq,tqi,tqj->tij", w, phi, phi)
-        elem = elem.expand((space.K, space.s, space.s) + tuple(elem.shape))
+        if space.percell:
+            elem = area * torch.einsum("yxtq,yxtqi,yxtqj->yxtij", w, phi, phi)
+            elem = elem.expand((space.K,) + tuple(elem.shape))
+        else:
+            elem = area * torch.einsum("tq,tqi,tqj->tij", w, phi, phi)
+            elem = elem.expand((space.K, space.s, space.s) + tuple(elem.shape))
     else:
         xq = tensor(vol_points(space), dtype, device)
         lam = weight_fn(xq).to(dtype)
-        elem = area * torch.einsum("tq,kyxtq,tqi,tqj->kyxtij", w, lam, phi, phi)
+        elem = area * torch.einsum(vol_ein(space, "tq,kyxtq,tqi,tqj->kyxtij"),
+                                   w, lam, phi, phi)
     return _scatter_cell_blocks(space, elem, dtype, device)
 
 
@@ -125,7 +137,7 @@ def volume_functional(space, f_fn, dtype=torch.float64, device=None):
     phi = tensor(space.vol_phi, dtype, device)
     w = tensor(space.vol_w, dtype, device)
     area = space.hx * space.hy
-    elem = area * torch.einsum("tq,kyxtq,tqi->kyxti", w, f, phi)
+    elem = area * torch.einsum(vol_ein(space, "tq,kyxtq,tqi->kyxti"), w, f, phi)
     return elem.reshape(space.K, space.N)                      # layout matches dof_index
 
 
@@ -135,7 +147,7 @@ def volume_scalar(space, f_fn, dtype=torch.float64, device=None):
     f = f_fn(xq).to(dtype)
     w = tensor(space.vol_w, dtype, device)
     area = space.hx * space.hy
-    return area * torch.einsum("tq,kyxtq->k", w, f)
+    return area * torch.einsum(vol_ein(space, "tq,kyxtq->k"), w, f)
 
 
 def _scatter_cell_blocks(space, elem, dtype, device):

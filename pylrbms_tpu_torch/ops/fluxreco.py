@@ -11,8 +11,9 @@ via the face moments
 
 with the assembly's weights and penalties, on all faces of the mesh at once,
 then restrict to the local subdomain RT spaces by a static index gather.
-Also holds :func:`rt_tab_any_order`, the order-1 branch of
-``pylrbms_tpu/ops/rt1.py:rt_tab_any_order`` (that module imports jax).
+The RT1 reconstruction of order-2 spaces (``ops/rt1.py``) subclasses
+:class:`FluxReconstructor`: it changes the moments per edge, the dof layout
+and adds interior dofs.
 """
 from __future__ import annotations
 
@@ -22,31 +23,21 @@ import torch
 from .assembly import IPDGParams, DEFAULT_IPDG, _EVAL_EPS, tensor
 
 
-def rt_tab_any_order(space):
-    """(chi [T, nq, nf, 2], idx, div_q [T, nq, nf], n_rt_local) of the RT0
-    cell tabulation, with the (elementwise constant) divergence given at the
-    quadrature points."""
-    if space.order != 1 or space.percell:
-        raise NotImplementedError("only the order-1 non-per-cell RT tab is ported")
-    chi, idx, div = space.rt_cell_tab()
-    nq = chi.shape[-3]
-    div_q = np.broadcast_to(div[:, None, :], (div.shape[0], nq, div.shape[1]))
-    return chi, idx, div_q, space.N_rt
-
-
 class FluxReconstructor:
     """Precomputes face geometry; ``apply(lam_fn, U)`` -> local RT dofs.
 
-    The flat global dof layout is D [Sy*Sx] (tri only), V [Sy*(Sx+1)],
-    H [(Sy+1)*Sx], each with a trailing moment axis of size 1."""
+    The flat global dof layout is D [Sy*Sx] (tri and crisscross), V
+    [Sy*(Sx+1)], H [(Sy+1)*Sx], each edge with ``nm`` moments (1 for RT0),
+    followed by any interior dofs (:meth:`_extra_parts`)."""
 
     nm = 1          # moments per edge
+    required_order = 1
 
     def __init__(self, space, kappa_fn=None, ipdg: IPDGParams = DEFAULT_IPDG,
                  dtype=torch.float64, device=None):
-        if space.order != 1 or space.percell:
-            raise NotImplementedError(
-                "only the order-1 non-per-cell flux reconstruction is ported")
+        if space.order != self.required_order:
+            raise ValueError(f"{type(self).__name__} expects an order-"
+                             f"{self.required_order} DG space")
         self.space = space
         self.kappa_fn = kappa_fn
         self.ipdg = ipdg
@@ -54,8 +45,15 @@ class FluxReconstructor:
         self.device = device
         g = space.grid
         self.Sy, self.Sx = g.global_ny, g.global_nx
-        self.rt_l2g = torch.as_tensor(space.rt_local_to_global(), device=device)
+        self.rt_l2g = torch.as_tensor(self._local_to_global(space), device=device)
         self.cell_org = g.cell_origins()                       # [Sy, Sx, 2]
+
+    def _local_to_global(self, space):
+        return space.rt_local_to_global()
+
+    def _extra_parts(self, lam_fn, uc, out_dt):
+        """Non-edge (interior) dof blocks appended after the edge parts."""
+        return []
 
     def _t(self, a):
         return tensor(a, self.dtype, self.device)
@@ -112,10 +110,11 @@ class FluxReconstructor:
                      + pen * (uv_m - uv_p))
         return self._edge_moments(w, integrand, ell)
 
-    def _face_moment_boundary(self, side, lam_fn, u, x):
-        """[..., F, nm] boundary face dofs in the family-normal convention."""
+    def _face_moment_boundary(self, side, lam_fn, u, x, key=None):
+        """[..., F, nm] boundary face dofs in the family-normal convention;
+        ``key`` overrides the tab (the crisscross parity tabs)."""
         sp = self.space
-        tab = sp.face_tabs["bnd_" + side]
+        tab = sp.face_tabs[key or ("bnd_" + side)]
         dt = self.dtype
         n_out = self._t(tab.normal)
         w = self._t(tab.w)
@@ -165,6 +164,8 @@ class FluxReconstructor:
         lead = uc.shape[:-4]
         org = self.cell_org
         phys = self._phys_pts
+        if sp.percell:
+            return self._apply_global_cc(lam_fn, uc, out_dt)
 
         parts = []
         if "D" in sp.face_tabs:
@@ -212,6 +213,79 @@ class FluxReconstructor:
         uT = uc[..., Sy - 1, :, tabT.tri_m, :].reshape(lead + (Sx, nb))
         dofH[..., Sy, :, :] = self._face_moment_boundary("top", lam_fn, uT, xT)
         parts.append(dofH.reshape(lead + (-1,)))
+        parts += self._extra_parts(lam_fn, uc, out_dt)
+        return torch.cat([p.to(out_dt) for p in parts], dim=-1)
+
+    def _apply_global_cc(self, lam_fn, uc, out_dt):
+        """Crisscross face moments: the same integrands with the face
+        families split by the minus cell's parity (the D dofs of odd cells
+        take the anti-diagonal D1 family normal)."""
+        sp = self.space
+        nm, Sy, Sx = self.nm, self.Sy, self.Sx
+        lead = uc.shape[:-4]
+        org = self.cell_org
+        dev = uc.device
+        gy, gx = np.meshgrid(np.arange(Sy), np.arange(Sx), indexing="ij")
+        P = (gy + gx) % 2
+
+        def ix(a):
+            return torch.as_tensor(a, device=dev)
+
+        def u_at(cy, cx, t):
+            return uc[..., ix(cy), ix(cx), t, :]              # [..., F, nb]
+
+        dofD = torch.zeros(lead + (Sy * Sx, nm), dtype=out_dt, device=dev)
+        for p in (0, 1):
+            cy, cx = np.nonzero(P == p)
+            tab = sp.face_tabs[f"D{p}"]
+            x_m, x_p = self._phys_pts(tab, org[cy, cx])
+            dofD[..., ix(cy * Sx + cx), :] = self._face_moment_inner(
+                f"D{p}", lam_fn, u_at(cy, cx, tab.tri_m), u_at(cy, cx, tab.tri_p),
+                x_m, x_p).to(out_dt)
+        parts = [dofD.reshape(lead + (-1,))]
+
+        dofV = torch.zeros(lead + (Sy, Sx + 1, nm), dtype=out_dt, device=dev)
+        for p in (0, 1):
+            cy, cx = np.nonzero((P == p) & (gx < Sx - 1))
+            if cy.size:
+                tab = sp.face_tabs[f"V{p}"]
+                x_m, x_p = self._phys_pts(tab, org[cy, cx])
+                dofV[..., ix(cy), ix(cx + 1), :] = self._face_moment_inner(
+                    f"V{p}", lam_fn, u_at(cy, cx, tab.tri_m),
+                    u_at(cy, cx + 1, tab.tri_p), x_m, x_p).to(out_dt)
+        for side, cxv, vxv in (("left", 0, 0), ("right", Sx - 1, Sx)):
+            cy_all = np.arange(Sy)
+            for p in (0, 1):
+                cys = cy_all[(cy_all + cxv) % 2 == p]
+                key = f"bnd_{side}_p{p}"
+                tab = sp.face_tabs[key]
+                x, _ = self._phys_pts(tab, org[cys, cxv])
+                dofV[..., ix(cys), vxv, :] = self._face_moment_boundary(
+                    side, lam_fn, u_at(cys, np.full_like(cys, cxv), tab.tri_m),
+                    x, key=key).to(out_dt)
+        parts.append(dofV.reshape(lead + (-1,)))
+
+        dofH = torch.zeros(lead + (Sy + 1, Sx, nm), dtype=out_dt, device=dev)
+        for p in (0, 1):
+            cy, cx = np.nonzero((P == p) & (gy < Sy - 1))
+            if cy.size:
+                tab = sp.face_tabs[f"H{p}"]
+                x_m, x_p = self._phys_pts(tab, org[cy, cx])
+                dofH[..., ix(cy + 1), ix(cx), :] = self._face_moment_inner(
+                    f"H{p}", lam_fn, u_at(cy, cx, tab.tri_m),
+                    u_at(cy + 1, cx, tab.tri_p), x_m, x_p).to(out_dt)
+        for side, cyv, hyv in (("bottom", 0, 0), ("top", Sy - 1, Sy)):
+            cx_all = np.arange(Sx)
+            for p in (0, 1):
+                cxs = cx_all[(cyv + cx_all) % 2 == p]
+                key = f"bnd_{side}_p{p}"
+                tab = sp.face_tabs[key]
+                x, _ = self._phys_pts(tab, org[np.full_like(cxs, cyv), cxs])
+                dofH[..., hyv, ix(cxs), :] = self._face_moment_boundary(
+                    side, lam_fn, u_at(np.full_like(cxs, cyv), cxs, tab.tri_m),
+                    x, key=key).to(out_dt)
+        parts.append(dofH.reshape(lead + (-1,)))
+        parts += self._extra_parts(lam_fn, uc, out_dt)
         return torch.cat([p.to(out_dt) for p in parts], dim=-1)
 
     def restrict(self, t_global):

@@ -1,7 +1,7 @@
 """Matrix-free (stencil) SWIPDG operator: elementwise blocks, fused apply.
 
-The port of ``pylrbms_tpu/ops/matrixfree.py`` (tri and quad families; the
-crisscross branch is not ported yet and raises, as in ``ops/assembly.py``).
+The port of ``pylrbms_tpu/ops/matrixfree.py`` (tri, quad and crisscross
+families).
 The operator's action is held as per-cell volume blocks and per-face block
 quadruples, O(K s^2 nb^2) numbers instead of the O(K N^2) dense subdomain
 blocks; its apply is a handful of batched block products and shifted
@@ -17,6 +17,12 @@ Layout (x as [..., K, s, s, T, nb]):
   H     4 x [K, s-1, s, nb, nb]      cell (cy,cx,B) <-> (cy+1,cx,A)
   R, U  4 x [E, s, nb, nb]           subdomain interface quadruples
   D_side {side: [K, s, nb, nb]}      one-sided Dirichlet blocks
+
+On 'crisscross' the layout is the same, each face position filled from its
+parity family (D0/D1, V0/V1, H0/H1, per-parity boundary tabs); which
+t-plane a V face or a left/right boundary block couples is resolved in the
+apply by the static cell-parity checkerboard (H faces couple t1 below to t0
+above for both parities, as on 'tri').
 
 Every field of an :class:`AssembledStencil` may carry leading lane axes
 (``StencilOperator.assemble`` with theta [B, Q]); ``apply`` broadcasts them
@@ -77,7 +83,6 @@ def assemble_swipdg_stencil(space, lam_fn, kappa_fn=None,
                             dtype=torch.float64, device=None) -> SwipdgStencil:
     """Stencil form of one affine component (same integrands as
     ``ops/swipdg.assemble_swipdg_component``, kept per cell and face)."""
-    asm._check_family(space)
     s, nb, K = space.s, space.nb, space.K
     origins = space.subdomain_origins
     kw = dict(ipdg=ipdg, dtype=dtype, device=device)
@@ -88,11 +93,14 @@ def assemble_swipdg_stencil(space, lam_fn, kappa_fn=None,
     w = asm.tensor(space.vol_w, dtype, device)
     area = space.hx * space.hy
     if kappa_fn is None:
-        vol = area * torch.einsum("tq,kyxtq,tqia,tqja->kyxtij", w, lam, dphi, dphi)
+        vol = area * torch.einsum(asm.vol_ein(space, "tq,kyxtq,tqia,tqja->kyxtij"),
+                                  w, lam, dphi, dphi)
     else:
         kap = kappa_fn(xq).to(dtype)
-        vol = area * torch.einsum("tq,kyxtq,tqia,kyxtqab,tqjb->kyxtij",
+        vol = area * torch.einsum(asm.vol_ein(space, "tq,kyxtq,tqia,kyxtqab,tqjb->kyxtij"),
                                   w, lam, dphi, kap, dphi)
+    if space.percell:
+        return _assemble_swipdg_stencil_cc(space, vol, lam_fn, kappa_fn, kw)
 
     def zeros(shape):
         return tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(4))
@@ -131,6 +139,84 @@ def assemble_swipdg_stencil(space, lam_fn, kappa_fn=None,
         D_side[side] = asm.boundary_face_blocks(space, tab, lam_fn, kappa_fn,
                                                 x_m, space.order, **kw)
     return SwipdgStencil(vol=vol, D=Dq, V=Vq, H=Hq, R=Rq, U=Uq, D_side=D_side)
+
+
+def _assemble_swipdg_stencil_cc(space, vol, lam_fn, kappa_fn, kw) -> SwipdgStencil:
+    """Crisscross faces: each face position of the stencil layout filled
+    from its parity family (the storage is parity-agnostic)."""
+    s, nb, K = space.s, space.nb, space.K
+    dtype, device = kw["dtype"], kw["device"]
+    origins = space.subdomain_origins
+    sets = space.interior_face_sets()
+
+    def blocks(fam, cy_m, cx_m, orgs):
+        tab = space.face_tabs[fam]
+        x_m, x_p = asm.face_phys_points(space, tab, cy_m, cx_m, orgs)
+        return asm.inner_face_blocks(space, tab, lam_fn, kappa_fn, x_m, x_p,
+                                     space.order, **kw)
+
+    def zeros(shape):
+        return tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(4))
+
+    def interleave(shape, stem):
+        outs = zeros((K,) + shape + (nb, nb))
+        for p in (0, 1):
+            cy, cx = sets[f"{stem}{p}"][:2]
+            if len(cy) == 0:
+                continue
+            iy, ix = torch.as_tensor(cy, device=device), torch.as_tensor(cx, device=device)
+            for o, b in zip(outs, blocks(f"{stem}{p}", cy, cx, origins)):
+                o[:, iy, ix] = b
+        return outs
+
+    def iface(orient, minus_org, E):
+        outs = zeros((E, s, nb, nb))
+        for fam, cy_m, cx_m, pos in space.interface_face_groups(orient):
+            ip = torch.as_tensor(pos, device=device)
+            for o, b in zip(outs, blocks(fam, cy_m, cx_m, minus_org)):
+                o[:, ip] = b
+        return outs
+
+    grid = space.grid
+    org = origins.reshape(grid.ky, grid.kx, 2)
+    Dq = interleave((s, s), "D")
+    Vq = interleave((s, s - 1), "V") if s > 1 else zeros((K, s, 0, nb, nb))
+    Hq = interleave((s - 1, s), "H") if s > 1 else zeros((K, 0, s, nb, nb))
+    Rq = (iface("V", org[:, :-1].reshape(-1, 2), grid.ky * (grid.kx - 1))
+          if grid.kx > 1 else zeros((0, s, nb, nb)))
+    Uq = (iface("H", org[:-1, :].reshape(-1, 2), (grid.ky - 1) * grid.kx)
+          if grid.ky > 1 else zeros((0, s, nb, nb)))
+    D_side = {}
+    for side in ("left", "right", "bottom", "top"):
+        acc = torch.zeros((K, s, nb, nb), dtype=dtype, device=device)
+        for key, cy, cx, _t, pos in space.boundary_face_groups(side):
+            tab = space.face_tabs[key]
+            x_m, _ = asm.face_phys_points(space, tab, cy, cx, origins)
+            acc[:, torch.as_tensor(pos, device=device)] = asm.boundary_face_blocks(
+                space, tab, lam_fn, kappa_fn, x_m, space.order, **kw)
+        D_side[side] = acc
+    return SwipdgStencil(vol=vol, D=Dq, V=Vq, H=Hq, R=Rq, U=Uq, D_side=D_side)
+
+
+def _parity_masks(space, dtype, device):
+    """Static 0/1 masks of the crisscross apply, each [s(, s-1), 1] in
+    ``dtype``: V faces on t0 / t1 (parity of the minus cell), the
+    left-side element on t0 / t1 and the right-side element on t0 / t1.
+    Cached on the space per (dtype, device): every apply reads them, and a
+    host-to-device copy per apply would cost more than the masked
+    products."""
+    cache = space.__dict__.setdefault("_parity_mask_cache", {})
+    key = (dtype, torch.device(device))
+    if key not in cache:
+        par_v = space.cell_parity[:, :-1]                 # [s, s-1]
+        pl = np.arange(space.s) % 2                       # left: t = 1 - parity
+        pr = (np.arange(space.s) + space.s - 1) % 2       # right: t = parity
+
+        def m(a):
+            return torch.as_tensor(a[..., None], dtype=dtype, device=device)
+        cache[key] = dict(v0=m(par_v == 0), v1=m(par_v == 1), l0=m(pl == 1),
+                          l1=m(pl == 0), r0=m(pr == 0), r1=m(pr == 1))
+    return cache[key]
 
 
 def mass_stencil(space, like: SwipdgStencil) -> SwipdgStencil:
@@ -299,17 +385,33 @@ class AssembledStencil:
             # (otherwise constants see no penalty energy: singular blocks)
             dA = self.vol[..., 0, :, :] + Dmm
             dB = self.vol[..., 1, :, :] + Dpp
+            mk = (_parity_masks(sp, dA.dtype, dA.device) if sp.percell else None)
             if s > 1:
                 Vmm, _, _, Vpp = self.V
                 Hmm, _, _, Hpp = self.H
-                dA[..., :, :-1, :, :] += Vmm     # A minus side of V at (cy, cx)
-                dB[..., :, 1:, :, :] += Vpp      # B plus side of V at (cy, cx-1)
+                if sp.percell:
+                    # both sides of a V face live on t = parity of the minus cell
+                    v0, v1 = mk["v0"][..., None], mk["v1"][..., None]
+                    dA[..., :, :-1, :, :] += v0 * Vmm
+                    dB[..., :, :-1, :, :] += v1 * Vmm
+                    dA[..., :, 1:, :, :] += v0 * Vpp
+                    dB[..., :, 1:, :, :] += v1 * Vpp
+                else:
+                    dA[..., :, :-1, :, :] += Vmm     # A minus side of V at (cy, cx)
+                    dB[..., :, 1:, :, :] += Vpp      # B plus side of V at (cy, cx-1)
                 dB[..., :-1, :, :, :] += Hmm     # t1 minus side of H at (cy, cx)
                 dA[..., 1:, :, :, :] += Hpp      # t0 plus side of H below
             # subdomain-side penalty (one-sided Dirichlet blocks; on
             # interfaces the in_in strips differ slightly: fine for M)
-            dB[..., :, 0, :, :] += Ds["left"]
-            dA[..., :, s - 1, :, :] += Ds["right"]
+            if sp.percell:
+                # the left/right boundary-layer element alternates
+                dB[..., :, 0, :, :] += mk["l1"][..., None] * Ds["left"]
+                dA[..., :, 0, :, :] += mk["l0"][..., None] * Ds["left"]
+                dA[..., :, s - 1, :, :] += mk["r0"][..., None] * Ds["right"]
+                dB[..., :, s - 1, :, :] += mk["r1"][..., None] * Ds["right"]
+            else:
+                dB[..., :, 0, :, :] += Ds["left"]
+                dA[..., :, s - 1, :, :] += Ds["right"]
             dA[..., 0, :, :, :] += Ds["bottom"]
             dB[..., s - 1, :, :, :] += Ds["top"]
             cell = torch.cat([torch.cat([dA, Dmp], dim=-1),
@@ -376,11 +478,24 @@ class AssembledStencil:
             yA = bmv(self.vol[..., 0, :, :], xA) + bmv(Dmm, xA) + bmv(Dmp, xB)
             yB = bmv(self.vol[..., 1, :, :], xB) + bmv(Dpm, xA) + bmv(Dpp, xB)
             if s > 1:
-                # V: minus (cy,cx,A=t0), plus (cy,cx+1,B=t1)
                 Vmm, Vmp, Vpm, Vpp = self.V
-                xm, xp = xA[..., :, :-1, :], xB[..., :, 1:, :]
-                yA[..., :, :-1, :] += bmv(Vmm, xm) + bmv(Vmp, xp)
-                yB[..., :, 1:, :] += bmv(Vpm, xm) + bmv(Vpp, xp)
+                if sp.percell:
+                    # crisscross: both sides on t = parity of the minus cell
+                    mk = _parity_masks(sp, x.dtype, x.device)
+                    v0, v1 = mk["v0"], mk["v1"]
+                    xm = v0 * xA[..., :, :-1, :] + v1 * xB[..., :, :-1, :]
+                    xp = v0 * xA[..., :, 1:, :] + v1 * xB[..., :, 1:, :]
+                    ym = bmv(Vmm, xm) + bmv(Vmp, xp)
+                    yp = bmv(Vpm, xm) + bmv(Vpp, xp)
+                    yA[..., :, :-1, :] += v0 * ym
+                    yB[..., :, :-1, :] += v1 * ym
+                    yA[..., :, 1:, :] += v0 * yp
+                    yB[..., :, 1:, :] += v1 * yp
+                else:
+                    # V: minus (cy,cx,A=t0), plus (cy,cx+1,B=t1)
+                    xm, xp = xA[..., :, :-1, :], xB[..., :, 1:, :]
+                    yA[..., :, :-1, :] += bmv(Vmm, xm) + bmv(Vmp, xp)
+                    yB[..., :, 1:, :] += bmv(Vpm, xm) + bmv(Vpp, xp)
                 # H: minus (cy,cx,t1), plus (cy+1,cx,t0)
                 Hmm, Hmp, Hpm, Hpp = self.H
                 xm, xp = xB[..., :-1, :, :], xA[..., 1:, :, :]
@@ -400,12 +515,29 @@ class AssembledStencil:
         def grid_of(b, shape):
             return b.reshape(b.shape[:-4] + shape + (s, nb, nb))
 
+        cc = sp.percell
+        if cc:
+            mk = _parity_masks(sp, x.dtype, x.device)
         if kx > 1:
             Rii, Rio, Roi, Roo = (grid_of(b, (ky, kx - 1)) for b in self.R)
-            xm = xg[..., :, :-1, :, s - 1, tR, :]    # [..., ky, kx-1, s(cy), nb]
-            xp = xg[..., :, 1:, :, 0, tL, :]
-            yg[..., :, :-1, :, s - 1, tR, :] += bmv(Rii, xm) + bmv(Rio, xp)
-            yg[..., :, 1:, :, 0, tL, :] += bmv(Roi, xm) + bmv(Roo, xp)
+            if cc:
+                # the face's parity is the minus cell's (cy, s-1); both
+                # sides couple on t = that parity
+                r0, r1 = mk["r0"], mk["r1"]
+                xm = (r0 * xg[..., :, :-1, :, s - 1, 0, :]
+                      + r1 * xg[..., :, :-1, :, s - 1, 1, :])
+                xp = r0 * xg[..., :, 1:, :, 0, 0, :] + r1 * xg[..., :, 1:, :, 0, 1, :]
+                ym = bmv(Rii, xm) + bmv(Rio, xp)
+                yp = bmv(Roi, xm) + bmv(Roo, xp)
+                yg[..., :, :-1, :, s - 1, 0, :] += r0 * ym
+                yg[..., :, :-1, :, s - 1, 1, :] += r1 * ym
+                yg[..., :, 1:, :, 0, 0, :] += r0 * yp
+                yg[..., :, 1:, :, 0, 1, :] += r1 * yp
+            else:
+                xm = xg[..., :, :-1, :, s - 1, tR, :]    # [..., ky, kx-1, s(cy), nb]
+                xp = xg[..., :, 1:, :, 0, tL, :]
+                yg[..., :, :-1, :, s - 1, tR, :] += bmv(Rii, xm) + bmv(Rio, xp)
+                yg[..., :, 1:, :, 0, tL, :] += bmv(Roi, xm) + bmv(Roo, xp)
         if ky > 1:
             Uii, Uio, Uoi, Uoo = (grid_of(b, (ky - 1, kx)) for b in self.U)
             xm = xg[..., :-1, :, s - 1, :, tT, :]    # [..., ky-1, kx, s(cx), nb]
@@ -414,10 +546,24 @@ class AssembledStencil:
             yg[..., 1:, :, 0, :, tB, :] += bmv(Uoi, xm) + bmv(Uoo, xp)
 
         Ds = {k: grid_of(v, (ky, kx)) for k, v in self.D_side.items()}
-        yg[..., :, 0, :, 0, tL, :] += bmv(
-            Ds["left"][..., :, 0, :, :, :], xg[..., :, 0, :, 0, tL, :])
-        yg[..., :, kx - 1, :, s - 1, tR, :] += bmv(
-            Ds["right"][..., :, kx - 1, :, :, :], xg[..., :, kx - 1, :, s - 1, tR, :])
+        if cc:
+            # left: cell (cy, 0) holds element t = 1 - parity; right: cell
+            # (cy, s-1) element t = parity
+            l0, l1, r0, r1 = mk["l0"], mk["l1"], mk["r0"], mk["r1"]
+            xl = l1 * xg[..., :, 0, :, 0, 1, :] + l0 * xg[..., :, 0, :, 0, 0, :]
+            yl = bmv(Ds["left"][..., :, 0, :, :, :], xl)
+            yg[..., :, 0, :, 0, 1, :] += l1 * yl
+            yg[..., :, 0, :, 0, 0, :] += l0 * yl
+            xr = (r0 * xg[..., :, kx - 1, :, s - 1, 0, :]
+                  + r1 * xg[..., :, kx - 1, :, s - 1, 1, :])
+            yr = bmv(Ds["right"][..., :, kx - 1, :, :, :], xr)
+            yg[..., :, kx - 1, :, s - 1, 0, :] += r0 * yr
+            yg[..., :, kx - 1, :, s - 1, 1, :] += r1 * yr
+        else:
+            yg[..., :, 0, :, 0, tL, :] += bmv(
+                Ds["left"][..., :, 0, :, :, :], xg[..., :, 0, :, 0, tL, :])
+            yg[..., :, kx - 1, :, s - 1, tR, :] += bmv(
+                Ds["right"][..., :, kx - 1, :, :, :], xg[..., :, kx - 1, :, s - 1, tR, :])
         yg[..., 0, :, 0, :, tB, :] += bmv(
             Ds["bottom"][..., 0, :, :, :, :], xg[..., 0, :, 0, :, tB, :])
         yg[..., ky - 1, :, s - 1, :, tT, :] += bmv(

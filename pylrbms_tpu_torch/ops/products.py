@@ -1,6 +1,7 @@
 """Estimator products and constants (the RS2017 kernel set, batched).
 
-The port of ``pylrbms_tpu/ops/products.py`` for order-1 (RT0) spaces:
+The port of ``pylrbms_tpu/ops/products.py`` (order-2 spaces dispatch to
+the RT1 products of ``ops/rt1.py``):
 
 * :func:`df_aa`, :func:`df_ab`, :func:`df_bb` — the diffusive-flux products
     aa: (lam_u lam_v / lam_hat) grad(u) . kappa grad(v)
@@ -41,11 +42,6 @@ def _kinv_fn(lam_hat, kappa_fn):
     return fn
 
 
-def _order1(space):
-    if space.order != 1:
-        raise NotImplementedError("only order-1 (RT0) estimator products are ported")
-
-
 def df_aa(space, lam_u, lam_v, lam_hat, kappa_fn=None, dtype=torch.float64,
           device=None):
     """[K, N, N]: int (lam_u lam_v / lam_hat) grad(phi_i) . kappa grad(phi_j)."""
@@ -56,7 +52,9 @@ def df_aa(space, lam_u, lam_v, lam_hat, kappa_fn=None, dtype=torch.float64,
 
 def df_bb(space, lam_hat, kappa_fn=None, dtype=torch.float64, device=None):
     """[K, N_rt, N_rt]: int t . (lam_hat kappa)^{-1} s  over the subdomain."""
-    _order1(space)
+    if space.order == 2:
+        from .rt1 import df_bb_rt1
+        return df_bb_rt1(space, lam_hat, kappa_fn, dtype, device)
     chi, idx, _div = space.rt_cell_tab()
     nf = idx.shape[-1]
     xq = tensor(asm.vol_points(space), dtype, device)          # [K,s,s,T,nq,2]
@@ -64,7 +62,8 @@ def df_bb(space, lam_hat, kappa_fn=None, dtype=torch.float64, device=None):
     w = tensor(space.vol_w, dtype, device)
     area = space.hx * space.hy
     chi_j = tensor(chi, dtype, device)
-    blocks = area * torch.einsum("tq,tqea,kyxtqab,tqfb->kyxtef", w, chi_j, Ki, chi_j)
+    blocks = area * torch.einsum(asm.vol_ein(space, "tq,tqea,kyxtqab,tqfb->kyxtef"),
+                                 w, chi_j, Ki, chi_j)
     F = space.s * space.s * space.T
     rows = idx.reshape(F, nf)
     A = torch.zeros((space.K, space.N_rt, space.N_rt), dtype=dtype, device=device)
@@ -73,7 +72,9 @@ def df_bb(space, lam_hat, kappa_fn=None, dtype=torch.float64, device=None):
 
 def df_ab(space, lam_v, lam_hat, kappa_fn=None, dtype=torch.float64, device=None):
     """[K, N, N_rt]: int (lam_v / lam_hat) grad(phi_i) . chi_e."""
-    _order1(space)
+    if space.order == 2:
+        from .rt1 import df_ab_rt1
+        return df_ab_rt1(space, lam_v, lam_hat, kappa_fn, dtype, device)
     chi, idx, _div = space.rt_cell_tab()
     nf = idx.shape[-1]
     xq = tensor(asm.vol_points(space), dtype, device)
@@ -82,7 +83,8 @@ def df_ab(space, lam_v, lam_hat, kappa_fn=None, dtype=torch.float64, device=None
     dphi = tensor(space.vol_dphi, dtype, device)               # [T,nq,nb,2]
     area = space.hx * space.hy
     chi_j = tensor(chi, dtype, device)
-    blocks = area * torch.einsum("tq,kyxtq,tqia,tqea->kyxtie", w, wgt, dphi, chi_j)
+    blocks = area * torch.einsum(asm.vol_ein(space, "tq,kyxtq,tqia,tqea->kyxtie"),
+                                 w, wgt, dphi, chi_j)
     F = space.s * space.s * space.T
     rows = np.arange(space.N, dtype=np.int64).reshape(F, space.nb)
     A = torch.zeros((space.K, space.N, space.N_rt), dtype=dtype, device=device)
@@ -91,14 +93,22 @@ def df_ab(space, lam_v, lam_hat, kappa_fn=None, dtype=torch.float64, device=None
 
 
 def divergence_matrix(space, dtype=torch.float64, device=None):
-    """[N, N_rt] (same for every subdomain): RT0 coeffs -> DG coeffs of div t."""
-    _order1(space)
+    """[N, N_rt] (same for every subdomain): RT0 coeffs -> DG coeffs of div t
+    (elementwise constant, so every nodal coefficient of an element is the
+    element's div constant)."""
+    if space.order == 2:
+        from .rt1 import divergence_matrix_rt1
+        return divergence_matrix_rt1(space, dtype, device)
     _chi, idx, div = space.rt_cell_tab()
     nf = idx.shape[-1]
     F = space.s * space.s * space.T
-    blocks = np.broadcast_to(div[None, :, None, :],
-                             (space.s * space.s, space.T, space.nb, nf)
-                             ).reshape(F, space.nb, nf)
+    if space.percell:                          # div [s, s, T, nf] (crisscross)
+        blocks = np.broadcast_to(div[:, :, :, None, :],
+                                 (space.s, space.s, space.T, space.nb, nf))
+    else:                                      # div [T, nf]
+        blocks = np.broadcast_to(div[None, :, None, :],
+                                 (space.s * space.s, space.T, space.nb, nf))
+    blocks = blocks.reshape(F, space.nb, nf)
     rows = np.arange(space.N, dtype=np.int64).reshape(F, space.nb)
     A = torch.zeros((space.N, space.N_rt), dtype=dtype, device=device)
     return asm.scatter_blocks(A, tensor(blocks, dtype, device), rows, idx.reshape(F, nf))

@@ -43,13 +43,17 @@ DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
                                      (1, 4, 24, 3), (2, 3, 130, 9),
                                      (1, 8, 1536, 1), (1, 8, 1536, 16),
                                      (2, 8, 384, 256), (2, 8, 384, 100),
-                                     (2, 3, 96, 40), (2, 3, 96, 9), (1, 8, 384, 12)])
+                                     (2, 3, 96, 40), (2, 3, 96, 9), (1, 8, 384, 12),
+                                     (1, 8, 576, 1), (1, 8, 576, 12), (1, 8, 576, 16),
+                                     (1, 8, 768, 1), (1, 8, 768, 12), (1, 8, 768, 16)])
 def test_kernels_match_plain_versions(cuda, G, K, N, B):
     """Every route of each kernel (stream for B <= 16, in its ring form for
     block_matvec's f64 and f32 pairs at 5-16 lanes, tensor cores for the
     serving pairs at many lanes, SIMT tiles for the rest), the scale
     solve's N=1536 blocks, the serving batch and harvest, a ring with a
-    half-empty row tile and masked lanes, ragged N (scalar loads)."""
+    half-empty row tile and masked lanes, ragged N (scalar loads), and the
+    order-2 blocks (Q2 quad N=576, P2 tri N=768; 96 KB of staged f64 x at
+    16 lanes)."""
     rng = np.random.default_rng(3)
     hk.reset_launch_counts()
     for mdt, vdt, tol, tol_rz in DTYPES:
@@ -236,11 +240,13 @@ def test_reduce_and_greedy_on_cuda_match_cpu(cuda):
         assert _rel(getattr(r1.rd, name).cpu(), getattr(r0.rd, name)) <= 1e-10, name
 
 
-def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda):
+@pytest.mark.parametrize("N", [384, 768])
+def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, N):
     """precond_dot f64 x f64 at 16 lanes, N=384 stages exactly 48 KB of x
-    beside its static reduction scratch: the launch has to opt in to the
-    larger shared memory.  The opt-in sticks to the kernel for the life of a
-    process, so this runs as the first launch of a fresh one."""
+    beside its static reduction scratch (N=768, the P2 blocks: 96 KB): the
+    launch has to opt in to the larger shared memory.  The opt-in sticks to
+    the kernel for the life of a process, so this runs as the first launch
+    of a fresh one."""
     import os
     import subprocess
     import sys
@@ -249,9 +255,9 @@ def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda):
         "import torch\n"
         "from pylrbms_tpu_torch.ops import hopper_kernels as hk\n"
         "g = torch.Generator(device='cuda').manual_seed(1)\n"
-        "F = torch.randn((8, 384, 384), generator=g, device='cuda', dtype=torch.float64)\n"
-        "r = torch.randn((8, 8, 384), generator=g, device='cuda', dtype=torch.float64)\n"
-        "assert hk.plan('precond_dot', 1, 8, 384, 8, F.dtype, r.dtype).lanes == 16\n"
+        f"F = torch.randn((8, {N}, {N}), generator=g, device='cuda', dtype=torch.float64)\n"
+        f"r = torch.randn((8, 8, {N}), generator=g, device='cuda', dtype=torch.float64)\n"
+        f"assert hk.plan('precond_dot', 1, 8, {N}, 8, F.dtype, r.dtype).lanes == 16\n"
         "z, rz = hk.precond_dot(F, r)\n"
         "zp, rzp = hk.precond_dot_plain(F, r)\n"
         "torch.cuda.synchronize()\n"
@@ -298,3 +304,63 @@ def test_parabolic_paths_on_cuda_match_cpu(cuda):
     for name, t in rd0.parabolic.items():
         assert _rel(rd1.parabolic[name].cpu(), t) <= 1e-10, name
     assert abs(float(e1) - float(e0)) <= 1e-9 * abs(float(e0))
+
+
+@pytest.mark.parametrize("gt,order", [("crisscross", 1), ("tri", 2), ("crisscross", 2),
+                                      ("quad", 2)])
+def test_stencil_apply_and_estimate_on_cuda_match_cpu(cuda, gt, order):
+    """2x2 subdomains, half 1, nref 1, f64: the stencil apply of the
+    crisscross and order-2 families (parity masks, nb = 6 and 9), the
+    matrix-free solve and the estimate (per-cell tables, RT1) on the card
+    against the same on the CPU (apply 1e-12, solve and estimate 1e-8)."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+
+    cfg = {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1, "grid_type": gt}
+    x = None
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev, order=order)
+        mu = d.parse_parameter(0.6)
+        if x is None:
+            x = np.random.default_rng(9).normal(size=(3, d.space.K, d.space.N))
+        A = d.mf_operator().assemble(d.theta(mu))
+        hk.reset_launch_counts()
+        U = d.solve(mu, {"type": "mf_pcg", "precision": 1e-10, "coarse_modes": 4})
+        n = hk.launch_counts()
+        y = A.apply(torch.tensor(x, device=dev))
+        eta = d.estimate(U, mu)
+        outs.append((y.cpu(), U.cpu(), float(eta), n))
+    (y0, U0, e0, n0), (y1, U1, e1, n1) = outs
+    assert _rel(y1, y0) <= 1e-12
+    assert _rel(U1, U0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
+    assert n0 == {"block_matvec": 0, "precond_dot": 0} and n1["precond_dot"] > 0
+
+
+def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
+    """SPE10 4x4 subdomains, half 1, nref 1, f64: the halo-dense apply
+    (torch.matmul of [K, N, Nh] blocks) and the mixed trajectory with the
+    halo inner operator on the card against the CPU (1e-12, 1e-8)."""
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg import discretize
+    from pylrbms_tpu_torch.ops.halodense import halo_from_assembled
+
+    cfg = {"num_subdomains": [4, 4], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1}
+    gpd = init_grid_and_problem(cfg, raster=(4, 4), raster_mode="nearest", max_contrast=1e3)
+    outs = []
+    for dev in ("cpu", cuda):
+        im, _ = discretize(gpd, T=0.5, nt=4, device=dev)
+        st = im.stationary
+        mu = im.parse_parameter([0.7])
+        x = torch.tensor(np.random.default_rng(4).normal(size=(2, st.space.K, st.space.N)),
+                         device=dev)
+        y = halo_from_assembled(st.assemble(mu)).apply(x)
+        hk.reset_launch_counts()
+        traj = im._solve_mf(mu, 0.125, tol=1e-10, two_level=False, precision="mixed",
+                            inner="halo")
+        outs.append((y.cpu(), traj.cpu(), hk.launch_counts()))
+    (y0, t0, n0), (y1, t1, n1) = outs
+    assert _rel(y1, y0) <= 1e-12 and _rel(t1, t0) <= 1e-8
+    assert n0 == {"block_matvec": 0, "precond_dot": 0} and n1["precond_dot"] > 0

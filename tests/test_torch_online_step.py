@@ -251,6 +251,24 @@ def test_port_imports_no_jax():
         "eta, parts = im.estimate(im.solve({'switch': 0.5}), {'switch': 0.5})\n"
         "pg = pod_greedy(im, im.parameter_space.sample_uniformly(2), max_extensions=1)\n"
         "assert pg.fom_solves == 1 and len(parts) == 5 and float(eta) > 0\n"
+        "from pylrbms_tpu_torch.ops.rt1 import FluxReconstructorRT1\n"
+        "from pylrbms_tpu_torch.ops.prolong import prolong\n"
+        "from pylrbms_tpu_torch.ops.halodense import halo_from_assembled\n"
+        "from pylrbms_tpu_torch.ops.banded import banded_operator\n"
+        "from pylrbms_tpu_torch.EOC import StationaryEocStudy, InstationaryEocStudy\n"
+        "cc, _ = discretize(init_grid_and_problem(dict(cfg, grid_type='crisscross')), "
+        "device='cpu')\n"
+        "p2, _ = discretize(init_grid_and_problem(cfg), device='cpu', order=2)\n"
+        "assert isinstance(p2.estimator.data.flux, FluxReconstructorRT1)\n"
+        "for m in (cc, p2):\n"
+        "    mu = m.parse_parameter(0.5)\n"
+        "    assert float(m.estimate(m.solve(mu), mu)) > 0\n"
+        "A = d.assemble(d.parse_parameter(0.5))\n"
+        "assert float((halo_from_assembled(A).apply(U) - A.apply(U)).abs().max()) < 1e-12\n"
+        "bop = banded_operator(d.space, d.op)\n"
+        "y = bop.apply(bop.assemble(d.theta(d.parse_parameter(0.5))), U)\n"
+        "assert float((y - A.apply(U)).abs().max()) < 1e-12\n"
+        "assert prolong(d.space, U, p2.space).shape == (4, 48)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
         "assert not ref, ref\n"

@@ -211,10 +211,17 @@ def test_mixed_precision_trajectory_matches_f64(models):
 
 
 def test_unported_and_unknown_options_raise(models):
+    """inner='halo' is ported (the halo-dense f32 inner operator gives the
+    stencil-inner trajectory to 1e-8); it needs precision='mixed', and
+    unknown precisions and inner forms raise."""
     _, imt = models
     mu = imt.parse_parameter(mu_of(0.5))
-    with pytest.raises(NotImplementedError, match="halodense"):
-        imt._solve_mf(mu, T / NT, precision="mixed", inner="halo")
+    U_halo = imt._solve_mf(mu, T / NT, precision="mixed", inner="halo")
+    assert rel(U_halo, imt._solve_mf(mu, T / NT, precision="mixed")) <= 1e-8
+    with pytest.raises(ValueError, match="mixed"):
+        imt._solve_mf(mu, T / NT, inner="halo")
+    with pytest.raises(ValueError):
+        imt._solve_mf(mu, T / NT, precision="mixed", inner="banded")
     with pytest.raises(ValueError):
         imt._solve_mf(mu, T / NT, precision="bf16")
 
