@@ -106,12 +106,36 @@ phase passes:
    ``inner='halo'`` against ``inner='stencil'``: ms/step and iterations
    per step, each final step against host splu (1e-6); the banded apply
    against the stencil apply at the serving grid in f64 (1e-12), timed
-   beside the stencil and block applies.
+   beside the stencil and block applies;
+19. the academic3d golden triples (2x2x2 subdomains, half 1, mu 0.5, paper
+   convention): Q1 nref 1 and Q2 nref 0 to rel 1e-5 of GOLDEN3, the card
+   within 1e-12 of the port on the CPU;
+20. 3D serving: academic3d (OS2015 lifted to 3D) at 4x4x4 subdomains, half
+   1, nref 2 (K=64, N=512, 32 768 dofs): phase 5 (affine, B=256) and phase
+   7 (the stencil step) with their gates;
+21. 3D scale: SPE10 3D (z-layers 40-44, contrast 1e4) at 8x8x4, half 1,
+   nref 2 (K=256, N=512, 131 072 dofs), f64, lean: mf_pcg (harvested, 12
+   modes, precision 1e-8) and mixed=True, relative f64 residual <= 1e-7;
+   the positive-form estimate; the stencil apply = the block apply on U
+   (1e-12 of |A| |U|);
+22. 3D MOR: SPE10 3D at 4x4x2, half 1, nref 2 (K=32, N=512, 16 384
+   dofs), f64: the FOM solve against splu (1e-6), phase 10's ROM gates on
+   an order-0 + one-snapshot model, the weak greedy (5 extensions over 6
+   training mus), enrichment from the greedy's model (3 mus x 3 rounds)
+   and a corrector batch against the dense patch solve;
+23. 3D implicit Euler (T=1, nt=10): phase 21's model with ``_solve_mf``
+   (ms/step, iterations, per-step residual <= 1e-7), then phase 22's grid:
+   the block-PCG trajectory against a host splu implicit Euler (1e-6) and
+   ``solve_batch`` B=4 against single-mu trajectories (1e-6);
+24. Q2 3D: academic3d Q2 at 4x4x4, half 1, nref 1 (K=64, N=216, 13 824
+   dofs), lean, f64: mf_pcg against splu (1e-6), the RT_[1] hex estimate,
+   the local conservation of the splu solution (1e-9).
 
-Phases run in the order 1-8, 10-18, 9.  Each main path (phases 5, 7, 8,
-10-13, 15, 16, 18a) runs with the kernel launch counts and signatures
-cleared just before it and read just after; the summary's ``launches`` is
-the sum of the counts.
+Phases run in the order 1-8, 10-21, 23, 22, 24, 9, each timed with its
+peak device memory, and the total is printed.  Each main path (phases 5,
+7, 8, 10-13, 15, 16, 18a, 20-24) runs with the kernel launch counts and
+signatures cleared just before it and read just after; the summary's
+``launches`` is the sum of the counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -200,6 +224,31 @@ def cuda_ms(fn, reps=20, flush=False) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+# the highest peak device memory of the running phase, folded in whenever
+# a phase resets the counter for a reading of its own
+_PEAK = [0]
+
+
+def reset_peak(torch, dev):
+    _PEAK[0] = max(_PEAK[0], torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def run_phase(torch, dev, phase_name, fn, *args, **kw):
+    """Run one phase; log its seconds and its peak device memory."""
+    torch.cuda.synchronize()
+    _PEAK[0] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    peak = max(_PEAK[0], torch.cuda.max_memory_allocated(dev))
+    log(f"phase {phase_name}: {time.perf_counter() - t0:.2f} s, peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    torch.cuda.empty_cache()
+    return out
 
 
 def timed_median(torch, fn, reps=5):
@@ -368,13 +417,12 @@ def entry_phase(torch, dev):
             raise AssertionError(f"entry config {name} off by {err:.3e}")
 
 
-def serving_phase(hk, torch, dev, smi, cfg=None, label="serving"):
+def serving_phase(hk, torch, dev, smi, cfg=None, label="serving", dim=2):
     import scipy.sparse.linalg as spla
-    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
-    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
     from pylrbms_tpu_torch.model import make_online_step
     from pylrbms_tpu_torch.la.block import to_scipy_csr
 
+    init_grid_and_problem, discretize = problem_and_discretizer(dim)
     f32 = torch.float32
     t0 = time.perf_counter()
     d, _ = discretize(init_grid_and_problem(cfg or SERVING), device=dev, dtype=f32)
@@ -426,7 +474,7 @@ def serving_phase(hk, torch, dev, smi, cfg=None, label="serving"):
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
 
     # ---- measurements (launches here are not counted in the summary)
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     per_query = timed_median(torch, lambda: fn(thetas, theta_fs, mus_b)) / B_SERVE
     peak = torch.cuda.max_memory_allocated(dev)
     single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
@@ -439,6 +487,18 @@ def serving_phase(hk, torch, dev, smi, cfg=None, label="serving"):
     ref = {"d": d, "U1": U1_np, "Ub": Ub_np, "iters": (it_b, it_1),
            "args": (thetas, theta_fs, mus_b, mu0)}
     return (launches, shapes), ref
+
+
+def problem_and_discretizer(dim):
+    """(init_grid_and_problem, discretize) of the OS2015 problem: the 2D
+    one, or its lift to the 3D hex family (academic3d)."""
+    if dim == 3:
+        from pylrbms_tpu_torch.problems.academic3d import init_grid_and_problem
+        from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    else:
+        from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+        from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    return init_grid_and_problem, discretize
 
 
 def stencil_apply_phase(torch, dev, d_serving):
@@ -520,7 +580,7 @@ def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=T
             raise AssertionError(f"{label} ({name}) off the affine step")
 
     batched = lambda: fn(thetas, theta_fs, mus_b)       # noqa: E731
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     per_query = timed_median(torch, batched) / B_SERVE
     peak = torch.cuda.max_memory_allocated(dev)
     single = timed_median(torch, lambda: fn(thetas[0], theta_fs[0], mu0))
@@ -609,7 +669,7 @@ def _check(name, err, tol):
         raise AssertionError(f"{name}: {err:.3e} > {tol:.0e}")
 
 
-def _greedy(torch, d, smi, label):
+def _greedy(torch, d, smi, label, extensions=4):
     """The bench's greedy call; prints its spans; returns the result."""
     from pylrbms_tpu_torch.greedy import weak_greedy
     from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS as T
@@ -618,7 +678,7 @@ def _greedy(torch, d, smi, label):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = weak_greedy(d, d.parameter_space.sample_uniformly(6), target_error=1e-12,
-                      max_extensions=4)
+                      max_extensions=extensions)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     n_it = max(1, res.fom_solves)
@@ -673,18 +733,16 @@ def _enrich(torch, gpd, d, red, rd, mus, steps, smi, label, target=1e-2):
 def mor_serving_phase(hk, torch, dev, smi, cfg=None, label="MOR serving"):
     """Phase 10: reductor, greedy and adaptive enrichment at the serving
     config in f64."""
-    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
-    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
     from pylrbms_tpu_torch.reductor import LRBMSReductor
-    from pylrbms_tpu_torch.online_enrichment import doerfler_marking
 
+    init_grid_and_problem, discretize = problem_and_discretizer(2)
     gpd = init_grid_and_problem(cfg or SERVING)
     t0 = time.perf_counter()
     d, _ = discretize(gpd, device=dev, dtype=torch.float64)
     torch.cuda.synchronize()
     log(f"{label} config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
         f"discretize {time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     hk.reset_launch_counts()
 
     # ---- reductor: order 0 + one snapshot, reduce (with Gramians)
@@ -700,52 +758,18 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None, label="MOR serving"):
     t_step = timed_median(torch, lambda: rd.online_step(mu2), reps=3)
     log(f"{label} reduce (full, with Gramians, r_max {rd.r_max}): {t_red:.3f} s; "
         f"rd.online_step {t_step * 1e3:.2f} ms (median of 3) [{smi}]")
-    c = rd.solve(mu2)
-    U_rec = red.reconstruct(c)
-    eta_r, _, ind_r = rd.estimate(c, mu2, decompose=True)
-    eta_f, _, ind_f = d.estimate(U_rec, mu2, decompose=True)
-    _check(f"{label} ROM estimate vs FOM estimate of the reconstruction, rel err",
-           abs(float(eta_r) - float(eta_f)) / abs(float(eta_f)), 1e-8)
-    _check(f"{label} ROM indicators vs FOM indicators, rel err",
-           rel(ind_r.cpu(), ind_f.cpu()), 1e-8)
-    r_true = float(torch.linalg.norm((d.rhs(mu2) - d.assemble(mu2).apply(U_rec)).reshape(-1)))
-    _check(f"{label} residual_norm vs the true residual norm, rel err",
-           abs(float(rd.residual_norm(c, mu2)) - r_true) / r_true, 1e-6)
+    _rom_gates(torch, d, rd, red, mu2, label)
 
     # ---- adaptive enrichment from that reduced model (order 0 + the
     # snapshot at mu = 1, the flow of scripts/online_adaptive_lrbms.py)
     mus = d.parameter_space.sample_randomly(3, seed=7)
     loop, all_etas = _enrich(torch, gpd, d, red, rd, mus, 3, smi, label)
-    if loop._corrector is None:
-        raise AssertionError("no enrichment round ran: eta met the target at once")
-    # the estimate is not monotone under Galerkin enrichment (the reference's
-    # own test allows it): near its discretization floor it wiggles in the
-    # 4th digit, so "not increasing" is held up to 1% a step
-    for etas in all_etas:
-        if not all(b <= 1.01 * a for a, b in zip(etas, etas[1:])):
-            raise AssertionError(f"enrichment eta increased: {etas}")
-
-    # ---- one corrector batch against the dense patch solve
-    mu3 = d.parse_parameter(mus[0])
-    c, _, ind = loop.rd.online_step(mu3)
-    marked = sorted(doerfler_marking(ind, 0.33))
-    u_full = loop.rd.reconstruct(c)
-    W = loop._corrector.solve(marked, mu3, current_solution=u_full)
-    for i in sorted({0, len(marked) - 1}):
-        w = d.solve_for_local_correction(marked[i], None, mu3, current_solution=u_full)
-        _check(f"{label} batched corrector ({len(marked)} marked, "
-               f"{loop._corrector.last_iters} PCG iterations) vs dense patch solve, "
-               f"subdomain {marked[i]}, rel err", rel(W[i].cpu(), w.cpu()), 1e-6)
+    _enrich_gates(loop, all_etas)
+    _corrector_check(d, loop, d.parse_parameter(mus[0]), label)
     del loop, red, rd
 
     # ---- greedy (its own reductor)
-    res = _greedy(torch, d, smi, label)
-    if res.rd.G_AA is None:
-        raise AssertionError("the serving greedy should use the Gramian residual")
-    if not res.max_etas[-1] <= 0.1 * res.max_etas[0]:
-        raise AssertionError(f"greedy max error did not fall tenfold: {res.max_etas}")
-    if res.fom_solves != 4:
-        raise AssertionError(f"greedy made {res.fom_solves} snapshot solves, expected 4")
+    res = _greedy_gates(torch, d, smi, label, 4)
     torch.cuda.synchronize()
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"{label} main path: kernel launches {launches}; peak device memory "
@@ -754,6 +778,64 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None, label="MOR serving"):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     return launches, shapes
+
+
+def _enrich_gates(loop, all_etas):
+    """At least one enrichment round ran; eta not increasing a step (to 1%:
+    the estimate is not monotone under Galerkin enrichment, as the
+    reference's own test allows, and near its discretization floor it
+    wiggles in the 4th digit)."""
+    if loop._corrector is None:
+        raise AssertionError("no enrichment round ran: eta met the target at once")
+    for etas in all_etas:
+        if not all(b <= 1.01 * a for a, b in zip(etas, etas[1:])):
+            raise AssertionError(f"enrichment eta increased: {etas}")
+
+
+def _corrector_check(d, loop, mu, label, **kw):
+    """One batch of the enrichment's corrector (Doerfler 0.33 on the ROM's
+    indicators at ``mu``) against the dense patch solve (1e-6); ``kw`` go
+    to the corrector's solve."""
+    from pylrbms_tpu_torch.online_enrichment import doerfler_marking
+    c, _, ind = loop.rd.online_step(mu)
+    marked = sorted(doerfler_marking(ind, 0.33))
+    u_full = loop.rd.reconstruct(c)
+    W = loop._corrector.solve(marked, mu, current_solution=u_full, **kw)
+    for i in sorted({0, len(marked) - 1}):
+        w = d.solve_for_local_correction(marked[i], None, mu, current_solution=u_full)
+        _check(f"{label} batched corrector ({len(marked)} marked, "
+               f"{loop._corrector.last_iters} PCG iterations) vs dense patch solve, "
+               f"subdomain {marked[i]}, rel err", rel(W[i].cpu(), w.cpu()), 1e-6)
+
+
+def _greedy_gates(torch, d, smi, label, extensions):
+    """``_greedy`` with the Gramian residual, its max error falling tenfold
+    and one snapshot per extension."""
+    res = _greedy(torch, d, smi, label, extensions)
+    if res.rd.G_AA is None:
+        raise AssertionError(f"the {label} greedy should use the Gramian residual")
+    if not res.max_etas[-1] <= 0.1 * res.max_etas[0]:
+        raise AssertionError(f"greedy max error did not fall tenfold: {res.max_etas}")
+    if res.fom_solves != extensions:
+        raise AssertionError(f"greedy made {res.fom_solves} snapshot solves, expected "
+                             f"{extensions}")
+    return res
+
+
+def _rom_gates(torch, d, rd, red, mu, label):
+    """ROM estimate = FOM estimate of the reconstruction (1e-8) and
+    ``residual_norm`` = the true residual norm (1e-6) at ``mu``."""
+    c = rd.solve(mu)
+    U_rec = red.reconstruct(c)
+    eta_r, _, ind_r = rd.estimate(c, mu, decompose=True)
+    eta_f, _, ind_f = d.estimate(U_rec, mu, decompose=True)
+    _check(f"{label} ROM estimate vs FOM estimate of the reconstruction, rel err",
+           abs(float(eta_r) - float(eta_f)) / abs(float(eta_f)), 1e-8)
+    _check(f"{label} ROM indicators vs FOM indicators, rel err",
+           rel(ind_r.cpu(), ind_f.cpu()), 1e-8)
+    r_true = float(torch.linalg.norm((d.rhs(mu) - d.assemble(mu).apply(U_rec)).reshape(-1)))
+    _check(f"{label} residual_norm vs the true residual norm, rel err",
+           abs(float(rd.residual_norm(c, mu)) - r_true) / r_true, 1e-6)
 
 
 def mor_scale_phase(hk, torch, dev, smi, cfg=None):
@@ -768,7 +850,7 @@ def mor_scale_phase(hk, torch, dev, smi, cfg=None):
     torch.cuda.synchronize()
     log(f"MOR scale config (f64): K={d.space.K} N={d.space.N} dofs={d.space.K * d.space.N}; "
         f"discretize {time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     hk.reset_launch_counts()
 
     res = _greedy(torch, d, smi, "MOR scale")
@@ -874,7 +956,7 @@ def parabolic_scale_phase(hk, torch, dev, smi, cfg=None, nt=10, B=16):
         f"{time.perf_counter() - t0:.2f} s")
     dt = 1.0 / nt
     mu0 = im.parse_parameter([1.0])
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     hk.reset_launch_counts()
 
     # ---- the FOM trajectory (bench.py's parabolic leg)
@@ -966,7 +1048,7 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
     log(f"parabolic serving config (artificial channels, f64): K={K} N={N} dofs={K * N}, "
         f"nt={nt}; discretize {time.perf_counter() - t0:.2f} s")
     mu = im.parameter_space.sample_randomly(1, seed=11)[0]
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     hk.reset_launch_counts()
 
     torch.cuda.synchronize()
@@ -1252,7 +1334,7 @@ def halo_phase(hk, torch, dev, smi, cfg=None, nt=10):
     u, host_ms = host_implicit_euler(torch, im, mu0, dt)
     log(f"halo config (SPE10, f64, mixed): K={K} N={N} dofs={K * N}, nt={nt}; host splu "
         f"{host_ms:.1f} ms/step")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(torch, dev)
     hk.reset_launch_counts()
     kw = dict(two_level=True, coarse_modes=12, precision="mixed")
     runs = {}
@@ -1307,6 +1389,291 @@ def banded_phase(torch, dev, smi):
             f"20); banded build {t_build:.2f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# the 3D hex family (phases 19-24)
+# ---------------------------------------------------------------------------
+
+# academic3d golden triples (tests/test_scripts.py): eta, |nc|, |r|, |df|,
+# paper convention, mu = 0.5, 2x2x2 subdomains, half 1
+GOLDEN3 = {1: ((2.669043e+00, 8.099561e-02, 1.546472e+00, 1.041575e+00), 1),
+           2: ((1.010787e+00, 1.879885e-02, 6.276844e-01, 3.643033e-01), 0)}
+SERVING3D = {"num_subdomains": [4, 4, 4], "half_num_fine_elements_per_subdomain_and_dim": 1,
+             "num_refinements": 2}                  # K=64, N=512, 32 768 dofs
+SCALE3D = {"num_subdomains": [8, 8, 4], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2}                    # K=256, N=512, 131 072 dofs
+MOR3D = {"num_subdomains": [4, 4, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+         "num_refinements": 2}                      # K=32, N=512, 16 384 dofs
+Q2_3D = {"num_subdomains": [4, 4, 4], "half_num_fine_elements_per_subdomain_and_dim": 1,
+         "num_refinements": 1}                      # Q2: K=64, N=216, 13 824 dofs
+
+
+def spe10_3d(cfg):
+    """SPE10 model 2, z-layers 40-44 (the synthetic block), contrast 1e4."""
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem_3d
+    return init_grid_and_problem_3d(cfg, layers=(40, 44), max_contrast=1e4)
+
+
+def golden3d_phase(torch, dev):
+    """Phase 19: the academic3d golden triples (Q1 nref 1, Q2 nref 0) on
+    the card against GOLDEN3 (rel 1e-5) and the port on the CPU (1e-12)."""
+    init_grid_and_problem, discretize = problem_and_discretizer(3)
+    mu = {"diffusion": 0.5}
+    for order, (ref, nref) in GOLDEN3.items():
+        def run(device):
+            cfg = {"num_subdomains": [2, 2, 2],
+                   "half_num_fine_elements_per_subdomain_and_dim": 1, "num_refinements": nref}
+            d, _ = discretize(init_grid_and_problem(cfg), device=device, order=order)
+            eta, parts, _ = d.estimate(d.solve(mu), mu, decompose=True, paper_convention=True)
+            return np.array([float(eta)] + [float(torch.linalg.norm(p)) for p in parts])
+
+        card, cpu = run(dev), run("cpu")
+        for name, v, g in zip(("eta", "nc", "r", "df"), card, ref):
+            _check(f"golden 3D Q{order} {name} on the card {v:.6e} vs {g:.6e}, rel err",
+                   abs(v - g) / g, 1e-5)
+        _check(f"golden 3D Q{order} card vs the port on the CPU, max rel err", rel(card, cpu),
+               1e-12)
+
+
+def scale3d_phase(hk, torch, dev, smi):
+    """Phase 21: SPE10 3D at 131 072 dofs (8x8x4, half 1, nref 2, f64,
+    lean): mf_pcg (harvested, 12 modes, precision 1e-8), then mixed=True,
+    then the positive-form estimate.  Gates: relative f64 residual <= 1e-7,
+    the stencil apply = the assembled block apply on U (1e-12 of the
+    |.|-sum |A| |U|).  Returns the
+    path's launches and the model (phase 23 reuses it)."""
+    _, discretize = problem_and_discretizer(3)
+    t0 = time.perf_counter()
+    d, _ = discretize(spe10_3d(SCALE3D), device=dev, dtype=torch.float64, lean=True)
+    torch.cuda.synchronize()
+    K, N = d.space.K, d.space.N
+    log(f"3D scale config (SPE10 3D, f64, lean): K={K} N={N} dofs={K * N}; discretize "
+        f"{time.perf_counter() - t0:.2f} s")
+    mu = d.parse_parameter(1.0)
+    A, b = d.assemble(mu), d.rhs(mu)
+    opts = {"type": "mf_pcg", "precision": 1e-8, "coarse_space": "harvested",
+            "coarse_modes": 12}
+    hk.reset_launch_counts()
+    runs = {False: [], True: []}
+    for mixed in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U = d.solve(mu, inverse_options=dict(opts, mixed=mixed))
+        torch.cuda.synchronize()
+        res = float(torch.linalg.norm(b - A.apply(U)) / torch.linalg.norm(b))
+        runs[mixed].append((time.perf_counter() - t0, int(d.last_solve_iters), res))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eta, (nc, r, df), ind = d.estimate(U, mu, decompose=True)
+    torch.cuda.synchronize()
+    t_est = time.perf_counter() - t0
+    launches, shapes = _launched_both(hk, "3D scale")
+    for mixed, rs in runs.items():
+        kind = "mixed=True" if mixed else "mf_pcg f64"
+        log(f"3D scale solve {kind}: {', '.join(f'{x[0]:.3f}' for x in rs)} s (turns f64, "
+            f"mixed, mixed, f64; the first with the preconditioner freeze), iterations "
+            f"{[x[1] for x in rs]} [{smi}]")
+        _check(f"3D scale solve {kind} relative f64 residual", max(x[2] for x in rs), 1e-7)
+    ind_np = ind.cpu().numpy()
+    log(f"3D scale estimate (positive form): {t_est:.3f} s, eta {float(eta):.6e} (nc "
+        f"{float(torch.linalg.norm(nc)):.3e}, r {float(torch.linalg.norm(r)):.3e}, df "
+        f"{float(torch.linalg.norm(df)):.3e}) [{smi}]")
+    if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
+        raise AssertionError("3D scale indicators not finite and non-negative")
+    # normalized by the |.|-sum (|A| |U|): A U ~ b cancels terms up to the
+    # 1e4 contrast, so a signed reference would weigh their rounding by it
+    A_st = d.mf_operator().assemble(d.theta(mu))
+    A_abs = type(A)(A.static, A.A_diag.abs(), **{n: C.abs() for n, C in A.couplings().items()})
+    scale = float(A_abs.apply(U.abs()).max())
+    _check("3D scale stencil apply vs assembled block apply on U, max |diff| / max |A| |U|",
+           float((A_st.apply(U) - A.apply(U)).abs().max()) / scale, 1e-12)
+    return (launches, shapes), d
+
+
+def parabolic3d_phase(hk, torch, dev, smi, d_scale, nt=10, B=4):
+    """Phase 23: implicit Euler (T=1, nt=10) on the 3D hex family: at
+    phase 21's grid the matrix-free ``_solve_mf`` with a per-step residual
+    gate (1e-7); at phase 22's grid (SPE10 3D, 16 384 dofs) the block-PCG
+    trajectory against a host splu implicit Euler (1e-6) and
+    ``solve_batch`` of B=4 mus, each lane against its single-mu trajectory
+    (1e-6)."""
+    from pylrbms_tpu_torch.model import InstationaryBlockModel
+    from pylrbms_tpu_torch.discretize_parabolic_block_swipdg3d import discretize
+    dt = 1.0 / nt
+    hk.reset_launch_counts()
+    im = InstationaryBlockModel(stationary=d_scale, T=1.0, nt=nt)
+    mu = im.parse_parameter(1.0)
+    K, N = d_scale.space.K, d_scale.space.N
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, its = im._solve_mf(mu, dt, two_level=True, coarse_modes=12, return_iters=True)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    t_run = timed_median(torch, lambda: im._solve_mf(mu, dt, two_level=True, coarse_modes=12),
+                         reps=2)
+    G = im._euler_operator(d_scale.assemble(mu), dt)
+    theta_f = im._theta_f_steps(mu, dt)
+    worst = 0.0
+    for n in range(nt):
+        rhs = im.mass_apply(traj[n]) + dt * torch.einsum("q,qkn->kn", theta_f[n], d_scale.rhs_q)
+        worst = max(worst, float(torch.linalg.norm(G.apply(traj[n + 1]) - rhs)
+                                 / torch.linalg.norm(rhs)))
+    log(f"3D parabolic trajectory at {K * N} dofs (mf, two-level, 12 harvested modes): "
+        f"{t_run / nt * 1e3:.3f} ms/step (median of 2), first call {t_first:.2f} s with the "
+        f"coarse freeze; PCG iterations per step {its.tolist()} [{smi}]")
+    _check("3D parabolic per-step relative residual, max", worst, 1e-7)
+    del im, G, traj
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    im, _ = discretize(spe10_3d(MOR3D), T=1.0, nt=nt, device=dev, dtype=torch.float64)
+    st = im.stationary
+    torch.cuda.synchronize()
+    log(f"3D parabolic serving config (SPE10 3D, f64): K={st.space.K} N={st.space.N} "
+        f"dofs={st.space.K * st.space.N}; discretize {time.perf_counter() - t0:.2f} s")
+    mu = im.parse_parameter(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U = im.solve(mu)
+    torch.cuda.synchronize()
+    t_fom = time.perf_counter() - t0
+    u, host_ms = host_implicit_euler(torch, im, mu, dt)
+    its = im.last_solve_iters
+    log(f"3D parabolic trajectory ({'dense LU' if its is None else 'block PCG'}): "
+        f"{t_fom / nt * 1e3:.2f} ms/step, PCG iterations per step "
+        f"{'-' if its is None else its.tolist()}; host splu {host_ms:.1f} ms/step [{smi}]")
+    _check("3D parabolic final step vs host scipy splu implicit Euler, max rel err",
+           rel(U[-1].cpu().numpy().reshape(-1), u), 1e-6)
+    lo, hi = st.parameter_space.minimum, st.parameter_space.maximum
+    mus = [im.parse_parameter([m]) for m in np.linspace(lo, hi, B)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Ub = im.solve_batch(mus)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    errs = [float(torch.linalg.norm(Ub[i] - im._solve_mf(m, dt)) / torch.linalg.norm(Ub[i]))
+            for i, m in enumerate(mus)]
+    log(f"3D parabolic solve_batch B={B}: {t_b / nt / B * 1e3:.3f} ms per step per mu [{smi}]")
+    _check("3D parabolic solve_batch lanes vs single-mu trajectories, max rel l2 err",
+           max(errs), 1e-6)
+    return _launched_both(hk, "3D parabolic")
+
+
+def mor3d_phase(hk, torch, dev, smi):
+    """Phase 22: SPE10 3D at 16 384 dofs (4x4x2, half 1, nref 2: K=32,
+    N=512, f64, full tensors), the flow of ``scripts/spe10_3d.py --nref 2
+    --greedy 5 --training 6 --online-mus 3``: the FOM solve against scipy
+    splu (1e-6); the weak greedy, 5 extensions over 6 training parameters;
+    then adaptive enrichment from the greedy's reduced model at 3 mus
+    (``default_rng(3)``) x 3 rounds.  Phase 10's gates on the way: the ROM
+    estimate and ``residual_norm`` of an order-0 + one-snapshot reduced
+    model, the greedy's fall, eta per round, one
+    corrector batch against the dense patch solve (that check runs the
+    masked PCG to convergence, maxiter 2000: the enrichment's 300-iteration
+    cap stops it early at this contrast)."""
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+    from pylrbms_tpu_torch.reductor import LRBMSReductor
+    _, discretize = problem_and_discretizer(3)
+    gpd = spe10_3d(MOR3D)
+    t0 = time.perf_counter()
+    d, _ = discretize(gpd, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    label = "3D MOR"
+    log(f"{label} config (SPE10 3D, f64): K={d.space.K} N={d.space.N} "
+        f"dofs={d.space.K * d.space.N}; discretize {time.perf_counter() - t0:.2f} s")
+    mu = d.parse_parameter(1.0)
+    t0 = time.perf_counter()
+    u_ref = spla.splu(to_scipy_csr(d.assemble(mu)).tocsc()).solve(
+        d.rhs(mu).double().cpu().numpy().reshape(-1))
+    t_lu = time.perf_counter() - t0
+    hk.reset_launch_counts()
+    _check(f"{label} FOM solve vs scipy splu ({t_lu:.2f} s), rel err",
+           rel(d.solve(mu).cpu().numpy().reshape(-1), u_ref), 1e-6)
+    # phase 10's ROM gates on an order-0 + one-snapshot reduced model (on the
+    # greedy's the residual is ~1e-10 of b and residual_norm's three terms
+    # cancel to rounding)
+    red = LRBMSReductor(d, order=0)
+    red.extend_basis(d.solve(mu))
+    _rom_gates(torch, d, red.reduce(), red, d.parse_parameter(0.3), label)
+    del red
+    res = _greedy_gates(torch, d, smi, label, 5)
+    mus = [d.parse_parameter(float(m))
+           for m in np.random.default_rng(3).uniform(0.1, 1.0, 3)]
+    loop, all_etas = _enrich(torch, gpd, d, res.reductor, res.rd, mus, 3, smi, label,
+                             target=1e-3)
+    _enrich_gates(loop, all_etas)
+    _corrector_check(d, loop, mus[0], label, maxiter=2000)
+    return _launched_both(hk, label)
+
+
+def rt_conservation_error3(torch, d, U, mu):
+    """The 3D form of :func:`rt_conservation_error`: per hex cell
+    |int div t - int f| / max |int f| for the reconstructed flux of U."""
+    from pylrbms_tpu_torch.ops import assembly3d as asm3
+    from pylrbms_tpu_torch.ops.rt1hex import rt_tab_any_order3
+    from pylrbms_tpu_torch.parameters import evaluate_coefficients
+
+    ed = d.estimator.data
+    sp = ed.flux.space
+    t = d.estimator.reconstruct_flux(U, mu)                  # [K, Nrt]
+    _chi, idx, div_q, _ = rt_tab_any_order3(sp)
+    C = sp.s ** 3
+    t_cell = t[:, torch.as_tensor(idx.reshape(-1), device=t.device)].reshape(sp.K, C, -1)
+    w = torch.as_tensor(sp.vol_w, dtype=t.dtype, device=t.device)
+    dq = torch.as_tensor(np.ascontiguousarray(div_q), dtype=t.dtype, device=t.device)
+    div_int = sp.volume * torch.einsum("q,kce,qe->kc", w, t_cell, dq)
+    xq = asm3.vol_points(sp, t.dtype, t.device)
+    theta_f = evaluate_coefficients(ed.f_coeffs, mu, dtype=t.dtype, device=t.device)
+    f_mu = sum(c * ff(xq).to(t.dtype) for c, ff in zip(theta_f, ed.f_funcs))
+    f_int = sp.volume * torch.einsum("q,kcq->kc", w, f_mu)
+    return float((div_int - f_int).abs().max() / f_int.abs().max())
+
+
+def q2_3d_phase(hk, torch, dev, smi):
+    """Phase 24: academic3d Q2 at 13 824 dofs (4x4x4, half 1, nref 1: K=64,
+    N=216, lean, f64): mf_pcg through the Q2 hex stencil against scipy
+    splu (1e-6), the RT_[1] hex estimate (finite, >= 0) and the local
+    conservation of the splu solution's reconstruction (1e-9)."""
+    import scipy.sparse.linalg as spla
+    from pylrbms_tpu_torch.la.block import to_scipy_csr
+    init_grid_and_problem, discretize = problem_and_discretizer(3)
+    t0 = time.perf_counter()
+    d, _ = discretize(init_grid_and_problem(Q2_3D), device=dev, dtype=torch.float64,
+                      lean=True, order=2)
+    torch.cuda.synchronize()
+    K, N = d.space.K, d.space.N
+    log(f"Q2 3D config (academic3d Q2, lean, f64): K={K} N={N} dofs={K * N}; discretize "
+        f"{time.perf_counter() - t0:.2f} s")
+    mu = d.parse_parameter(0.5)
+    t0 = time.perf_counter()
+    u_ref = spla.splu(to_scipy_csr(d.assemble(mu)).tocsc()).solve(
+        d.rhs(mu).double().cpu().numpy().reshape(-1))
+    t_lu = time.perf_counter() - t0
+    hk.reset_launch_counts()
+    opts = {"type": "mf_pcg", "precision": 1e-10}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U = d.solve(mu, inverse_options=opts)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    t_solve = timed_median(torch, lambda: d.solve(mu, inverse_options=opts), reps=3)
+    eta, (nc, r, df), ind = d.estimate(U, mu, decompose=True)
+    torch.cuda.synchronize()
+    launches, shapes = _launched_both(hk, "Q2 3D")
+    log(f"Q2 3D mf_pcg (precision 1e-10): {t_solve:.3f} s (median of 3; first {t_first:.2f} s "
+        f"with the preconditioner), {int(d.last_solve_iters)} iterations; scipy splu "
+        f"{t_lu:.2f} s; eta {float(eta):.6e} (nc {float(torch.linalg.norm(nc)):.3e}, r "
+        f"{float(torch.linalg.norm(r)):.3e}, df {float(torch.linalg.norm(df)):.3e}) [{smi}]")
+    _check("Q2 3D solve vs scipy splu, rel err", rel(U.cpu().numpy().reshape(-1), u_ref), 1e-6)
+    ind_np = ind.cpu().numpy()
+    if not (np.isfinite(ind_np).all() and (ind_np >= 0).all() and float(eta) > 0):
+        raise AssertionError("Q2 3D indicators not finite and non-negative")
+    _check("Q2 3D RT_[1] local conservation of the splu solution, max rel err",
+           rt_conservation_error3(torch, d, torch.as_tensor(u_ref.reshape(K, N), device=dev),
+                                  mu), 1e-9)
+    return launches, shapes
+
+
 def main() -> int:
     try:
         import torch
@@ -1334,44 +1701,56 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-        summary, checked = kernel_phase(hk, torch, dev)
-        entry_phase(torch, dev)
+        ph = lambda name, fn, *a, **kw: run_phase(torch, dev, name, fn, *a, **kw)  # noqa: E731
+        t_all = time.perf_counter()
+        summary, checked = ph("3 kernels", kernel_phase, hk, torch, dev)
+        ph("4 entry", entry_phase, torch, dev)
         paths = {}
-        paths["serving affine"], ref = serving_phase(hk, torch, dev, smi)
-        stencil_apply_phase(torch, dev, ref["d"])
-        paths["stencil step"] = stencil_step_phase(hk, torch, dev, smi, ref)
+        paths["serving affine"], ref = ph("5 serving", serving_phase, hk, torch, dev, smi)
+        ph("6 stencil apply", stencil_apply_phase, torch, dev, ref["d"])
+        paths["stencil step"] = ph("7 stencil step", stencil_step_phase, hk, torch, dev, smi, ref)
         del ref
-        paths["scale solve"] = scale_solve_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        paths["MOR serving"] = mor_serving_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        paths["MOR scale"] = mor_scale_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        paths["parabolic scale"] = parabolic_scale_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        paths["parabolic serving"] = parabolic_serving_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        golden_phase(torch, dev)
-        paths["crisscross serving affine"], ref = serving_phase(
-            hk, torch, dev, smi, cfg=CC_SERVING, label="crisscross serving")
-        paths["crisscross stencil step"] = stencil_step_phase(
-            hk, torch, dev, smi, ref, label="crisscross stencil step", profile=False)
+        paths["scale solve"] = ph("8 scale solve", scale_solve_phase, hk, torch, dev, smi)
+        paths["MOR serving"] = ph("10 MOR serving", mor_serving_phase, hk, torch, dev, smi)
+        paths["MOR scale"] = ph("11 MOR scale", mor_scale_phase, hk, torch, dev, smi)
+        paths["parabolic scale"] = ph("12 parabolic scale", parabolic_scale_phase, hk, torch,
+                                      dev, smi)
+        paths["parabolic serving"] = ph("13 parabolic serving", parabolic_serving_phase, hk,
+                                        torch, dev, smi)
+        ph("14 golden", golden_phase, torch, dev)
+        paths["crisscross serving affine"], ref = ph(
+            "15a crisscross serving", serving_phase, hk, torch, dev, smi, cfg=CC_SERVING,
+            label="crisscross serving")
+        paths["crisscross stencil step"] = ph(
+            "15b crisscross stencil step", stencil_step_phase, hk, torch, dev, smi, ref,
+            label="crisscross stencil step", profile=False)
         del ref
-        paths["crisscross solve"] = scale_solve_phase(hk, torch, dev, smi, cfg=CC_SCALE,
-                                                      label="crisscross scale")
-        torch.cuda.empty_cache()
-        paths["crisscross MOR"] = mor_serving_phase(hk, torch, dev, smi, cfg=CC_SERVING,
-                                                    label="crisscross MOR")
-        torch.cuda.empty_cache()
-        paths["order 2"] = order2_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        eoc_phase(torch, dev, smi)
-        paths["halo trajectory"] = halo_phase(hk, torch, dev, smi)
-        torch.cuda.empty_cache()
-        banded_phase(torch, dev, smi)
+        paths["crisscross solve"] = ph("15c crisscross solve", scale_solve_phase, hk, torch,
+                                       dev, smi, cfg=CC_SCALE, label="crisscross scale")
+        paths["crisscross MOR"] = ph("15d crisscross MOR", mor_serving_phase, hk, torch, dev,
+                                     smi, cfg=CC_SERVING, label="crisscross MOR")
+        paths["order 2"] = ph("16 order 2", order2_phase, hk, torch, dev, smi)
+        ph("17 EOC", eoc_phase, torch, dev, smi)
+        paths["halo trajectory"] = ph("18a halo", halo_phase, hk, torch, dev, smi)
+        ph("18b banded", banded_phase, torch, dev, smi)
+        ph("19 golden 3D", golden3d_phase, torch, dev)
+        paths["3D serving affine"], ref = ph(
+            "20a 3D serving", serving_phase, hk, torch, dev, smi, cfg=SERVING3D,
+            label="3D serving", dim=3)
+        paths["3D stencil step"] = ph(
+            "20b 3D stencil step", stencil_step_phase, hk, torch, dev, smi, ref,
+            label="3D stencil step", profile=False)
+        del ref
+        paths["3D scale"], d_scale = ph("21 3D scale", scale3d_phase, hk, torch, dev, smi)
+        paths["3D parabolic"] = ph("23 3D parabolic", parabolic3d_phase, hk, torch, dev, smi,
+                                   d_scale)
+        del d_scale
+        paths["3D MOR"] = ph("22 3D MOR", mor3d_phase, hk, torch, dev, smi)
+        paths["Q2 3D"] = ph("24 Q2 3D", q2_3d_phase, hk, torch, dev, smi)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
-        path_shape_phase(hk, torch, dev, paths, checked)
+        ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)
+        log(f"chip_smoke total: {time.perf_counter() - t_all:.2f} s after the build")
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
                     "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}

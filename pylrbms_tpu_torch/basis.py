@@ -1,7 +1,6 @@
 """Nodal DG bases on the structured grids: P1/P2 triangles and Q1/Q2 quads.
 
-The port's own copy of ``pylrbms_tpu/basis.py`` (numpy only; the 3D hex
-bases are left out until the 3D slice).
+The port's own copy of ``pylrbms_tpu/basis.py`` (numpy only).
 
 Replaces dune-gdt's DG space shape-function machinery
 (``make_block_dg_space`` / ``make_dg_space``, SURVEY.md §2.3 "DG spaces") for
@@ -290,3 +289,50 @@ CC_BOUNDARY_LOCAL_EDGE = {
     "left": (0, 2), "right": (1, 0), "bottom": (0, 0), "top": (1, 1),
 }
 
+
+# ---------------------------------------------------------------------------
+# 3D hex (tensor-Lagrange Q_k) basis — the 'hex' grid family
+# ---------------------------------------------------------------------------
+# Node ordering: j = (iz*n1d + iy)*n1d + ix (x fastest), mirroring the 2D "Q"
+# convention j = iy*n1d + ix.  Unit-cell coords in [0,1]^3; physical gradients
+# are obtained by dividing component-wise by (hx, hy, hz).
+
+def num_basis_hex(order: int) -> int:
+    return (order + 1) ** 3
+
+
+def hex_node_coords_unit(order: int) -> np.ndarray:
+    """Tensor Lagrange nodes of the unit hex: [nb, 3]."""
+    n1 = _Q_NODES_1D[order]
+    Z, Y, X = np.meshgrid(n1, n1, n1, indexing="ij")   # [iz, iy, ix]
+    return np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)
+
+
+def eval_basis_hex(order: int, pts: np.ndarray) -> np.ndarray:
+    """Nodal basis values at unit-cell points [..., 3] -> [..., nb]."""
+    n1 = _Q_NODES_1D[order]
+    lx = _lagrange_1d(n1, pts[..., 0])                 # [..., n1d]
+    ly = _lagrange_1d(n1, pts[..., 1])
+    lz = _lagrange_1d(n1, pts[..., 2])
+    prod = (lz[..., :, None, None] * ly[..., None, :, None]
+            * lx[..., None, None, :])
+    return prod.reshape(pts.shape[:-1] + (-1,))
+
+
+def eval_basis_hex_grad_unit(order: int, pts: np.ndarray) -> np.ndarray:
+    """Unit-cell gradients at points [..., 3] -> [..., nb, 3]."""
+    n1 = _Q_NODES_1D[order]
+    nb = len(n1) ** 3
+    lx = _lagrange_1d(n1, pts[..., 0])
+    ly = _lagrange_1d(n1, pts[..., 1])
+    lz = _lagrange_1d(n1, pts[..., 2])
+    dlx = _lagrange_1d_deriv(n1, pts[..., 0])
+    dly = _lagrange_1d_deriv(n1, pts[..., 1])
+    dlz = _lagrange_1d_deriv(n1, pts[..., 2])
+
+    def tp(a, b, c):
+        return (a[..., :, None, None] * b[..., None, :, None]
+                * c[..., None, None, :]).reshape(pts.shape[:-1] + (nb,))
+
+    return np.stack([tp(lz, ly, dlx), tp(lz, dly, lx), tp(dlz, ly, lx)],
+                    axis=-1)

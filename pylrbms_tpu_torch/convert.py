@@ -37,17 +37,24 @@ def arrays_from_numpy(d: dict, device=None, dtype=torch.float64) -> dict:
 
 def stencils_from_numpy(stencils, device=None, dtype=torch.float64) -> tuple:
     """A sequence of stencils (objects with the ``SwipdgStencil`` fields
-    vol, D, V, H, R, U — tuples of 4 arrays — and the D_side dict) ->
-    a tuple of the port's :class:`~pylrbms_tpu_torch.ops.matrixfree.SwipdgStencil`."""
+    vol, D, V, H, R, U, or the 3D ``SwipdgStencil3`` fields vol, X, Y, Z,
+    IX, IY, IZ — tuples of 4 arrays — and the D_side dict) -> a tuple of
+    the port's :class:`~pylrbms_tpu_torch.ops.matrixfree.SwipdgStencil` or
+    :class:`~pylrbms_tpu_torch.ops.matrixfree3d.SwipdgStencil3`."""
     from .ops.matrixfree import SwipdgStencil
+    from .ops.matrixfree3d import SwipdgStencil3
 
     def conv(a):
         return _tensor(a, device, dtype)
 
-    return tuple(SwipdgStencil(
-        vol=conv(s.vol),
-        **{f: tuple(conv(a) for a in getattr(s, f)) for f in ("D", "V", "H", "R", "U")},
-        D_side={k: conv(a) for k, a in s.D_side.items()}) for s in stencils)
+    def one(s):
+        cls, fams = ((SwipdgStencil3, ("X", "Y", "Z", "IX", "IY", "IZ"))
+                     if hasattr(s, "IX") else (SwipdgStencil, ("D", "V", "H", "R", "U")))
+        return cls(vol=conv(s.vol),
+                   **{f: tuple(conv(a) for a in getattr(s, f)) for f in fams},
+                   D_side={k: conv(a) for k, a in s.D_side.items()})
+
+    return tuple(one(s) for s in stencils)
 
 
 def precond_from_numpy(pre, device=None, dtype=torch.float64) -> tuple:

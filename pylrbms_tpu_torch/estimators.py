@@ -1,7 +1,7 @@
-"""Localized a-posteriori error estimators (elliptic and parabolic, 2D,
-orders 1-2).
+"""Localized a-posteriori error estimators (elliptic and parabolic; 2D
+and 3D hex, orders 1-2).
 
-The port of the 2D part of ``pylrbms_tpu/estimators.py`` — the
+The port of ``pylrbms_tpu/estimators.py`` — the
 OS2015/RS2017 localized estimator
 
   eta_nc_sq[ii] = || u - I_os(u) ||^2_{lambda_bar, ii}
@@ -22,13 +22,16 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .parameters import evaluate_coefficients
 from .ops.oswald import OswaldOperator
 from .ops.fluxreco import FluxReconstructor
 from .ops.rt1 import rt_tab_any_order
+from .ops.rt1hex import rt_tab_any_order3
 from .ops import assembly as asm
+from .ops import assembly3d as asm3
 
 
 @dataclass
@@ -172,6 +175,8 @@ class EllipticEstimator:
         """
         d = self.data
         sp = d.flux.space
+        if getattr(sp, "dim", 2) == 3:
+            return self._local_quantities_positive3(U, mu, tensors)
         dtype, dev = U.dtype, U.device
         theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
         theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
@@ -211,6 +216,49 @@ class EllipticEstimator:
         res = f_mu - div_t
         scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
         eta_r = area * torch.einsum(ein("tq,...kyxtq->...k"), w, res * res) * scale
+        return eta_nc, eta_r, eta_df
+
+    def _local_quantities_positive3(self, U, mu, tensors: dict | None = None):
+        """3D hex variant of :meth:`local_quantities_positive` (the same
+        manifestly non-negative integrals; kappa = I)."""
+        d = self.data
+        sp = d.flux.space
+        dtype, dev = U.dtype, U.device
+        theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
+        theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
+
+        E_bar = (tensors or {}).get("E_bar", d.E_bar).to(dtype)
+        t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
+        U_o = d.oswald.apply(U)
+        eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
+
+        xq = asm3.vol_points(sp, dtype, dev)                   # [K, C, nq, 3]
+        w = asm.tensor(sp.vol_w, dtype, dev)
+        lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
+        lam_mu = _contract(theta, lam_q)                       # [..., K, C, nq]
+        lam_hat_v = d.lambda_hat(xq).to(dtype)
+
+        C = sp.s ** 3
+        Uc = U.reshape(U.shape[:-2] + (sp.K, C, sp.nb))
+        gu = torch.einsum("...kcj,qja->...kcqa", Uc, asm.tensor(sp.vol_dphi, dtype, dev))
+        # the degree-matched RT hex tab (RT0 for Q1, RT_[1] for Q2) with div
+        # at the quadrature points
+        chi, idx, div_q, _nrt = rt_tab_any_order3(sp)         # chi [nq, nf, 3]
+        nf = idx.shape[-1]
+        t_cell = t_loc[..., torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
+            t_loc.shape[:-1] + (C, nf))
+        t_q = torch.einsum("...kce,qea->...kcqa", t_cell, asm.tensor(chi, dtype, dev))
+        z = lam_mu[..., None] * gu + t_q                       # kappa = I
+        df_int = (z * z).sum(-1) / lam_hat_v
+        eta_df = sp.volume * torch.einsum("q,...kcq->...k", w, df_int)
+
+        f_q = torch.stack([ff(xq).to(dtype) for ff in d.f_funcs])
+        f_mu = _contract(theta_f, f_q)
+        div_t = torch.einsum("...kce,qe->...kcq", t_cell,
+                             asm.tensor(np.ascontiguousarray(div_q), dtype, dev))
+        res = f_mu - div_t
+        scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
+        eta_r = sp.volume * torch.einsum("q,...kcq->...k", w, res * res) * scale
         return eta_nc, eta_r, eta_df
 
     def estimate(self, U, mu, decompose: bool = False,

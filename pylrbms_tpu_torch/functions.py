@@ -174,3 +174,24 @@ def make_indicator_function_1x1(boxes_and_values: Sequence,
         return out
 
     return ScalarFunction(fn, name=name, order=0)
+
+
+def make_cellwise_function3d(grid, cell_values, name: str = "cellwise3d") -> ScalarFunction:
+    """Piecewise constant per fine hex cell (SPE10 model-2 3D blocks):
+    ``cell_values[Sz, Sy, Sx]`` on the 3D grid's global cell raster."""
+    vals = np.asarray(cell_values, dtype=float)
+    cache = {}
+
+    def fn(x):
+        key = (x.dtype, x.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(vals, dtype=x.dtype, device=x.device)
+        fx = (x[..., 0] - grid.lower_left[0]) / grid.hx
+        fy = (x[..., 1] - grid.lower_left[1]) / grid.hy
+        fz = (x[..., 2] - grid.lower_left[2]) / grid.hz
+        ix = torch.clamp(torch.floor(fx).long(), 0, grid.global_nx - 1)
+        iy = torch.clamp(torch.floor(fy).long(), 0, grid.global_ny - 1)
+        iz = torch.clamp(torch.floor(fz).long(), 0, grid.global_nz - 1)
+        return cache[key][iz, iy, ix]
+
+    return ScalarFunction(fn, name=name, order=0)

@@ -27,31 +27,51 @@ import torch
 
 from ..ops.hopper_kernels import block_matvec, precond_dot
 from ..ops.swipdg import edge_lists, fold_diag
+from ..ops.swipdg3d import edge_lists3, fold_diag3, SIDES as SIDES3
 from ..ops.assembly import add_at
 from .krylov import pcg_chunked
 
 
 @dataclass(eq=False)
 class BlockOpStatic:
-    """Static index metadata shared by all affine components (2D: the R
-    (x-pairs) and U (y-pairs) coupling families)."""
+    """Static index metadata shared by all affine components.
+
+    2D grids use the R (x-pairs) and U (y-pairs) coupling families; the 3D
+    'hex' family adds the W (z-pairs) family (``near_k``/``far_k``,
+    ``side_rows['near'/'far']``).  Interface strips are [E, F, nb, nb] with
+    F faces per subdomain interface (s in 2D, s^2 in 3D)."""
     K: int
     N: int
     s: int
     nb: int
     kx: int
     ky: int
-    side_rows: dict            # side -> [s, nb] dof indices (numpy)
+    side_rows: dict            # side -> [F, nb] dof indices (numpy)
     left_k: np.ndarray         # [E_R]
     right_k: np.ndarray
     low_k: np.ndarray          # [E_U]
     up_k: np.ndarray
+    kz: int = 1
+    near_k: np.ndarray = None  # [E_W] (3D z-pairs; None in 2D)
+    far_k: np.ndarray = None
     _flat: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def dim3(self) -> bool:
+        return self.near_k is not None
 
     @staticmethod
     def from_space(space) -> "BlockOpStatic":
         if getattr(space, "dim", 2) == 3:
-            raise NotImplementedError("3D block operators are not ported yet")
+            F = space.s * space.s
+            side_rows = {side: space.side_dofs(side).reshape(F, space.nb)
+                         for side in SIDES3}
+            xlo, xhi, ylo, yhi, zlo, zhi = edge_lists3(space.grid)
+            return BlockOpStatic(K=space.K, N=space.N, s=space.s, nb=space.nb,
+                                 kx=space.grid.kx, ky=space.grid.ky,
+                                 kz=space.grid.kz, side_rows=side_rows,
+                                 left_k=xlo, right_k=xhi, low_k=ylo, up_k=yhi,
+                                 near_k=zlo, far_k=zhi)
         side_rows = {side: space.side_dofs(side).reshape(space.s, space.nb)
                      for side in ("left", "right", "bottom", "top")}
         left_k, right_k, low_k, up_k = edge_lists(space.grid)
@@ -63,10 +83,18 @@ class BlockOpStatic:
     def families(self):
         """(name, rows_out side, rows_in side, k_out, k_in) per coupling
         family; ``name`` is the coupling tensor's attribute stem."""
-        return (("C_R_io", "right", "left", self.left_k, self.right_k),
+        fams = (("C_R_io", "right", "left", self.left_k, self.right_k),
                 ("C_R_oi", "left", "right", self.right_k, self.left_k),
                 ("C_U_io", "top", "bottom", self.low_k, self.up_k),
                 ("C_U_oi", "bottom", "top", self.up_k, self.low_k))
+        if self.dim3:
+            fams += (("C_W_io", "far", "near", self.near_k, self.far_k),
+                     ("C_W_oi", "near", "far", self.far_k, self.near_k))
+        return fams
+
+    def names(self):
+        """The coupling tensors' attribute stems, in ``families()`` order."""
+        return tuple(f[0] for f in self.families())
 
     def flat_rows(self, device):
         """Per family the flat ``[K*N]`` indices (out, in), each [E, s, nb],
@@ -105,25 +133,34 @@ class AffineBlockOp:
     C_R_oi: torch.Tensor
     C_U_io: torch.Tensor
     C_U_oi: torch.Tensor
+    C_W_io: torch.Tensor = None  # [Q, E_W, F, nb, nb] (3D z-pairs; None in 2D)
+    C_W_oi: torch.Tensor = None
 
     @staticmethod
     def from_components(space, comps) -> "AffineBlockOp":
         st = BlockOpStatic.from_space(space)
-        return AffineBlockOp(st, torch.stack([fold_diag(space, c) for c in comps]),
-                             torch.stack([c.R_in_out for c in comps]),
-                             torch.stack([c.R_out_in for c in comps]),
-                             torch.stack([c.U_in_out for c in comps]),
-                             torch.stack([c.U_out_in for c in comps]))
+        stack = lambda f: torch.stack([f(c) for c in comps])   # noqa: E731
+        if st.dim3:
+            return AffineBlockOp(st, stack(lambda c: fold_diag3(space, c)),
+                                 stack(lambda c: c.X_in_out), stack(lambda c: c.X_out_in),
+                                 stack(lambda c: c.Y_in_out), stack(lambda c: c.Y_out_in),
+                                 stack(lambda c: c.Z_in_out), stack(lambda c: c.Z_out_in))
+        return AffineBlockOp(st, stack(lambda c: fold_diag(space, c)),
+                             stack(lambda c: c.R_in_out), stack(lambda c: c.R_out_in),
+                             stack(lambda c: c.U_in_out), stack(lambda c: c.U_out_in))
+
+    def couplings(self) -> dict:
+        """{name: [Q, E, F, nb, nb]} for every coupling family."""
+        return {name: getattr(self, name) for name in self.static.names()}
 
     def assemble(self, theta) -> "AssembledBlockOp":
         """sum_q theta_q * components (theta [Q])."""
         theta = torch.as_tensor(theta).to(self.A_diag)
-        w = lambda C: torch.einsum("q,qefij->efij", theta, C)   # noqa: E731
         return AssembledBlockOp(
             static=self.static,
             A_diag=torch.einsum("q,qkij->kij", theta, self.A_diag),
-            C_R_io=w(self.C_R_io), C_R_oi=w(self.C_R_oi),
-            C_U_io=w(self.C_U_io), C_U_oi=w(self.C_U_oi))
+            **{name: torch.einsum("q,qefij->efij", theta, C)
+               for name, C in self.couplings().items()})
 
 
 def _lanes(x, st):
@@ -135,10 +172,16 @@ def _lanes(x, st):
 class AssembledBlockOp:
     static: BlockOpStatic
     A_diag: torch.Tensor        # [K, N, N]
-    C_R_io: torch.Tensor        # [E_R, s, nb, nb]
+    C_R_io: torch.Tensor        # [E_R, F, nb, nb]
     C_R_oi: torch.Tensor
     C_U_io: torch.Tensor
     C_U_oi: torch.Tensor
+    C_W_io: torch.Tensor = None  # [E_W, F, nb, nb] (3D; None in 2D)
+    C_W_oi: torch.Tensor = None
+
+    def couplings(self) -> dict:
+        """{name: [E, F, nb, nb]} for every coupling family."""
+        return {name: getattr(self, name) for name in self.static.names()}
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x [K, N] (or [..., K, N]) -> A x."""
@@ -179,20 +222,26 @@ class AssembledBlockOp:
     @staticmethod
     def coarse_modes_basis(space, modes: int = 3) -> np.ndarray:
         """Per-subdomain coarse basis [K, N, modes] (nodal interpolants of
-        centered-scaled monomials): 1 | x, y | xy, x^2, y^2 (modes <= 6)."""
+        centered-scaled monomials): 1 | x, y | xy, x^2, y^2 (modes <= 6);
+        in 3D 1 | x, y, z | xy, xz, yz, x^2, y^2, z^2 (modes <= 10)."""
         K, N = space.K, space.N
+        dim = getattr(space, "dim", 2)
         if space.s < 2:
-            modes = min(modes, 3)
-        modes = min(modes, 6)
+            modes = min(modes, dim + 1)
+        modes = min(modes, 10 if dim == 3 else 6)
         C = np.ones((K, N, modes))
         if modes > 1:
-            xn = space.node_coords_phys().reshape(K, N, 2)
+            xn = space.node_coords_phys().reshape(K, N, dim)
             org = space.subdomain_origins
-            w = np.array([space.s * space.hx, space.s * space.hy])
+            w = space.s * np.array([space.hx, space.hy, getattr(space, "hz", 0.0)][:dim])
             ctr = org + w / 2.0
             Xl = (xn - ctr[:, None, :]) / w
-            x, y = Xl[..., 0], Xl[..., 1]
-            cols = [x, y, x * y, x * x, y * y]
+            if dim == 3:
+                x, y, z = Xl[..., 0], Xl[..., 1], Xl[..., 2]
+                cols = [x, y, z, x * y, x * z, y * z, x * x, y * y, z * z]
+            else:
+                x, y = Xl[..., 0], Xl[..., 1]
+                cols = [x, y, x * y, x * x, y * y]
             for j in range(1, modes):
                 C[:, :, j] = cols[j - 1]
         return C
@@ -247,8 +296,6 @@ class AssembledBlockOp:
             kind = "dense" if self.static.K * self.static.N <= 6144 else "pcg"
         if kind in ("dense", "direct"):
             return self.solve_dense(b)
-        if kind != "pcg":
-            raise NotImplementedError(f"solver type {kind!r} is not ported yet")
         return self.solve_pcg(b, tol=options.get("precision", 1e-12),
                               maxiter=options.get("max_iter", 2000))
 
@@ -314,11 +361,13 @@ class AffineBlockApply:
     ([B, Q], or [Q] shared)."""
     static: BlockOpStatic
     A_q: torch.Tensor           # [Q, K, N, N]
-    C_R_io_q: torch.Tensor      # [Q, E_R, s, nb, nb]
+    C_R_io_q: torch.Tensor      # [Q, E_R, F, nb, nb]
     C_R_oi_q: torch.Tensor
     C_U_io_q: torch.Tensor
     C_U_oi_q: torch.Tensor
     theta: torch.Tensor         # [Q] or [B, Q]
+    C_W_io_q: torch.Tensor = None  # [Q, E_W, F, nb, nb] (3D; None in 2D)
+    C_W_oi_q: torch.Tensor = None
 
     @property
     def A_diag(self):          # duck-typing for the shared solve_pcg

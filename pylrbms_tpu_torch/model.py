@@ -1,6 +1,6 @@
 """Stationary and instationary block models and the online step.
 
-The port of the 2D part of ``pylrbms_tpu/model.py``: the
+The port of ``pylrbms_tpu/model.py`` (2D and 3D hex): the
 :class:`StationaryBlockModel` container (theta, rhs, assemble, the detailed
 solve — dense, block-Jacobi PCG, or the matrix-free two-level stencil PCG
 at scale — with its post-checks, caching and frozen preconditioner,
@@ -33,6 +33,8 @@ from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
 from .ops.hopper_kernels import block_matvec
 from .ops.matrixfree import (StencilOperator, assemble_swipdg_stencil, cast,
                              mass_stencil)
+from .ops.matrixfree3d import (StencilOperator3, assemble_swipdg_stencil3,
+                               mass_stencil3)
 from .ops.ir import diag_of_blocks, solve_ir
 from .ops.halodense import halo_from_assembled
 from .ops.fluxreco import FluxReconstructor
@@ -47,6 +49,14 @@ MF_SOLVE_MIN_DOFS = 32768
 # the implicit-Euler trajectory takes a dense global LU up to this many dofs,
 # block-Jacobi PCG up to MF_SOLVE_MIN_DOFS and the stencil PCG above
 TRAJ_DENSE_MAX_DOFS = 6144
+
+
+def _stencil_kit(space):
+    """(stencil assembler, stencil operator class, mass stencil builder) of
+    the space's dimension."""
+    if getattr(space, "dim", 2) == 3:
+        return assemble_swipdg_stencil3, StencilOperator3, mass_stencil3
+    return assemble_swipdg_stencil, StencilOperator, mass_stencil
 
 
 class SolverError(RuntimeError):
@@ -270,14 +280,15 @@ class StationaryBlockModel:
         return self.assemble(mu).apply(U)
 
     def mf_operator(self) -> StencilOperator:
-        """The affine stencil operator of this model (assembled once)."""
+        """The affine stencil operator of this model (assembled once; the
+        hex stencil on 3D spaces)."""
         if self._mf_sop is None:
             with self._mf_lock:
                 if self._mf_sop is None:
                     dtype = self.op.A_diag.dtype
-                    self._mf_sop = StencilOperator(self.space, tuple(
-                        assemble_swipdg_stencil(self.space, lf, None, dtype=dtype,
-                                                device=self.device)
+                    mk, Op, _ = _stencil_kit(self.space)
+                    self._mf_sop = Op(self.space, tuple(
+                        mk(self.space, lf, None, dtype=dtype, device=self.device)
                         for lf in self.estimator.data.lambda_funcs))
         return self._mf_sop
 
@@ -349,14 +360,19 @@ class StationaryBlockModel:
 
     def shape_functions(self, subdomain: int, order: int = 0):
         """Initial local RB functions [n_vec, N]: order 0 = the constant,
-        order 1 adds the nodal interpolants of x, y, x*y."""
+        order 1 adds the nodal interpolants of x, y, x*y (3D: x, y, z, the
+        reference's truncation to the P1 part)."""
         if order not in (0, 1):
             raise ValueError(f"order must be 0 or 1, got {order}")
         sp = self.space
         vecs = [np.ones(sp.N)]
         if order == 1:
-            xn = sp.node_coords_phys()[subdomain].reshape(sp.N, 2)
-            vecs += [xn[:, 0], xn[:, 1], xn[:, 0] * xn[:, 1]]
+            dim = getattr(sp, "dim", 2)
+            xn = sp.node_coords_phys()[subdomain].reshape(sp.N, dim)
+            if dim == 3:
+                vecs += [xn[:, 0], xn[:, 1], xn[:, 2]]
+            else:
+                vecs += [xn[:, 0], xn[:, 1], xn[:, 0] * xn[:, 1]]
         return torch.as_tensor(np.stack(vecs), dtype=self.dtype, device=self.device)
 
     def assemble_patch(self, subdomain: int, mu=None):
@@ -368,60 +384,75 @@ class StationaryBlockModel:
         Returns (members, A [m*N, m*N] per affine component, b [m*N]).
         Patch-boundary faces (interfaces leaving the patch) get the one-sided
         Dirichlet penalty blocks; intra-patch interfaces keep their coupling
-        quadruples; physical-boundary faces keep the true Dirichlet terms."""
+        quadruples; physical-boundary faces keep the true Dirichlet terms.
+        In 3D the patch is the 3x3x3 neighbourhood with six side strips and
+        the x/y/z quadruples."""
         grid, sp = self.grid, self.space
         members = grid.neighborhood_of(subdomain)
         m = len(members)
         pos = {ii: i for i, ii in enumerate(members)}
-        N, s = sp.N, sp.s
-        kx, ky = grid.kx, grid.ky
+        N = sp.N
         st = self.op.static
-        eR = {(int(l), int(r)): e for e, (l, r) in enumerate(zip(st.left_k, st.right_k))}
-        eU = {(int(l), int(u)): e for e, (l, u) in enumerate(zip(st.low_k, st.up_k))}
         side_rows = st.side_rows
-        side_neighbor = {"left": -1, "right": +1, "bottom": -kx, "top": +kx}
+        # per axis: (hi side, lo side, quadruple stem, pair index map, step)
+        if st.dim3:
+            dims = (grid.kx, grid.ky, grid.kz)
+            orients = (("right", "left", "X", st.left_k, st.right_k, 1),
+                       ("top", "bottom", "Y", st.low_k, st.up_k, grid.kx),
+                       ("far", "near", "Z", st.near_k, st.far_k, grid.kx * grid.ky))
+        else:
+            dims = (grid.kx, grid.ky)
+            orients = (("right", "left", "R", st.left_k, st.right_k, 1),
+                       ("top", "bottom", "U", st.low_k, st.up_k, grid.kx))
+        emaps = [{(int(lo), int(hi)): e for e, (lo, hi) in enumerate(zip(lo_k, hi_k))}
+                 for _h, _l, _f, lo_k, hi_k, _s in orients]
+        side_neighbor = {}
+        for hi, lo, _f, _lk, _hk, step in orients:
+            side_neighbor[hi], side_neighbor[lo] = +step, -step
         mem_t = torch.as_tensor(members, device=self.device)
 
         def host(t):
             return t.detach().to("cpu", torch.float64).numpy()
+
+        def on_boundary(ii):
+            c = grid.subdomain_coords(ii)
+            out = {}
+            for a, (hi, lo, *_r) in enumerate(orients):
+                out[lo], out[hi] = c[a] == 0, c[a] == dims[a] - 1
+            return out
 
         mats = []
         for comp in self.components:
             A = np.zeros((m * N, m * N))
             A_loc = host(comp.A_loc[mem_t])
             D_side = {side: host(comp.D_side[side][mem_t]) for side in side_rows}
-            quads = {nm: host(getattr(comp, nm)) for nm in
-                     ("R_in_in", "R_in_out", "R_out_in", "R_out_out",
-                      "U_in_in", "U_in_out", "U_out_in", "U_out_out")}
+            quads = {f"{fam}_{q}": host(getattr(comp, f"{fam}_{q}"))
+                     for _h, _l, fam, *_r in orients
+                     for q in ("in_in", "in_out", "out_in", "out_out")}
             for ii in members:
                 i = pos[ii]
                 blk = A_loc[i].copy()
-                sx, sy = grid.subdomain_coords(ii)
-                on_bnd = {"left": sx == 0, "right": sx == kx - 1,
-                          "bottom": sy == 0, "top": sy == ky - 1}
+                on_bnd = on_boundary(ii)
                 for side, rows in side_rows.items():
                     if on_bnd[side] or ii + side_neighbor[side] not in pos:
-                        Ds = D_side[side][i]                     # [s, nb, nb]
-                        for f in range(s):
+                        Ds = D_side[side][i]                     # [F, nb, nb]
+                        for f in range(rows.shape[0]):
                             blk[np.ix_(rows[f], rows[f])] += Ds[f]
                 A[i * N:(i + 1) * N, i * N:(i + 1) * N] += blk
-            # intra-patch interface terms
+            # intra-patch interface terms (minus side = right/top/far)
             for ii in members:
                 i = pos[ii]
-                sx, sy = grid.subdomain_coords(ii)
-                for side, fam, emap, other in (("right", "R", eR, "left"),
-                                               ("top", "U", eU, "bottom")):
-                    if (side == "right" and sx >= kx - 1) or (side == "top" and sy >= ky - 1):
-                        continue
-                    jj = ii + side_neighbor[side]
-                    if jj not in pos:
+                on_bnd = on_boundary(ii)
+                for (hi, lo, fam, _lk, _hk, _s), emap in zip(orients, emaps):
+                    jj = ii + side_neighbor[hi]
+                    if on_bnd[hi] or jj not in pos:
                         continue
                     j = pos[jj]
                     e = emap[(ii, jj)]
-                    rm, rp = side_rows[side], side_rows[other]
+                    rm, rp = side_rows[hi], side_rows[lo]
                     q_ii, q_io, q_oi, q_oo = (quads[f"{fam}_{q}"][e] for q in
                                               ("in_in", "in_out", "out_in", "out_out"))
-                    for f in range(s):
+                    for f in range(rm.shape[0]):
                         r_i = rm[f] + i * N
                         r_j = rp[f] + j * N
                         A[np.ix_(r_i, r_i)] += q_ii[f]
@@ -548,9 +579,7 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     pin_precision()
     st = d.op.static
     dev = d.device
-    arrays = {"A_diag": d.op.A_diag, "C_R_io": d.op.C_R_io,
-              "C_R_oi": d.op.C_R_oi, "C_U_io": d.op.C_U_io,
-              "C_U_oi": d.op.C_U_oi, "rhs_q": d.rhs_q}
+    arrays = {"A_diag": d.op.A_diag, **d.op.couplings(), "rhs_q": d.rhs_q}
     if matrix_free is None:
         matrix_free = (d.space.K * d.space.N >= STENCIL_STEP_MIN_DOFS
                        and d.estimator is not None
@@ -589,19 +618,17 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     def _solver(theta):
         """(operator at theta, solve(rhs, **kw)) of the configured form."""
         if matrix_free is True:
-            A = StencilOperator(d.space, arrays["stencils"]).assemble(theta)
+            A = _stencil_kit(d.space)[1](d.space, arrays["stencils"]).assemble(theta)
             return A, lambda rhs, **kw: A.solve_pcg(
                 rhs, tol=tol, maxiter=maxiter, block_factors=arrays.get("Minv_bar"),
                 coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)
         if matrix_free == "affine":
-            A = AffineBlockApply(st, arrays["A_diag"], arrays["C_R_io"],
-                                 arrays["C_R_oi"], arrays["C_U_io"],
-                                 arrays["C_U_oi"], theta)
+            A = AffineBlockApply(st, arrays["A_diag"], theta=theta,
+                                 **{n + "_q": arrays[n] for n in st.names()})
         else:
-            mixq = lambda C: torch.einsum("q,qefij->efij", theta, C)   # noqa: E731
             A = AssembledBlockOp(st, torch.einsum("q,qkij->kij", theta, arrays["A_diag"]),
-                                 mixq(arrays["C_R_io"]), mixq(arrays["C_R_oi"]),
-                                 mixq(arrays["C_U_io"]), mixq(arrays["C_U_oi"]))
+                                 **{n: torch.einsum("q,qefij->efij", theta, arrays[n])
+                                    for n in st.names()})
         return A, lambda rhs, **kw: A.solve_pcg(
             rhs, tol=tol, maxiter=maxiter, factors=arrays.get("Minv_bar"),
             coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)
@@ -739,9 +766,10 @@ class InstationaryBlockModel:
             for n in range(self.nt)]).to(st.device)
 
     def _euler_operator(self, A: AssembledBlockOp, dt: float) -> AssembledBlockOp:
-        """G = M + dt A as a block operator."""
-        return AssembledBlockOp(A.static, self.mass + dt * A.A_diag, dt * A.C_R_io,
-                                dt * A.C_R_oi, dt * A.C_U_io, dt * A.C_U_oi)
+        """G = M + dt A as a block operator (every coupling family scaled,
+        the z pairs too in 3D)."""
+        return AssembledBlockOp(A.static, self.mass + dt * A.A_diag,
+                                **{n: dt * C for n, C in A.couplings().items()})
 
     def _uses_stencil(self) -> bool:
         st = self.stationary
@@ -846,12 +874,13 @@ class InstationaryBlockModel:
         first, built once per stationary model) and the assembled mass."""
         st = self.stationary
         sop = st.mf_operator()
+        _, Op, mk_mass = _stencil_kit(st.space)
         with st._mf_lock:
             m_st = st._mf_cache.get("mass_stencil")
             if m_st is None:
-                m_st = st._mf_cache["mass_stencil"] = mass_stencil(st.space, sop.stencils[0])
-        G_sop = StencilOperator(st.space, (m_st,) + tuple(sop.stencils))
-        M_op = StencilOperator(st.space, (m_st,)).assemble(
+                m_st = st._mf_cache["mass_stencil"] = mk_mass(st.space, sop.stencils[0])
+        G_sop = Op(st.space, (m_st,) + tuple(sop.stencils))
+        M_op = Op(st.space, (m_st,)).assemble(
             torch.ones((1,), dtype=m_st.vol.dtype, device=m_st.vol.device))
         return G_sop, M_op
 

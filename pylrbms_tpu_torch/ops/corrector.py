@@ -1,6 +1,6 @@
 """Batched oversampled-patch corrector solves (online enrichment, on device).
 
-The port of ``pylrbms_tpu/ops/corrector.py`` (2D).
+The port of ``pylrbms_tpu/ops/corrector.py`` (2D and 3D hex).
 ``model.solve_for_local_correction`` assembles and LU-solves one dense patch
 system per marked subdomain on the host.  Here ALL marked subdomains are
 solved at once by masked PCG on the union space [B, K, N]:
@@ -26,8 +26,10 @@ and the preconditioner's ``Minv[k] @ r[b, k]`` with the per-subdomain
 apply on the masked field plus strip corrections on patch-crossing faces).
 
 Everything runs in the model's dtype: the reference's float32 patch systems
-at scale and its float32 inversion gate exist for a chip without native
-float64 and are not ported.  Correctness is pinned against the host dense
+at scale (above 32 768 dofs, 8 192 in 3D) and its float32 inversion gate
+exist for a chip without native float64 and are not ported; of its 3D
+stencil gate the CPU branch is taken (the stencil above 32 768 dofs in 2D
+and 3D).  Correctness is pinned against the host dense
 patch solver in tests/test_torch_corrector.py.
 """
 from __future__ import annotations
@@ -36,12 +38,19 @@ import numpy as np
 import torch
 
 from .hopper_kernels import block_matvec, precond_dot
-from .matrixfree import StencilOperator
+from .matrixfree import StencilOperator, bmv
+from .matrixfree3d import StencilOperator3
 from ..la.krylov import default_chunk
 
 SIDES = ("left", "right", "bottom", "top")
+SIDES3 = SIDES + ("near", "far")
 QUADS = ("in_in", "in_out", "out_in", "out_out")
 STENCIL_MIN_DOFS = 32768
+# per axis: (quadruple stem 2D, stem 3D, hi side, lo side, static pair
+# attributes, flat-rows family of the io coupling)
+_AXES = (("R", "X", "right", "left", ("left_k", "right_k"), "C_R_io"),
+         ("U", "Y", "top", "bottom", ("low_k", "up_k"), "C_U_io"),
+         (None, "Z", "far", "near", ("near_k", "far_k"), "C_W_io"))
 
 
 def patch_coarse_matrix(A0c, pmask, fams):
@@ -84,13 +93,19 @@ class BatchedCorrector:
         st = d.op.static
         dev = d.device
         self.st = st
-        # neighbor table [K, 4] (-1 = physical boundary): side i steps -+1
-        # along axis i // 2
-        dims = (grid.kx, grid.ky)
-        nbr = -np.ones((K, len(SIDES)), dtype=np.int64)
+        self.dim3 = st.dim3
+        self.sides = SIDES3 if self.dim3 else SIDES
+        # the coupling axes of this dimension (stem, hi side, lo side, pair
+        # attributes, flat-rows family)
+        self.axes = [(a[1] if self.dim3 else a[0],) + a[2:]
+                     for a in _AXES[:3 if self.dim3 else 2]]
+        # neighbor table [K, 2 dim] (-1 = physical boundary): side i steps
+        # -+1 along axis i // 2
+        dims = (grid.kx, grid.ky, grid.kz) if self.dim3 else (grid.kx, grid.ky)
+        nbr = -np.ones((K, len(self.sides)), dtype=np.int64)
         for k in range(K):
             coords = grid.subdomain_coords(k)
-            for i in range(len(SIDES)):
+            for i in range(len(self.sides)):
                 nxt = list(coords)
                 nxt[i // 2] += -1 if i % 2 == 0 else 1
                 if all(0 <= c < n for c, n in zip(nxt, dims)):
@@ -105,13 +120,15 @@ class BatchedCorrector:
         self.dtype = cdt
         self.patch_mask_table = torch.as_tensor(pm, dtype=cdt, device=dev)
         self.side_rows = {s: torch.as_tensor(st.side_rows[s].reshape(-1), device=dev)
-                          for s in SIDES}
+                          for s in self.sides}
         self.A_loc = torch.stack([c.A_loc for c in comps]).to(cdt)
-        self.D_side = {s: torch.stack([c.D_side[s] for c in comps]).to(cdt) for s in SIDES}
-        self.R = {nm: torch.stack([getattr(c, f"R_{nm}") for c in comps]).to(cdt)
-                  for nm in QUADS}
-        self.U = {nm: torch.stack([getattr(c, f"U_{nm}") for c in comps]).to(cdt)
-                  for nm in QUADS}
+        self.D_side = {s: torch.stack([c.D_side[s] for c in comps]).to(cdt)
+                       for s in self.sides}
+        # the interface quadruples per axis stem (R/U in 2D, X/Y/Z in 3D)
+        self.quads = {stem: {nm: torch.stack([getattr(c, f"{stem}_{nm}")
+                                              for c in comps]).to(cdt)
+                             for nm in QUADS}
+                      for stem, *_ in self.axes}
         # at scale, apply the patch operator MATRIX-FREE: the global stencil
         # apply on the masked field + strip corrections for patch-crossing
         # faces.  Small problems keep the dense path; enable_stencil is the
@@ -150,12 +167,13 @@ class BatchedCorrector:
         side_rows = self.side_rows
         mix = lambda C: torch.einsum("q,q...->...", theta, C)       # noqa: E731
         A_loc = mix(self.A_loc).contiguous()
-        D = {sd: mix(self.D_side[sd]) for sd in SIDES}
-        Rq = {nm: mix(self.R[nm]) for nm in QUADS}
-        Uq = {nm: mix(self.U[nm]) for nm in QUADS}
+        D = {sd: mix(self.D_side[sd]) for sd in self.sides}
         idx = lambda a: torch.as_tensor(a, device=dev)              # noqa: E731
-        left_k, right_k, low_k, up_k = (idx(a) for a in
-                                        (st.left_k, st.right_k, st.low_k, st.up_k))
+        # per axis: (theta-assembled quadruples, hi side, lo side, lower /
+        # upper subdomain of each pair, flat-rows family)
+        fams = [({nm: mix(C) for nm, C in self.quads[stem].items()}, hi, lo,
+                 idx(getattr(st, pk[0])), idx(getattr(st, pk[1])), fl)
+                for stem, hi, lo, pk, fl in self.axes]
 
         pmask = self.patch_mask_table[marked]                       # [B, K]
         pm3 = pmask[:, :, None]
@@ -169,7 +187,7 @@ class BatchedCorrector:
         # preconditioner: all-Dirichlet local diagonal blocks, symmetrically
         # Jacobi-scaled, inverted once per parameter
         A_dir = A_loc.clone()
-        for sd in SIDES:
+        for sd in self.sides:
             rows = side_rows[sd].reshape(-1, nb)
             A_dir[:, rows[:, :, None], rows[:, None, :]] += D[sd]
         dg = torch.diagonal(A_dir, dim1=-2, dim2=-1)
@@ -181,12 +199,15 @@ class BatchedCorrector:
         flat = st.flat_rows(dev)
 
         if self.stencils is not None:
-            sA = StencilOperator(self.d.space, self.stencils).assemble(theta)
-            ky, kx = st.ky, st.kx
-            gdims = (ky, kx)
+            Op = StencilOperator3 if self.dim3 else StencilOperator
+            sA = Op(self.d.space, self.stencils).assemble(theta)
+            gdims = (st.kz, st.ky, st.kx) if self.dim3 else (st.ky, st.kx)
+            nd = len(gdims)
             F = side_rows[SIDES[0]].numel() // nb
-            # (family, D side of the LO subdomain, of the HI one, grid axis)
-            cross_fams = [(Rq, "right", "left", 1), (Uq, "top", "bottom", 0)]
+            # (family, D side of the LO subdomain, of the HI one, grid axis:
+            # the x pairs on the last axis of the grid view)
+            cross_fams = [(Cq, hi, lo, nd - 1 - a)
+                          for a, (Cq, hi, lo, *_r) in enumerate(fams)]
 
             def apply(x):                              # x [B, K, N]
                 xm = x * pm3
@@ -194,7 +215,7 @@ class BatchedCorrector:
                 # patch-crossing faces: the global stencil applied the
                 # in_in/out_out coupling penalty; the patch problem wants
                 # the one-sided Dirichlet penalty instead.  Expressed on the
-                # [ky, kx] grid view with contiguous slice updates.
+                # [(kz,) ky, kx] grid view with contiguous slice updates.
                 xg = xm.reshape((B,) + gdims + (N,))
                 pg = pmask.reshape((B,) + gdims)
                 yg = y.reshape((B,) + gdims + (N,)).clone()
@@ -205,15 +226,15 @@ class BatchedCorrector:
                     strip = (Dfull.reshape(gdims + (F, nb, nb))[sl_in]
                              - Cin.reshape(eshape + (F, nb, nb)))
                     xs = xg[a][..., rows].reshape((B,) + eshape + (F, nb))
-                    upd = torch.einsum("yxfij,byxfj->byxfi", strip, xs)
+                    upd = bmv(strip, xs)
                     yg[a + (rows,)] += gate[..., None] * upd.reshape(
                         (B,) + eshape + (rows.numel(),))
 
                 for Cq, sd_lo, sd_hi, ax in cross_fams:
                     if gdims[ax] <= 1:
                         continue
-                    lo = tuple(slice(None, -1) if i == ax else slice(None) for i in range(2))
-                    hi = tuple(slice(1, None) if i == ax else slice(None) for i in range(2))
+                    lo = tuple(slice(None, -1) if i == ax else slice(None) for i in range(nd))
+                    hi = tuple(slice(1, None) if i == ax else slice(None) for i in range(nd))
                     eshape = tuple(g - 1 if i == ax else g for i, g in enumerate(gdims))
                     cross(Cq["in_in"], D[sd_lo], side_rows[sd_lo], lo, hi, eshape)
                     cross(Cq["out_out"], D[sd_hi], side_rows[sd_hi], hi, lo, eshape)
@@ -237,14 +258,14 @@ class BatchedCorrector:
 
             def apply(x):                              # x [B, K, N], contiguous
                 y = block_matvec(A1, x)
-                for i, sd in enumerate(SIDES):
+                for i, sd in enumerate(self.sides):
                     rows = side_rows[sd]
                     xs = x[..., rows].reshape(B, K, -1, nb)
                     upd = torch.einsum("kfij,bkfj->bkfi", D[sd], xs)
                     y[..., rows] += dir_mask[:, :, i, None] * upd.reshape(B, K, rows.numel())
                 yf, xf = y.view(B, -1), x.reshape(B, -1)
-                couple(yf, xf, Rq, *flat["C_R_io"], left_k, right_k)
-                couple(yf, xf, Uq, *flat["C_U_io"], low_k, up_k)
+                for Cq, _hi, _lo, kl, kr, fl in fams:
+                    couple(yf, xf, Cq, *flat[fl], kl, kr)
                 return y * pm3
 
         def dot(u, v):
@@ -260,9 +281,9 @@ class BatchedCorrector:
             # coarse matrix of the masked patch operator, + identity on the
             # masked-out block ([[A_pp, 0], [0, I]] inverts blockwise)
             A0c = torch.einsum("q,qkl->kl", theta, self.A0c_q)
-            fams = [(Rq, D["right"], D["left"], left_k, right_k),
-                    (Uq, D["top"], D["bottom"], low_k, up_k)]
-            Ac = patch_coarse_matrix(A0c, pmask, fams) + torch.diag_embed(1.0 - pmask)
+            Ac = (patch_coarse_matrix(A0c, pmask, [(Cq, D[hi], D[lo], kl, kr)
+                                                   for Cq, hi, lo, kl, kr, _f in fams])
+                  + torch.diag_embed(1.0 - pmask))
             cinv = torch.linalg.inv(Ac)                                # [B, K, K]
 
             def M(r):

@@ -134,14 +134,21 @@ class FluxReconstructor:
                / tab.pen_len ** self.ipdg.beta)
         uv = torch.einsum("...fj,qj->...fq", u, phi)
         t_dot_nout = self._edge_moments(w, -lam * gun + pen * uv, ell)
-        # family normal: V=(1,0), H=(0,1); sign +1 where n_out == n_family
-        sign = +1.0 if side in ("right", "top") else -1.0
+        # family normal: V=(1,0), H=(0,1) (3D: X, Y, Z axes); sign +1 where
+        # n_out == n_family
+        sign = +1.0 if side in ("right", "top", "far") else -1.0
         return sign * t_dot_nout
 
+    @property
+    def scale(self) -> np.ndarray:
+        """Cell widths per axis."""
+        return np.array([self.space.hx, self.space.hy])
+
     def _phys_pts(self, tab, orgs):
-        """orgs [F, 2] -> one-sided eval points [F, nqf, 2] (float64 numpy);
-        an axis-aligned family normal puts the plus element one cell over."""
-        scale = np.array([self.space.hx, self.space.hy])
+        """orgs [F, dim] -> one-sided eval points [F, nqf, dim] (float64
+        numpy); an axis-aligned family normal puts the plus element one cell
+        over."""
+        scale = self.scale
         orgs = np.asarray(orgs, np.float64)[:, None, :]
         x = orgs + (tab.pts_unit_m * scale)[None]
         cen_m = orgs + (tab.centroid_m * scale)[None]

@@ -1,15 +1,15 @@
 """Halo-dense (bordered-block) operator form: static halo shifts and one
 batched matrix product per apply.
 
-The port of ``pylrbms_tpu/ops/halodense.py`` (2D):
+The port of ``pylrbms_tpu/ops/halodense.py`` (2D and 3D hex):
 
     y[k] = B[k] @ xh[k]
 
 where ``B[k] = [A_kk | C_(k, nbr_1) | ...]`` is the subdomain's block row
 with its interface-coupling columns, and the halo vector
 ``xh[k] = [x[k], strip(nbr_1), ...]`` is built by static shifts over the
-regular (ky, kx) subdomain lattice (one gather and one padded shift per
-coupling family).  ``Nh`` is padded to a multiple of 128.  The product is a
+regular (kz, ky, kx) subdomain lattice (one gather and one padded shift
+per coupling family).  ``Nh`` is padded to a multiple of 128.  The product is a
 plain ``torch.matmul`` of rectangular ``[K, N, Nh]`` blocks: the reference
 computes it as an einsum outside any hand kernel, and the square-block
 kernel of ``ops/hopper_kernels.py`` does not take rectangular blocks.
@@ -38,27 +38,30 @@ class HaloPlan:
     Nh: int
     kx: int
     ky: int
-    # per coupling family: (name, k_out [E], rows_out [s, nb], col0,
-    # rows_in_flat [strip], axis 0/1 = x/y, d +1 from next / -1 from previous)
+    # per coupling family: (name, k_out [E], rows_out [F, nb], col0,
+    # rows_in_flat [strip], axis 0/1/2 = x/y/z, d +1 from next / -1 from
+    # previous)
     fams: tuple
     strip: int
+    kz: int = 1
 
 
 def make_halo_plan(static) -> HaloPlan:
     K, N = static.K, static.N
     sr = {k: np.asarray(v) for k, v in static.side_rows.items()}
     strip = sr["left"].size
-    fams_def = [
-        ("C_R_io", sr["right"], sr["left"], static.left_k, 0, +1),
-        ("C_R_oi", sr["left"], sr["right"], static.right_k, 0, -1),
-        ("C_U_io", sr["top"], sr["bottom"], static.low_k, 1, +1),
-        ("C_U_oi", sr["bottom"], sr["top"], static.up_k, 1, -1),
-    ]
+    # static.families(): (name, rows_out side, rows_in side, k_out, k_in);
+    # the io families receive from the next neighbour, the oi ones from the
+    # previous, along x (R), y (U) or z (W)
+    fams_def = [(name, sr[ro], sr[ri], k_out, "RUW".index(name[2]),
+                 +1 if name.endswith("io") else -1)
+                for name, ro, ri, k_out, _k_in in static.families()]
     Nh = -(-(N + len(fams_def) * strip) // 128) * 128
     fams = tuple((name, np.asarray(k_out, np.int64), rows_out, N + slot * strip,
                   rows_in.reshape(-1).astype(np.int64), axis, d)
                  for slot, (name, rows_out, rows_in, k_out, axis, d) in enumerate(fams_def))
-    return HaloPlan(K=K, N=N, Nh=Nh, kx=static.kx, ky=static.ky, fams=fams, strip=strip)
+    return HaloPlan(K=K, N=N, Nh=Nh, kx=static.kx, ky=static.ky, fams=fams,
+                    strip=strip, kz=static.kz)
 
 
 _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -91,21 +94,18 @@ class HaloDenseOp:
         lead = x.shape[:-2]
         xh = torch.zeros(lead + (p.K, p.Nh), dtype=x.dtype, device=x.device)
         xh[..., :p.N] = x
-        xg = xh.view(lead + (p.ky, p.kx, p.Nh))
+        lat = (p.kz, p.ky, p.kx)
+        xg = xh.view(lead + lat + (p.Nh,))
         for name, _k_out, _rows_out, col0, rows_in, axis, d in p.fams:
             side = x[..., torch.as_tensor(rows_in, device=x.device)]      # [..., K, strip]
-            g = side.reshape(lead + (p.ky, p.kx, p.strip))
+            g = side.reshape(lead + lat + (p.strip,))
             dst = xg[..., col0:col0 + p.strip]
-            if axis == 0:           # x pairs: receive from the next / previous column
-                if d > 0:
-                    dst[..., :, :-1, :] = g[..., :, 1:, :]
-                else:
-                    dst[..., :, 1:, :] = g[..., :, :-1, :]
-            else:                   # y pairs: receive from the row above / below
-                if d > 0:
-                    dst[..., :-1, :, :] = g[..., 1:, :, :]
-                else:
-                    dst[..., 1:, :, :] = g[..., :-1, :, :]
+            a = -2 - axis           # the lattice axis (x -2, y -3, z -4)
+            n = lat[2 - axis] - 1
+            if d > 0:               # receive from the next neighbour
+                dst.narrow(a, 0, n).copy_(g.narrow(a, 1, n))
+            else:                   # receive from the previous neighbour
+                dst.narrow(a, 1, n).copy_(g.narrow(a, 0, n))
         return xh
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:

@@ -71,7 +71,7 @@ def cast(obj, dtype):
             return tuple(conv(u) for u in v)
         if isinstance(v, dict):
             return {k: conv(u) for k, u in v.items()}
-        if isinstance(v, SwipdgStencil):
+        if dataclasses.is_dataclass(v) and hasattr(v, "D_side"):   # a stencil (2D or 3D)
             return cast(v, dtype)
         return v
     return dataclasses.replace(obj, **{f.name: conv(getattr(obj, f.name))

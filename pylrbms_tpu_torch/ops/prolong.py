@@ -1,4 +1,4 @@
-"""Inter-grid prolongation for nested structured triangulations.
+"""Inter-grid prolongation for nested structured grids (2D and 3D hex).
 
 The port of ``pylrbms_tpu/ops/prolong.py``: evaluate the coarse DG
 function one-sidedly at the nodal points of the fine space.  For nested
@@ -20,9 +20,6 @@ def prolongation_gather(coarse, fine):
     """Static gather data: for each fine dof the flat coarse element index
     (into [K_c * s_c * s_c * T]) and the coarse basis values at the fine
     node.  Returns (src_idx [Mf], weights [Mf, nb_c]), Mf = fine.K * fine.N."""
-    if getattr(coarse, "dim", 2) == 3:
-        raise NotImplementedError(
-            "the 3D (hex) prolongation comes with the 3D hex slice of the port")
     gc, gf = coarse.grid, fine.grid
     assert np.isclose(gc.lower_left[0], gf.lower_left[0]) and \
         np.isclose(gc.upper_right[0], gf.upper_right[0])
@@ -71,9 +68,41 @@ def prolongation_gather(coarse, fine):
     return flat_tri, weights
 
 
+def prolongation_gather_3d(coarse, fine):
+    """3D hex analogue of :func:`prolongation_gather`: for each fine dof the
+    flat coarse hex-cell index (into [K_c * s_c^3]) and the coarse Q1/Q2
+    basis values at the fine node.  Nested tensor refinements keep every
+    fine node inside (or on the boundary of) one coarse hex; the fine cell
+    centroid picks the side, so the embedding of the discontinuous space is
+    exact."""
+    gc, gf = coarse.grid, fine.grid
+    assert gc.grid_type == gf.grid_type == "hex"
+    assert np.allclose(gc.lower_left, gf.lower_left) and \
+        np.allclose(gc.upper_right, gf.upper_right)
+    Mf = fine.K * fine.N
+    xn = fine.node_coords_phys().reshape(Mf, 3)
+    org = (fine.subdomain_origins[:, None, None, None, :]
+           + fine.cell_origins_local[None])                   # [Kf, s, s, s, 3]
+    half = 0.5 * np.array([fine.hx, fine.hy, fine.hz])
+    cen = np.broadcast_to((org + half)[..., None, :],
+                          (fine.K, fine.s, fine.s, fine.s, fine.nb, 3)).reshape(Mf, 3)
+    ll = np.asarray(gc.lower_left, dtype=float)
+    h = np.array([gc.hx, gc.hy, gc.hz])
+    nxyz = np.array([gc.global_nx, gc.global_ny, gc.global_nz])
+    cg = np.clip(((cen - ll) / h).astype(np.int64), 0, nxyz - 1)   # [Mf, 3]
+    weights = B.eval_basis_hex(coarse.order, (xn - ll) / h - cg)  # [Mf, nb_c]
+    cs, cc = cg // gc.s, cg % gc.s                            # subdomain / cell
+    k = (cs[:, 2] * gc.ky + cs[:, 1]) * gc.kx + cs[:, 0]
+    cell = (cc[:, 2] * gc.s + cc[:, 1]) * gc.s + cc[:, 0]
+    return k * gc.s ** 3 + cell, weights
+
+
 def prolong(coarse, U_coarse, fine):
     """[..., K_c, N_c] -> [..., K_f, N_f] exact nested-grid prolongation."""
-    src, wts = prolongation_gather(coarse, fine)
+    if getattr(coarse, "dim", 2) == 3:
+        src, wts = prolongation_gather_3d(coarse, fine)
+    else:
+        src, wts = prolongation_gather(coarse, fine)
     U = torch.as_tensor(U_coarse)
     lead = U.shape[:-2]
     Uc = U.reshape(lead + (-1, coarse.nb))                    # [..., elements, nb]

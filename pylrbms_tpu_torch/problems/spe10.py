@@ -1,4 +1,4 @@
-"""SPE10 model-2 problem, 2D slice (the port of the 2D part of
+"""SPE10 model-2 problem, 2D layers and 3D blocks (the port of
 ``pylrbms_tpu/problems/spe10.py``).
 
 A horizontal layer of the 60 x 220 x 85 permeability tensor on the
@@ -9,7 +9,8 @@ a parameter to act on.
 Data: reads the standard ``spe_perm.dat`` if a path is given or named by the
 ``SPE10_DATA`` environment variable; otherwise a deterministic synthetic
 channelized log-permeability field (seeded numpy) with the same size,
-contrast (~O(1e7)) and banded structure.  The 3D block is not ported yet.
+contrast (~O(1e7)) and banded structure.  The 3D block stacks one surrogate
+layer per z-layer.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import os
 import numpy as np
 
 from ..grid import make_grid, make_boundary_info
-from ..functions import (make_cellwise_function_1x1, make_constant_function_1x1,
-                         make_constant_function_2x2)
+from ..grid3d import make_grid3d
+from ..functions import (make_cellwise_function_1x1, make_cellwise_function3d,
+                         make_constant_function_1x1, make_constant_function_2x2)
 from ..parameters import ExpressionParameterFunctional
 from ..config import validate_config
 
@@ -81,6 +83,29 @@ def pool_log_mean(perm: np.ndarray, ry: int, rx: int,
     return np.exp(out / np.maximum(cnt, 1.0))
 
 
+def pool_log_mean3d(perm: np.ndarray, rz: int, ry: int, rx: int,
+                    mode: str = "log-mean") -> np.ndarray:
+    """3D analogue of :func:`pool_log_mean`: pool a [nz, ny, nx] block to
+    [rz, ry, rx] so every grid level whose cell counts are multiples of the
+    raster resolves the SAME coefficient exactly (3D efficiency study)."""
+    nz, ny, nx = perm.shape
+    if mode == "nearest":
+        cz = np.clip(((np.arange(rz) + 0.5) / rz * nz).astype(int), 0, nz - 1)
+        cy = np.clip(((np.arange(ry) + 0.5) / ry * ny).astype(int), 0, ny - 1)
+        cx = np.clip(((np.arange(rx) + 0.5) / rx * nx).astype(int), 0, nx - 1)
+        return perm[cz[:, None, None], cy[None, :, None], cx[None, None, :]]
+    iz = np.minimum((np.arange(nz) * rz) // nz, rz - 1)
+    iy = np.minimum((np.arange(ny) * ry) // ny, ry - 1)
+    ix = np.minimum((np.arange(nx) * rx) // nx, rx - 1)
+    out = np.zeros((rz, ry, rx))
+    cnt = np.zeros((rz, ry, rx))
+    np.add.at(out, (iz[:, None, None], iy[None, :, None], ix[None, None, :]),
+              np.log(perm))
+    np.add.at(cnt, (iz[:, None, None], iy[None, :, None], ix[None, None, :]),
+              1.0)
+    return np.exp(out / np.maximum(cnt, 1.0))
+
+
 def init_grid_and_problem(config, layer: int = 42, mu_bar=(1,), mu_hat=(1,),
                           max_contrast: float = None, raster=None,
                           raster_mode: str = "log-mean"):
@@ -127,6 +152,81 @@ def init_grid_and_problem(config, layer: int = 42, mu_bar=(1,), mu_hat=(1,),
         "lambda_bar": lam_at(mu_bar),
         "lambda_hat": lam_at(mu_hat),
         "kappa": kappa,
+        "f": f,
+        "parameter_type": parameter_type,
+        "mu_bar": mu_bar,
+        "mu_hat": mu_hat,
+        "mu_min": (0.1,),
+        "mu_max": (1.0,),
+        "parameter_range": (0.1, 1.0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# 3D (model-2 native): a [nz, ny, nx] sub-block of the permeability tensor
+# ---------------------------------------------------------------------------
+
+def load_spe10_block(layers=(40, 44), path: str | None = None,
+                     nx: int = SPE10_NX, ny: int = SPE10_NY) -> np.ndarray:
+    """[nz, ny, nx] horizontal-permeability block (kx component) for the
+    z-layer range ``layers = (lo, hi)``; falls back to the deterministic
+    synthetic surrogate per layer in this zero-egress environment."""
+    lo, hi = int(layers[0]), int(layers[1])
+    path = path or os.environ.get("SPE10_DATA")
+    if path and os.path.exists(path):
+        vals = np.fromfile(path, sep=" ")
+        kx = vals[: nx * ny * SPE10_NZ].reshape(SPE10_NZ, ny, nx)
+        return kx[lo:hi]
+    return np.stack([_synthetic_spe10_layer(z, nx, ny) for z in range(lo, hi)])
+
+
+def init_grid_and_problem_3d(config, layers=(40, 44), mu_bar=(1,), mu_hat=(1,),
+                             max_contrast: float = None, raster=None,
+                             raster_mode: str = "log-mean"):
+    """SPE10 model-2 in native 3D (beyond the 2D-only reference): a z-block
+    of the 60 x 220 x 85 field on the unit-normalized box, cellwise-constant
+    diffusion on the hex grid, 2-term affine split
+    lambda(mu) = floor + mu * perm (parameter 'switch', as in 2D)."""
+    config = validate_config(config)
+
+    grid = make_grid3d(((0, 0, 0), (1, 1, 1)),
+                       config["num_subdomains"],
+                       config["half_num_fine_elements_per_subdomain_and_dim"],
+                       num_refinements=config.get("num_refinements", 1))
+    perm = load_spe10_block(layers)
+    if raster is not None:
+        perm = pool_log_mean3d(perm, raster[0], raster[1], raster[2],
+                               mode=raster_mode)
+    nz, ny, nx = perm.shape
+    iz = (np.arange(grid.global_nz) + 0.5) / grid.global_nz * nz
+    iy = (np.arange(grid.global_ny) + 0.5) / grid.global_ny * ny
+    ix = (np.arange(grid.global_nx) + 0.5) / grid.global_nx * nx
+    cells = perm[np.clip(iz.astype(int), 0, nz - 1)[:, None, None],
+                 np.clip(iy.astype(int), 0, ny - 1)[None, :, None],
+                 np.clip(ix.astype(int), 0, nx - 1)[None, None, :]]
+    cells = cells / cells.max()
+    if max_contrast is not None:
+        cells = np.maximum(cells, 1.0 / max_contrast)
+    lam_hi = make_cellwise_function3d(grid, cells, name="spe10_perm3d")
+    floor = float(cells.min()) * 0.5
+    lam_low = make_constant_function_1x1(floor, name="perm_floor")
+
+    parameter_type = {"switch": (1,)}
+    coefficients = [ExpressionParameterFunctional("1.", parameter_type),
+                    ExpressionParameterFunctional("switch", parameter_type)]
+    f = make_constant_function_1x1(1.0, name="f")
+
+    def lam_at(mu):
+        return make_cellwise_function3d(grid, floor + float(mu[0]) * cells)
+
+    return {
+        "grid": grid,
+        "boundary_info": make_boundary_info(
+            grid, {"type": "xt.grid.boundaryinfo.alldirichlet"}),
+        "lambda": {"functions": [lam_low, lam_hi], "coefficients": coefficients},
+        "lambda_bar": lam_at(mu_bar),
+        "lambda_hat": lam_at(mu_hat),
+        "kappa": None,
         "f": f,
         "parameter_type": parameter_type,
         "mu_bar": mu_bar,

@@ -1,7 +1,6 @@
 """Quadrature rules (numpy, tabulated once at discretize time).
 
-The port's own copy of ``pylrbms_tpu/quadrature.py`` (the 3D hex rules are
-left out until the 3D slice).
+The port's own copy of ``pylrbms_tpu/quadrature.py``.
 
 Replaces the quadrature machinery inside dune-gdt's C++ grid walks
 (SURVEY.md §2.3 "Grid walkers / assemblers").  All cells are congruent, so a
@@ -67,3 +66,25 @@ def edge_rule(n: int = 5):
     """Rule on the unit interval [0,1] for faces (points [n], weights sum 1)."""
     return gauss_legendre_01(n)
 
+
+def hex_rule_unit_cell(n: int = 3):
+    """Tensor Gauss-Legendre rule on the unit cell [0,1]^3 (for 'hex' grids).
+
+    Returns points [n^3, 3] and weights [n^3] summing to 1; physical
+    integral = sum(w * f(x)) * (hx*hy*hz)."""
+    u, wu = gauss_legendre_01(n)
+    U, V, W = np.meshgrid(u, u, u, indexing="ij")
+    WU, WV, WW = np.meshgrid(wu, wu, wu, indexing="ij")
+    pts = np.stack([U.ravel(), V.ravel(), W.ravel()], axis=-1)
+    return pts, (WU * WV * WW).ravel()
+
+
+def face3d_rule(n: int = 3):
+    """Tensor rule on the unit square [0,1]^2 for the faces of 'hex' cells.
+
+    Returns points [n*n, 2] and weights [n*n] summing to 1 (physical face
+    integral = sum(w * f(x)) * face_area)."""
+    u, wu = gauss_legendre_01(n)
+    U, V = np.meshgrid(u, u, indexing="ij")
+    WU, WV = np.meshgrid(wu, wu, indexing="ij")
+    return np.stack([U.ravel(), V.ravel()], axis=-1), (WU * WV).ravel()

@@ -27,8 +27,9 @@ of ``R_BUCKET``: it fixes the padded shapes.
 :class:`ParabolicLRBMSReductor` adds the reduced mass and the projected
 parabolic estimator tensors (built through an f64 inverse of the L2
 blocks); its :class:`ReducedParabolicModel` runs implicit Euler on the
-reduced system and the N-independent parabolic estimate.  Not ported yet:
-``mesh=`` (K-sharded projections, ``solve_sharded``) and 3D.
+reduced system and the N-independent parabolic estimate.  The 3D hex
+family adds the z coupling family and 27-subdomain patches.  Not ported
+yet: ``mesh=`` (K-sharded projections, ``solve_sharded``).
 """
 from __future__ import annotations
 
@@ -99,8 +100,9 @@ class ReducedModel:
     b_red: torch.Tensor         # [Qf, R]
     sizes: np.ndarray           # [K] actual local basis sizes
     r_max: int
-    # ---- projected estimator tensors (neighborhood-padded, P = 9*r_max) ----
-    nbhd_idx: np.ndarray        # [K, 9] neighbor subdomain ids (-1 pad)
+    # ---- projected estimator tensors (neighborhood-padded, P = 9*r_max;
+    # 27*r_max in 3D) ----
+    nbhd_idx: np.ndarray        # [K, 9 | 27] neighbor subdomain ids (-1 pad)
     G_nc: torch.Tensor          # [K, P, P]
     AA: torch.Tensor            # [Q, Q, K, r_max, r_max]
     ABT: torch.Tensor           # [Q(lam), Q(flux), K, r_max, P]
@@ -160,7 +162,8 @@ class ReducedModel:
         return self.reductor.reconstruct(c)
 
     def _gather_neighborhood(self, c):
-        """c [..., K, r_max] -> chat [..., K, P*r_max] (zero-padded; P = 9)."""
+        """c [..., K, r_max] -> chat [..., K, P*r_max] (zero-padded; P = 9,
+        27 in 3D)."""
         dev = c.device
         idx = torch.as_tensor(np.where(self.nbhd_idx < 0, 0, self.nbhd_idx), device=dev)
         mask = torch.as_tensor(self.nbhd_idx >= 0, device=dev).to(c.dtype)
@@ -420,10 +423,12 @@ class LRBMSReductor:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _project(op_arrays, rhs_q, V, mask, side_rows, edges):
-        """V [K, r_max, N] padded bases (rows masked) -> (A_red, b_red)."""
-        A_diag, C_R_io, C_R_oi, C_U_io, C_U_oi = op_arrays
-        left_k, right_k, low_k, up_k = edges
+    def _project(op_arrays, rhs_q, V, mask, static):
+        """V [K, r_max, N] padded bases (rows masked) -> (A_red, b_red);
+        ``op_arrays`` = (A_diag, the coupling stacks in ``static.families()``
+        order)."""
+        A_diag = op_arrays[0]
+        side_rows = static.side_rows
         K, r_max, N = V.shape
         Q = A_diag.shape[0]
         R = K * r_max
@@ -452,10 +457,8 @@ class LRBMSReductor:
             ro, ri = rows_of(k_out), rows_of(k_in)
             A_red[:, ro[:, :, None], ri[:, None, :]] += blk
 
-        couple(C_R_io, left_k, right_k, side_rows["right"], side_rows["left"])
-        couple(C_R_oi, right_k, left_k, side_rows["left"], side_rows["right"])
-        couple(C_U_io, low_k, up_k, side_rows["top"], side_rows["bottom"])
-        couple(C_U_oi, up_k, low_k, side_rows["bottom"], side_rows["top"])
+        for C, (_name, ro, ri, k_out, k_in) in zip(op_arrays[1:], static.families()):
+            couple(C, k_out, k_in, side_rows[ro], side_rows[ri])
 
         # identity on padded rows keeps the dense solve well-posed
         flat_mask = mask.reshape(R)          # 1 = real dof, 0 = padding
@@ -528,20 +531,24 @@ class LRBMSReductor:
     @staticmethod
     def _subdomain_colors(grid):
         """3-periodic subdomain coloring: same-color subdomains are >= 3
-        apart per axis, so their 3x3 oversampling neighborhoods — and hence
+        apart per axis, so their 3x3(x3) oversampling neighborhoods — and hence
         the supports of Oswald/flux images of columns living on them (both
         operators are one-element-layer local) — are DISJOINT.  Images of
         all same-color columns can then be computed in ONE batch element
         without contaminating each other's neighborhood slots.  Returns
         (color[k] in [0, n_colors), n_colors) with colors compacted to the
-        ones actually used (small grids use fewer than 9).  ``None`` if the
+        ones actually used (small grids use fewer than 9/27).  ``None`` if the
         grid exposes no structured subdomain lattice."""
         K = grid.num_subdomains
-        if not (hasattr(grid, "kx") and hasattr(grid, "ky")):
-            return None
-        sx = np.arange(K) % grid.kx
-        sy = np.arange(K) // grid.kx
-        raw = sx % 3 + 3 * (sy % 3)
+        if getattr(grid, "dim", 2) == 3:
+            coords = np.array([grid.subdomain_coords(k) for k in range(K)])
+            raw = coords[:, 0] % 3 + 3 * (coords[:, 1] % 3) + 9 * (coords[:, 2] % 3)
+        else:
+            if not (hasattr(grid, "kx") and hasattr(grid, "ky")):
+                return None
+            sx = np.arange(K) % grid.kx
+            sy = np.arange(K) // grid.kx
+            raw = sx % 3 + 3 * (sy % 3)
         uniq, color = np.unique(raw, return_inverse=True)
         return color.astype(np.int64), int(len(uniq))
 
@@ -623,7 +630,8 @@ class LRBMSReductor:
         R_all = K * r_max
         AVs = []
         for q in range(op_arrays[0].shape[0]):
-            Aq = AssembledBlockOp(st, *(a[q] for a in op_arrays))
+            Aq = AssembledBlockOp(st, op_arrays[0][q], **{
+                n: C[q] for n, C in zip(st.names(), op_arrays[1:])})
             AVs.append(torch.cat([Aq.apply(self._column_chunk(Vm, c0, chV))
                                   for c0 in range(0, R_all, chV)]))
         return AVs
@@ -678,8 +686,8 @@ class LRBMSReductor:
     @staticmethod
     def _bucket_rows(grid, K: int, r_max: int):
         """Static neighborhood-gather metadata for a bucket width (patch
-        size 9 in 2D)."""
-        Pn = 9
+        size 9 in 2D, 27 on the 3D hex family)."""
+        Pn = 27 if getattr(grid, "dim", 2) == 3 else 9
         nbhd_idx = -np.ones((K, Pn), dtype=np.int64)
         for k in range(K):
             nb_list = grid.neighborhood_of(k)
@@ -710,12 +718,10 @@ class LRBMSReductor:
         rows_t = torch.as_tensor(rows_safe, device=dev)
         valid_t = torch.as_tensor(valid, device=dev).to(WIDE)
 
-        op_arrays = tuple(a.to(WIDE) for a in (d.op.A_diag, d.op.C_R_io, d.op.C_R_oi,
-                                               d.op.C_U_io, d.op.C_U_oi))
+        op_arrays = tuple(a.to(WIDE) for a in (d.op.A_diag, *d.op.couplings().values()))
         ed_arrays = (ed.E_bar, ed.BB, ed.M_aa, ed.M_ab, ed.d_vec, ed.R_dd)
         rhs_q = d.rhs_q.to(WIDE)
         st = d.op.static
-        edges = (st.left_k, st.right_k, st.low_k, st.up_k)
         # the algebraic-residual Gramians: always, unless force_lean (set by
         # tests, and by weak_greedy when its criterion never reads them)
         with_gramians = not self.force_lean
@@ -723,7 +729,7 @@ class LRBMSReductor:
 
         Wk, Tk = self._images(Vm, sizes, r_max, rows_t, valid_t,
                               lean=not (with_gramians or parabolic))
-        A_red, b_red = self._project(op_arrays, rhs_q, Vm, mask, st.side_rows, edges)
+        A_red, b_red = self._project(op_arrays, rhs_q, Vm, mask, st)
         out = self._est_projections(ed_arrays, Vm, Wk, Tk)
         out.update(A_red=A_red, b_red=b_red, G_bb=None, G_Ab=None, G_AA=None, parabolic=None)
         if with_gramians or parabolic:

@@ -102,8 +102,8 @@ def test_patch_coarse_matrix_exact(fom):
     st = d.op.static
     mix = lambda C: torch.einsum("q,q...->...", theta, C)   # noqa: E731
     D = {sd: mix(bc.D_side[sd]) for sd in SIDES}
-    Rq = {nm: mix(v) for nm, v in bc.R.items()}
-    Uq = {nm: mix(v) for nm, v in bc.U.items()}
+    Rq = {nm: mix(v) for nm, v in bc.quads["R"].items()}
+    Uq = {nm: mix(v) for nm, v in bc.quads["U"].items()}
     A0c = mix(bc.A0c_q)
     marked = [0, 1, 4]
     pmask = bc.patch_mask_table[marked]

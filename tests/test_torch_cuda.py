@@ -45,7 +45,8 @@ DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
                                      (2, 8, 384, 256), (2, 8, 384, 100),
                                      (2, 3, 96, 40), (2, 3, 96, 9), (1, 8, 384, 12),
                                      (1, 8, 576, 1), (1, 8, 576, 12), (1, 8, 576, 16),
-                                     (1, 8, 768, 1), (1, 8, 768, 12), (1, 8, 768, 16)])
+                                     (1, 8, 768, 1), (1, 8, 768, 12), (1, 8, 768, 16),
+                                     (1, 8, 216, 1), (1, 8, 216, 16), (2, 8, 512, 256)])
 def test_kernels_match_plain_versions(cuda, G, K, N, B):
     """Every route of each kernel (stream for B <= 16, in its ring form for
     block_matvec's f64 and f32 pairs at 5-16 lanes, tensor cores for the
@@ -364,3 +365,38 @@ def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
     (y0, t0, n0), (y1, t1, n1) = outs
     assert _rel(y1, y0) <= 1e-12 and _rel(t1, t0) <= 1e-8
     assert n0 == {"block_matvec": 0, "precond_dot": 0} and n1["precond_dot"] > 0
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_hex3d_stencil_solve_and_estimate_on_cuda_match_cpu(cuda, order):
+    """academic3d, 2x1x2 subdomains, half 1 (Q1 nref 1: N=64; Q2 nref 0:
+    N=27), f64: the hex stencil apply, the mf_pcg solve, the estimate
+    (RT0 / RT_[1] hex) and a dense-corrector batch on the card against the
+    CPU (apply 1e-12, solve, estimate and corrector 1e-8)."""
+    from pylrbms_tpu_torch.problems.academic3d import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    from pylrbms_tpu_torch.ops.corrector import BatchedCorrector
+
+    cfg = {"num_subdomains": [2, 1, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2 - order}
+    x = None
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev, order=order)
+        mu = d.parse_parameter(0.6)
+        if x is None:
+            x = np.random.default_rng(9).normal(size=(3, d.space.K, d.space.N))
+        A = d.mf_operator().assemble(d.theta(mu))
+        hk.reset_launch_counts()
+        U = d.solve(mu, {"type": "mf_pcg", "precision": 1e-10, "coarse_modes": 4})
+        W = BatchedCorrector(d).solve([0, 3], mu, current_solution=0.5 * U, tol=1e-12,
+                                      maxiter=1000)
+        n = hk.launch_counts()
+        y = A.apply(torch.tensor(x, device=dev))
+        eta = d.estimate(U, mu)
+        outs.append((y.cpu(), U.cpu(), W.cpu(), float(eta), n))
+    (y0, U0, W0, e0, n0), (y1, U1, W1, e1, n1) = outs
+    assert _rel(y1, y0) <= 1e-12
+    assert _rel(U1, U0) <= 1e-8 and _rel(W1, W0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
+    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0

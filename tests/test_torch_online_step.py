@@ -269,6 +269,28 @@ def test_port_imports_no_jax():
         "y = bop.apply(bop.assemble(d.theta(d.parse_parameter(0.5))), U)\n"
         "assert float((y - A.apply(U)).abs().max()) < 1e-12\n"
         "assert prolong(d.space, U, p2.space).shape == (4, 48)\n"
+        "from pylrbms_tpu_torch.problems.academic3d import init_grid_and_problem as ac3\n"
+        "from pylrbms_tpu_torch.problems.thermalblock3d import init_grid_and_problem as tb3\n"
+        "from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem_3d\n"
+        "from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize as d3\n"
+        "from pylrbms_tpu_torch.discretize_parabolic_block_swipdg3d import discretize as p3\n"
+        "from pylrbms_tpu_torch.ops.rt1hex import FluxReconstructorRT1Hex\n"
+        "from pylrbms_tpu_torch.ops.matrixfree3d import stencil_coarse_matrix\n"
+        "c3 = {'num_subdomains': [2, 1, 2], "
+        "'half_num_fine_elements_per_subdomain_and_dim': 1, 'num_refinements': 0}\n"
+        "h1, _ = d3(ac3(c3), device='cpu')\n"
+        "h2, _ = d3(ac3(c3), device='cpu', order=2)\n"
+        "assert isinstance(h2.estimator.data.flux, FluxReconstructorRT1Hex)\n"
+        "for m in (h1, h2):\n"
+        "    mu = m.parse_parameter(0.5)\n"
+        "    U3 = m.solve(mu, {'type': 'mf_pcg', 'precision': 1e-10})\n"
+        "    assert float(m.estimate(U3, mu)) > 0\n"
+        "assert prolong(h1.space, torch.ones(4, 8, dtype=torch.float64), h2.space).shape == (4, 27)\n"
+        "assert stencil_coarse_matrix(h1.mf_operator().assemble(h1.theta(mu))).shape == (4, 4)\n"
+        "im3, _ = p3(ac3(c3), T=1.0, nt=2, device='cpu')\n"
+        "assert im3.solve(im3.parse_parameter(0.5)).shape == (3, 4, 8)\n"
+        "d3(tb3(c3), device='cpu', lean=True)\n"
+        "d3(init_grid_and_problem_3d(c3, max_contrast=1e4), device='cpu', lean=True)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
         "assert not ref, ref\n"
@@ -317,19 +339,86 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert d.device == torch.device("cpu") and d.rhs_q.device.type == "cpu"
 
 
+def _hex_tables_equal_jax(cfg, order):
+    """The 3D copies (grid3d, the hex basis and rules, ops.spaces3d with its
+    RT0 hex layout) against the JAX package's tables."""
+    import pylrbms_tpu.basis as jB
+    import pylrbms_tpu.quadrature as jQ
+    import pylrbms_tpu_torch.basis as tB
+    import pylrbms_tpu_torch.quadrature as tQ
+    from pylrbms_tpu.problems.academic3d import init_grid_and_problem as jax_ac3
+    from pylrbms_tpu.ops.spaces3d import BlockDGSpace3D as JaxSpace3D
+    from pylrbms_tpu_torch.problems.academic3d import init_grid_and_problem as ac3
+    from pylrbms_tpu_torch.ops.spaces3d import BlockDGSpace3D
+
+    pts = np.random.default_rng(0).random((7, 3))
+    assert tB.num_basis_hex(order) == jB.num_basis_hex(order)
+    for fn in ("hex_node_coords_unit",):
+        np.testing.assert_array_equal(getattr(tB, fn)(order), getattr(jB, fn)(order))
+    for fn in ("eval_basis_hex", "eval_basis_hex_grad_unit"):
+        np.testing.assert_array_equal(getattr(tB, fn)(order, pts), getattr(jB, fn)(order, pts))
+    for fn in ("hex_rule_unit_cell", "face3d_rule"):
+        for a, b in zip(getattr(tQ, fn)(3), getattr(jQ, fn)(3)):
+            np.testing.assert_array_equal(a, b)
+    gj, gt = jax_ac3(cfg)["grid"], ac3(cfg)["grid"]
+    assert type(gt).__module__ == "pylrbms_tpu_torch.grid3d"
+    assert vars(gt) == vars(gj)
+    np.testing.assert_array_equal(gt.subdomain_origins(), gj.subdomain_origins())
+    for i in range(gt.num_subdomains):
+        assert gt.neighborhood_of(i) == gj.neighborhood_of(i)
+        assert gt.neighboring_subdomains(i) == gj.neighboring_subdomains(i)
+    assert gt.boundary_subdomains() == gj.boundary_subdomains()
+    with pytest.raises(NotImplementedError, match="vtk"):
+        gt.visualize("unused.vtu")
+    sj, st = JaxSpace3D(gj, order=order), BlockDGSpace3D(gt, order=order)
+    assert (st.K, st.N, st.nb, st.T, st.N_rt, st.N_rt_global) == \
+        (sj.K, sj.N, sj.nb, sj.T, sj.N_rt, sj.N_rt_global)
+    for name in ("vol_qp", "vol_w", "vol_phi", "vol_dphi", "nodes_unit", "face_uv",
+                 "subdomain_origins", "cell_origins_local"):
+        np.testing.assert_array_equal(getattr(st, name), getattr(sj, name), err_msg=name)
+    for fn in ("node_coords_phys", "rt_local_to_global", "hex_face_dofs"):
+        np.testing.assert_array_equal(getattr(st, fn)(), getattr(sj, fn)(), err_msg=fn)
+    for a, b in zip(st.rt_cell_tab(), sj.rt_cell_tab()):
+        np.testing.assert_array_equal(a, b)
+    for side in ("left", "right", "bottom", "top", "near", "far"):
+        np.testing.assert_array_equal(st.side_dofs(side), sj.side_dofs(side))
+    for fam, sets in st.interior_face_sets().items():
+        for a, b in zip(sets, sj.interior_face_sets()[fam]):
+            np.testing.assert_array_equal(a, b)
+    assert sorted(st.face_tabs) == sorted(sj.face_tabs)
+    for key, tab in st.face_tabs.items():
+        ref = sj.face_tabs[key]
+        for field in ("phi_m", "dphi_m", "phi_p", "dphi_p", "normal", "w",
+                      "pts_unit_m", "pts_unit_p", "centroid_m", "centroid_p"):
+            a, b = getattr(tab, field), getattr(ref, field)
+            assert (a is None) == (b is None), (key, field)
+            if a is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f"{key}.{field}")
+        assert (tab.length, tab.pen_len) == (ref.length, ref.pen_len)
+
+
 @pytest.mark.parametrize("cfg", [
     {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
      "num_refinements": 1},                                    # the entry config
     {"num_subdomains": [8, 8], "half_num_fine_elements_per_subdomain_and_dim": 2,
      "num_refinements": 2},                                    # the serving config
-], ids=["entry", "serving"])
+    {"num_subdomains": [2, 1, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+     "num_refinements": 1},                                    # 3D hex, Q1
+    {"num_subdomains": [3, 2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+     "num_refinements": 0, "order": 2},                        # 3D hex, Q2
+], ids=["entry", "serving", "hex-q1", "hex-q2"])
 def test_copied_grid_and_space_tables_equal_jax(cfg):
-    """The port's copies of grid/basis/quadrature/ops.spaces give the JAX
-    package's tables: integer tables equal, coordinates and tabulations
-    with zero difference."""
+    """The port's copies of grid/basis/quadrature/ops.spaces (and of
+    grid3d/ops.spaces3d on 3D configs) give the JAX package's tables:
+    integer tables equal, coordinates and tabulations with zero
+    difference."""
     from pylrbms_tpu.ops.spaces import BlockDGSpace as JaxSpace
     from pylrbms_tpu_torch.ops.spaces import BlockDGSpace
 
+    if len(cfg["num_subdomains"]) == 3:
+        cfg = dict(cfg)
+        _hex_tables_equal_jax(cfg, cfg.pop("order", 1))
+        return
     gj, gt = jax_problem(cfg)["grid"], init_grid_and_problem(cfg)["grid"]
     assert type(gt).__module__ == "pylrbms_tpu_torch.grid"
     assert vars(gt) == vars(gj)
