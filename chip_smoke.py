@@ -17,7 +17,8 @@ phase passes:
    shape the route ``plan`` picked, the kernel's time with the 50 MB L2
    flushed between repetitions (and warm, as earlier runs timed it), the
    plain version's and one library call's time (flushed), the bound and
-   the kernel's share of it (CUDA events, median of 20);
+   the kernel's share of it (CUDA events, median of 20), and the 442k
+   truth blocks stored in bf16 (K=256, N=1728, one lane);
 4. entry config (2x2 subdomains, half 1, nref 1), one query on the card in
    f64 and in f32, against the port's own CPU f64 run;
 5. serving config (8x8 subdomains, half 2, nref 2: 24 576 dofs; affine
@@ -129,13 +130,23 @@ phase passes:
    ``solve_batch`` B=4 against single-mu trajectories (1e-6);
 24. Q2 3D: academic3d Q2 at 4x4x4, half 1, nref 1 (K=64, N=216, 13 824
    dofs), lean, f64: mf_pcg against splu (1e-6), the RT_[1] hex estimate,
-   the local conservation of the splu solution (1e-9).
+   the local conservation of the splu solution (1e-9);
+25. the truth solver (``truth.truth_solve``): (a) on phase 21's model
+   through its ``mf_operator`` and ``cast_f32``, the f64 recurrence (bf16
+   and f32 block factors) and the f32 inner IR, each with relres <= 1e-9
+   and U within 1e-7 of an mf_pcg solve at precision 1e-11, and the VTU of
+   U (``d.visualize``) parsed back; (b) at full width, the 442k-q2
+   ``SolveOnlyModel`` (SPE10 3D raster (4, 8, 8), contrast 1e4, Q2: K=256,
+   N=1728, 442 368 dofs), block route, f64 recurrence, at mu = 1.0 and 0.3:
+   relres <= 1e-9 and U within TRUTH_TOL of ``docs/results/ref442k.npz``;
+   prints seconds per stage, ms per iteration, peak memory and the
+   per-iteration roofline share.
 
-Phases run in the order 1-8, 10-21, 23, 22, 24, 9, each timed with its
-peak device memory, and the total is printed.  Each main path (phases 5,
-7, 8, 10-13, 15, 16, 18a, 20-24) runs with the kernel launch counts and
-signatures cleared just before it and read just after; the summary's
-``launches`` is the sum of the counts.
+Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 9, each timed
+with its peak device memory, and the total is printed.  Each main path
+(phases 5, 7, 8, 10-13, 15, 16, 18a, 20-25) runs with the kernel launch
+counts and signatures cleared just before it and read just after; the
+summary's ``launches`` is the sum of the counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -355,6 +366,7 @@ def kernel_phase(hk, torch, dev):
             for B in (1, 12, 16):
                 case("block_matvec", 1, 64, N, B, dt, dt)
                 case("precond_dot", 1, 64, N, B, dt, dt)
+    case("block_matvec", 1, 256, 1728, 1, bf16, f32)     # 442k truth, jacobi_storage='bf16'
     for B in (1, 4, 13):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
@@ -1674,6 +1686,159 @@ def q2_3d_phase(hk, torch, dev, smi):
     return launches, shapes
 
 
+TRUTH_REF = "docs/results/ref442k.npz"
+# U of the 442k Q2 solve against the reference file, max-norm relative.  The
+# reference stopped at relres 5.1e-10 (docs/results/truth_solver.txt), this
+# solve at <= 1e-10 with its own chunking and summation order, so the two are
+# different iterates near the same solution; an H100 measured 1.7e-12
+# between them at mu = 1.0.  1e-8 leaves four decades for other cards and
+# stopping points and is eight below the gap between the mu = 1.0 and 0.3
+# solutions, so a solve of the wrong problem cannot pass.
+TRUTH_TOL = 1e-8
+TRUTH_MUS = (1.0, 0.3)
+
+
+def _vtu_check(path, K, N, n_cells, U):
+    """Parse a written VTU back: point and cell counts, and the point values
+    equal to U exactly (repr round-trips float64)."""
+    import re
+    import xml.etree.ElementTree as ET
+    with open(path) as f:
+        head = f.read(400)
+    counts = re.search(r'NumberOfPoints="(\d+)" NumberOfCells="(\d+)"', head).groups()
+    if counts != (str(K * N), str(n_cells)):
+        raise AssertionError(f"VTU counts {counts}, expected {(K * N, n_cells)}")
+    vals = np.array(ET.parse(path).getroot().find(".//PointData/DataArray").text.split(),
+                    dtype=np.float64)
+    if not np.array_equal(vals, np.asarray(U, np.float64).reshape(-1)):
+        raise AssertionError("VTU point values differ from U")
+
+
+def _truth_log(label, info, smi):
+    it = info["it32"]
+    log(f"{label}: relres {info['relres']:.3e}, {it} iterations ({info['rounds']} "
+        f"{'rounds' if info['it64'] == 0 else 'chunks'}); assemble {info['t_assemble']:.2f} s "
+        f"(dense blocks {info['t_blocks']:.2f}, eigh {info['t_eigh']:.2f}), harvest "
+        f"{info['t_harvest']:.2f} s, coarse {info['t_coarse']:.2f} s (with the harvest), solve "
+        f"{info['t_solve']:.2f} s, {1e3 * info['t_solve'] / max(it, 1):.3f} ms/iteration "
+        f"[{smi}]")
+    _check(f"{label} relative residual", info["relres"], 1e-9)
+
+
+def truth_scale_phase(hk, torch, dev, smi, d):
+    """Phase 25a: ``truth_solve`` on phase 21's model (SPE10 3D, K=256,
+    N=512, 131 072 dofs, f64, lean) through its ``mf_operator`` and
+    ``cast_f32``: the f64 recurrence (bf16-stored block factors), the f32
+    inner IR (f32 factors) and the f64 recurrence on f32 factors.  Gates:
+    relres <= 1e-9 and U within 1e-7 (max-norm relative) of an mf_pcg
+    solve of the model at precision 1e-11 (phase 21's own solve stops at
+    1e-8); the VTU of U (``d.visualize``) parses back to its counts and
+    values.  Returns the path's launches (block_matvec only: truth has no
+    precond_dot)."""
+    import tempfile
+    from pylrbms_tpu_torch.truth import truth_solve
+    mu = d.parse_parameter(1.0)
+    K, N = d.space.K, d.space.N
+    ref_opts = {"type": "mf_pcg", "precision": 1e-11, "coarse_space": "harvested",
+                "coarse_modes": 12, "max_iter": 5000}
+    U_ref = d.solve(mu, inverse_options=ref_opts).cpu().numpy()
+    hk.reset_launch_counts()
+    runs = (("f64 recurrence, bf16 factors", dict(jacobi_storage="bf16")),
+            ("f32 inner IR", dict(recurrence="f32ir")),
+            ("f64 recurrence", dict()))
+    for label, kw in runs:
+        U, info = truth_solve(d, mu, verbose=False, **kw)
+        _truth_log(f"truth 131k ({label})", info, smi)
+        _check(f"truth 131k ({label}) U vs mf_pcg at precision 1e-11, max rel err",
+               rel(U, U_ref), 1e-7)
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"truth 131k main path: kernel launches {launches}")
+    if launches["block_matvec"] <= 0:
+        raise AssertionError("block_matvec was not launched on the truth 131k path")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = d.visualize(torch.as_tensor(U, device=dev), f"{tmp}/truth131k")
+        t_vtu = time.perf_counter() - t0
+        _vtu_check(path, K, N, K * d.space.s ** 3, U)
+        log(f"truth 131k VTU: {path.rsplit('/', 1)[1]} written in {t_vtu:.2f} s, parsed back "
+            f"({K * N} points, {K * d.space.s ** 3} hexes, values exact)")
+    return launches, shapes
+
+
+def truth_full_phase(hk, torch, dev, smi, mus=TRUTH_MUS):
+    """Phase 25b: the 442k-q2 truth solve at full width (SPE10 3D, raster
+    (4, 8, 8) nearest, contrast 1e4, 8x8x4 subdomains, half 1, nref 2, Q2:
+    K=256, N=1728, 442 368 dofs) through ``SolveOnlyModel``, block route,
+    f64 recurrence, as ``scripts/spe10_3d_truth.py --config 442k-q2``.
+    Gates per mu: relres <= 1e-9, U within TRUTH_TOL of the reference
+    file's u_<mu>.  Prints the seconds per stage, the peak device memory,
+    ms per iteration, the launches and the per-iteration roofline share
+    (``roofline.pcg_iteration_cost``)."""
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem_3d
+    from pylrbms_tpu_torch.truth import SolveOnlyModel, truth_solve
+    from pylrbms_tpu_torch.utils import roofline
+    ref = np.load(TRUTH_REF)
+    cfg = {"num_subdomains": [int(v) for v in ref["subs"]],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": int(ref["nref"])}
+    gpd = init_grid_and_problem_3d(cfg, raster=tuple(int(v) for v in ref["raster"]),
+                                   raster_mode="nearest",
+                                   max_contrast=float(ref["max_contrast"]))
+    m_c = 6 + 32
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")  # noqa: E731
+
+    class CountedModel(SolveOnlyModel):
+        """Counts one PCG iteration's bytes and operations from the f64
+        stencil that the solve assembles (so the count costs no assembly of
+        its own): that stencil, the f32 block factors, the coarse basis
+        [K, N, 38] and inverse [K*38, K*38] in f64."""
+        cost = None
+
+        def stencil_at(self, mu, dtype):
+            S = super().stencil_at(mu, dtype)
+            if dtype == torch.float64 and self.cost is None:
+                K, N = self.space.K, self.space.N
+                self.cost = roofline.pcg_iteration_cost(
+                    S, meta((K, N, N), torch.float32), meta((K, N, m_c), torch.float64),
+                    meta((K * m_c, K * m_c), torch.float64))
+            return S
+
+    t0 = time.perf_counter()
+    d = CountedModel(gpd, order=int(ref["order"]), device=dev)
+    torch.cuda.synchronize()
+    K, N = d.space.K, d.space.N
+    log(f"truth 442k ({ref['config']}): K={K} N={N} dofs={K * N}; solve-only model "
+        f"{time.perf_counter() - t0:.2f} s")
+    hk.reset_launch_counts()
+    infos = []
+    for m in mus:
+        reset_peak(torch, dev)
+        U, info = truth_solve(d, {"switch": m}, tol=1e-10, n_harvest=32, rounds=2,
+                              recurrence="f64", verbose=False)
+        peak = torch.cuda.max_memory_allocated(dev)
+        _truth_log(f"truth 442k mu={m}", info, smi)
+        log(f"truth 442k mu={m}: peak device memory {peak / 2**30:.2f} GiB")
+        _check(f"truth 442k mu={m} U vs {TRUTH_REF}:u_{m}, max rel err",
+               rel(U, ref[f"u_{m}"]), TRUTH_TOL)
+        infos.append(info)
+    launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    log(f"truth 442k main path: kernel launches {launches}")
+    if launches["block_matvec"] <= 0:
+        raise AssertionError("block_matvec was not launched on the truth 442k path")
+    cost = d.cost
+    t_bytes = cost.bytes / hk.HBM_BYTES_PER_S
+    t_ops = cost.flops / hk.PEAK_OPS_PER_S["f64 tensor"]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    ms_it = 1e3 * infos[0]["t_solve"] / infos[0]["it32"]
+    r = roofline.roofline(cost, ms_it / 1e3)
+    log(f"truth 442k per PCG iteration: {cost.bytes / 1e9:.3f} GB and {cost.flops / 1e9:.3f} "
+        f"GFLOP counted, bound {bound_ms:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}), measured {ms_it:.4f} ms: share "
+        f"of bound {bound_ms / ms_it:.3f}, {r['hbm_gbs']:.1f} GB/s ({r['hbm_util']:.3f} of "
+        f"HBM) [{smi}]")
+    return launches, shapes
+
+
 def main() -> int:
     try:
         import torch
@@ -1744,9 +1909,12 @@ def main() -> int:
         paths["3D scale"], d_scale = ph("21 3D scale", scale3d_phase, hk, torch, dev, smi)
         paths["3D parabolic"] = ph("23 3D parabolic", parabolic3d_phase, hk, torch, dev, smi,
                                    d_scale)
+        paths["truth 131k"] = ph("25a truth 131k", truth_scale_phase, hk, torch, dev, smi,
+                                 d_scale)
         del d_scale
         paths["3D MOR"] = ph("22 3D MOR", mor3d_phase, hk, torch, dev, smi)
         paths["Q2 3D"] = ph("24 Q2 3D", q2_3d_phase, hk, torch, dev, smi)
+        paths["truth 442k"] = ph("25b truth 442k", truth_full_phase, hk, torch, dev, smi)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)

@@ -33,3 +33,6 @@ Typical use::
     res = weak_greedy(d64, d64.parameter_space.sample_uniformly(6))
     c, eta, indicators = res.rd.online_step(0.5)
 """
+from .utils.precision import init_cpu_vector_math
+
+init_cpu_vector_math()

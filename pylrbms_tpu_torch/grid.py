@@ -1,7 +1,6 @@
 """Structured domain-decomposed grid with oversampling neighborhoods.
 
-The port's own copy of ``pylrbms_tpu/grid.py`` (numpy and stdlib only;
-the VTK writer hook is left out).
+The port's own copy of ``pylrbms_tpu/grid.py`` (numpy and stdlib only).
 
 Replacement for the dune-xt-grid DD subdomain provider consumed by the
 upstream pylrbms (``python/dune/pylrbms/grid.py:8-69``,
@@ -192,6 +191,11 @@ class Grid:
         o = o.reshape(self.ky, self.s, self.kx, self.s, 2)
         o = o.transpose(0, 2, 1, 3, 4)               # [ky, kx, s, s, 2]
         return o.reshape(self.num_subdomains, self.s, self.s, 2)
+
+    def visualize(self, filename: str, *args, **kwargs):
+        """Subdomain-id field on the grid as a VTU file; returns its name."""
+        from .utils.vtk import write_grid_vtu
+        return write_grid_vtu(self, filename)
 
 
 def make_grid(domain=((0.0, 0.0), (1.0, 1.0)),

@@ -1,7 +1,6 @@
 """Structured 3D domain-decomposed hex grid with oversampling neighborhoods.
 
-The port's own copy of ``pylrbms_tpu/grid3d.py`` (numpy and stdlib only;
-the VTK writer is not ported yet, so :meth:`Grid3D.visualize` raises).
+The port's own copy of ``pylrbms_tpu/grid3d.py`` (numpy and stdlib only).
 
 BEYOND the reference: the reference's grid layer is 2D-only (its
 ``make_cube_dd_subdomains_grid__*`` providers are instantiated for 2D ALU /
@@ -165,10 +164,13 @@ class Grid3D:
         return np.stack([SX.ravel(), SY.ravel(), SZ.ravel()], axis=-1)
 
     def visualize(self, filename: str, *args, **kwargs):
-        """Subdomain-id field on the hex grid (<-> ``grid.visualize``)."""
-        raise NotImplementedError(
-            "Grid3D.visualize needs the VTK writer (utils/vtk.py), which comes "
-            "with the port's truth-solver slice")
+        """Subdomain-id field on the hex grid as a VTU file (<->
+        ``Grid.visualize``); returns its name."""
+        from .ops.spaces3d import BlockDGSpace3D
+        from .utils.vtk import write_hex_vtu
+        space = BlockDGSpace3D(self)
+        ids = np.repeat(np.arange(self.num_subdomains, dtype=float)[:, None], space.N, axis=1)
+        return write_hex_vtu(space, ids, filename, name="subdomain")
 
 
 def make_grid3d(domain=((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),

@@ -354,6 +354,14 @@ class StationaryBlockModel:
     def reblock(self, u):
         return reblock(u, self.space.K, self.space.N)
 
+    def visualize(self, U, filename: str):
+        """VTU output of a solution U [K, N] (numpy or a tensor on any
+        device; <-> ``DuneDiscretization.visualize``); returns the file's
+        name."""
+        from .utils.vtk import write_dg_vtu, write_hex_vtu
+        write = write_hex_vtu if getattr(self.space, "dim", 2) == 3 else write_dg_vtu
+        return write(self.space, U, filename)
+
     @property
     def solution_shape(self):
         return (self.space.K, self.space.N)

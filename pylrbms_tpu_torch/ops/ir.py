@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .matrixfree import make_precond
+from .matrixfree import cast, make_precond
 from ..la.krylov import lane_dot, pcg_chunked
 
 
@@ -87,6 +87,12 @@ def solve_ir(A64, A32, b, diag, *, tol=1e-10, maxiter=2000,
     if return_info:
         return x, it32, rounds, it64
     return x
+
+
+def cast_f32(op):
+    """f32 copy of an assembled stencil or operator dataclass (every
+    floating tensor field, the ``D_side`` dict too; the space kept)."""
+    return cast(op, torch.float32)
 
 
 def diag_of_blocks(A_diag_q):

@@ -253,6 +253,14 @@ class AssembledStencil3:
             d.select(a, idx).add_(D.reshape(D.shape[:-3] + (s, s) + D.shape[-2:]))
         return d
 
+    def dense_subdomain_blocks(self) -> torch.Tensor:
+        """Exact dense per-subdomain diagonal blocks [K, N, N] in the
+        stencil's dtype (:func:`stencil_diag_blocks`: equal to the folded
+        ``A_diag`` of the assembled operator).  The truth solver's
+        subdomain-block preconditioner is built from them without the
+        dense affine family (``truth.py``)."""
+        return stencil_diag_blocks(self, dtype=self.vol.dtype)
+
     def cell_jacobi_factors(self) -> torch.Tensor:
         """Per-hex-cell nb x nb block inverses of :meth:`cell_blocks`,
         Jacobi-scaled, inverted in the operator's dtype."""

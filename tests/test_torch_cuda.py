@@ -400,3 +400,48 @@ def test_hex3d_stencil_solve_and_estimate_on_cuda_match_cpu(cuda, order):
     assert _rel(U1, U0) <= 1e-8 and _rel(W1, W0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
     assert n0 == {"block_matvec": 0, "precond_dot": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
+
+
+@pytest.mark.parametrize("N,B,mdt", [(1728, 1, torch.float32), (1728, 32, torch.float32),
+                                     (1728, 1, torch.bfloat16), (512, 32, torch.float32)],
+                         ids=["pcg-f32", "harvest-f32", "pcg-bf16", "harvest-131k"])
+def test_block_matvec_at_the_truth_shapes(cuda, N, B, mdt):
+    """The truth solver's block-factor applies at K=256 (the 442k Q2 blocks
+    N=1728 and the 131k Q1 blocks N=512): one lane in the PCG, 32 in the
+    harvest filter, f32 or bf16-stored factors with f32 vectors, against
+    the plain version (f32 tolerance 2e-5, normwise)."""
+    rng = np.random.default_rng(11)
+    K = 256
+    A = torch.tensor(rng.normal(size=(1, K, N, N)), device=cuda, dtype=torch.float32).to(mdt)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda, dtype=torch.float32)
+    hk.reset_launch_counts()
+    y, yp = hk.block_matvec(A, x), hk.block_matvec_plain(A, x)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= 2e-5
+    assert hk.launch_signatures()["block_matvec"] == {(1, K, N, B, mdt, torch.float32)}
+
+
+def test_truth_solve_on_cuda_matches_cpu(cuda):
+    """truth_solve (block route, f64 recurrence and f32 IR) on the card
+    against the CPU on the fixture of tests/test_truth.py: relres <= 1e-9,
+    U to 1e-8, and block_matvec launched on the card only."""
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem_3d
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    from pylrbms_tpu_torch.truth import truth_solve
+
+    cfg = {"num_subdomains": [4, 4, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 1}
+    gpd = init_grid_and_problem_3d(cfg, raster=(2, 4, 4), raster_mode="nearest",
+                                   max_contrast=1e3)
+    for rec in ("f64", "f32ir"):
+        outs = []
+        for dev in ("cpu", cuda):
+            d, _ = discretize(gpd, device=dev)
+            hk.reset_launch_counts()
+            U, info = truth_solve(d, {"switch": 0.6}, tol=1e-10, n_harvest=8, extra_modal=3,
+                                  recurrence=rec, verbose=False)
+            outs.append((U, info["relres"], hk.launch_counts()["block_matvec"]))
+        (U0, r0, n0), (U1, r1, n1) = outs
+        assert r0 <= 1e-9 and r1 <= 1e-9
+        assert float(np.abs(U1 - U0).max() / np.abs(U0).max()) <= 1e-8
+        assert n0 == 0 and n1 > 0
