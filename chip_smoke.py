@@ -142,11 +142,28 @@ phase passes:
    prints seconds per stage, ms per iteration, peak memory and the
    per-iteration roofline share.
 
-Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 9, each timed
-with its peak device memory, and the total is printed.  Each main path
-(phases 5, 7, 8, 10-13, 15, 16, 18a, 20-25) runs with the kernel launch
-counts and signatures cleared just before it and read just after; the
-summary's ``launches`` is the sum of the counts.
+26. distribution over the subdomain axis (``scripts/dryrun_multichip``
+   through the rank launcher of ``scripts/distributed_smoke``, every rank
+   on cuda:0), after a probe of which gloo operations take CUDA tensors:
+   (a) world 1 over NCCL and (b) world 4 over gloo at the serving grid
+   (K=64, N=384, f64): the K-sharded online step against the unsharded
+   one (U, indicators, eta; 1e-8), the SPMD solver (1e-8), ``reduce(mesh=)``
+   (rtol 1e-12 / atol 1e-14) and its ROM solve (1e-10), the K-banded
+   corrector (1e-8), ``solve_sharded`` (1e-8), ``batched_estimates(mesh=)``
+   over 64 mus (1e-12); (c) world 2 over gloo: the two-level matrix-free
+   solve at 98 304 dofs (K=64, N=1536) and at SPE10 3D 131 072 dofs (K=256,
+   bands of 2 z-layers), phase 12's SPE10 trajectory (nt=10) in f64 and
+   mixed and a B=2 sweep (1e-8 of max |U|).  Per leg: seconds, iterations
+   sharded and unsharded, per-rank ms per iteration and exchange ms per
+   iteration, per-rank peak memory.  Ranks sharing the card are no
+   speedup, and NCCL across devices is not exercised.
+
+Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 26, 9, each
+timed with its peak device memory, and the total is printed.  Each main
+path (phases 5, 7, 8, 10-13, 15, 16, 18a, 20-26) runs with the kernel
+launch counts and signatures cleared just before it and read just after
+(phase 26's in its ranks); the summary's ``launches`` is the sum of the
+counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1839,6 +1856,59 @@ def truth_full_phase(hk, torch, dev, smi, mus=TRUTH_MUS):
     return launches, shapes
 
 
+# phase 26: (label, world, backend, dryrun preset); every rank on cuda:0
+DIST_RUNS = (("26a", 1, "nccl", "serving"), ("26b", 4, "gloo", "serving"),
+             ("26c", 2, "gloo", "scale"))
+# the gloo operations the sharded paths pass CUDA tensors to (the halo
+# strips go through host buffers: gloo's point-to-point takes host memory)
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather", "batch_isend_irecv (host buffers)")
+
+
+def distributed_phase(hk, torch, dev, smi, paths, runs=DIST_RUNS):
+    """Phase 26: distribution over the subdomain axis on the card.  A probe
+    of which gloo operations take CUDA tensors (two ranks on cuda:0;
+    point-to-point on CUDA tensors in a launch of its own, whose answer is
+    logged: the mesh stages gloo's halo strips through host buffers), then
+    ``scripts/dryrun_multichip`` through the rank launcher for each of
+    ``runs``: 26a world 1 over NCCL and 26b world 4 over gloo at the
+    serving grid (online step, SPMD solver, reduce, corrector, solve_sharded,
+    the sweep over 64 mus), 26c world 2 over gloo at scale (the two-level
+    matrix-free solves at 98 304 and 131 072 dofs, the SPE10 trajectory in
+    f64 and mixed and a B=2 sweep).  Every leg is held to its unsharded
+    reference on rank 0 in the ranks (a failed or hung rank fails the
+    phase); the ranks' kernel launches join ``paths`` as 'distributed
+    26x'.  Ranks sharing one card time-share it: their times are per-rank
+    ms per iteration and exchange ms, not a speedup; NCCL across devices
+    is not exercised."""
+    from pylrbms_tpu_torch.scripts import distributed_smoke, dryrun_multichip
+    t0 = time.perf_counter()
+    probe = distributed_smoke.probe_gloo_cuda(2)
+    log(f"gloo with float64 CUDA tensors, 2 ranks on cuda:0 ({time.perf_counter() - t0:.2f} s): "
+        f"{probe}")
+    bad = [op for op in GLOO_CUDA_OPS if probe.get(op) != "ok"]
+    if bad:
+        raise RuntimeError(f"gloo refused CUDA tensors in {bad}: {probe}")
+    for label, world, backend, preset in runs:
+        t0 = time.perf_counter()
+        payloads = dryrun_multichip.run(world, device="cuda", backend=backend, preset=preset,
+                                        timeout_s=600)
+        log(f"phase {label}: world {world} over {backend} on cuda:0, {preset} legs, "
+            f"{time.perf_counter() - t0:.2f} s with the ranks' start and model builds; {smi}")
+        for line in dryrun_multichip.format_legs(payloads):
+            log(f"  {label} {line}")
+        sigs = {}
+        for p in payloads:
+            for kind, counts in p["launches"].items():
+                for sig, n in counts.items():
+                    sigs.setdefault(kind, {})[sig] = sigs.get(kind, {}).get(sig, 0) + n
+        log(f"  {label} kernel launches (all ranks): "
+            f"{ {k: sum(v.values()) for k, v in sigs.items()} }; per-rank peak device memory "
+            f"{[round(p['peak_bytes'] / 2**20, 1) for p in payloads]} MiB")
+        paths[f"distributed {label}"] = ({k: sum(v.values()) for k, v in sigs.items()}, sigs)
+        if not all(paths[f"distributed {label}"][0].values()):
+            raise RuntimeError(f"{label}: a kernel was not launched in the ranks: {sigs}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1915,6 +1985,7 @@ def main() -> int:
         paths["3D MOR"] = ph("22 3D MOR", mor3d_phase, hk, torch, dev, smi)
         paths["Q2 3D"] = ph("24 Q2 3D", q2_3d_phase, hk, torch, dev, smi)
         paths["truth 442k"] = ph("25b truth 442k", truth_full_phase, hk, torch, dev, smi)
+        ph("26 distributed", distributed_phase, hk, torch, dev, smi, paths)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)

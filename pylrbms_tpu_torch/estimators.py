@@ -60,15 +60,45 @@ class EstimatorData:
     lambda_hat: object = None
 
 
+# position of the K axis of each per-subdomain estimator tensor
+K_AXIS = {"E_bar": 0, "L2": 0, "BB": 0, "R_dd": 0, "min_ev": 0, "diam": 0,
+          "M_aa": 2, "M_ab": 1, "d_vec": 1, "rf_qq": 2}
+
+
+def _tensor_getter(data, tensors, band):
+    """name -> the caller's tensor, else the data's (cut to ``band`` =
+    (k0, k1) along its K axis when a band is asked for)."""
+    tensors = tensors or {}
+
+    def get(name):
+        if name in tensors:
+            return tensors[name]
+        v = getattr(data, name)
+        if band is None:
+            return v
+        return v.narrow(K_AXIS[name], band[0], band[1] - band[0])
+    return get
+
+
+def _band_rows(band, *vs):
+    """The band's subdomain rows of [..., K, n] tensors (all of them
+    without a band)."""
+    if band is None:
+        return vs
+    return tuple(v[..., band[0]:band[1], :] for v in vs)
+
+
 def _contract(theta, stacked):
     """sum_q theta[..., q] * stacked[q, ...] with theta [Q] or [B, Q]."""
     return torch.tensordot(theta, stacked, dims=([-1], [0]))
 
 
 def aggregate_eta(est, mu, eta_nc, eta_r, eta_df, decompose: bool = False,
-                  paper_convention: bool = False):
+                  paper_convention: bool = False, norm=None):
     """Aggregate the squared local quantities [B, K] into eta (and with
-    ``decompose`` the [K, B] triples and marking indicators) for one mu."""
+    ``decompose`` the [K, B] triples and marking indicators) for one mu.
+    ``norm`` is the 2-norm over the subdomains; a caller that holds a band
+    of K passes its all-reduced norm (``parallel.mesh.psum_norm``)."""
     a_bar = est.alpha(mu, est.data.mu_bar)
     g_bar = est.gamma(mu, est.data.mu_bar)
     a_hat = est.alpha(mu, est.data.mu_hat)
@@ -77,8 +107,9 @@ def aggregate_eta(est, mu, eta_nc, eta_r, eta_df, decompose: bool = False,
         eta_r = torch.sqrt(torch.clamp(eta_r, min=0.0))
         eta_df = torch.sqrt(torch.clamp(eta_df, min=0.0))
 
-    def norm(v):
-        return torch.sqrt(torch.sum(v * v))
+    if norm is None:
+        def norm(v):
+            return torch.sqrt(torch.sum(v * v))
 
     eta = (torch.sqrt(g_bar) * norm(eta_nc)
            + (1.0 / torch.sqrt(a_hat)) * norm(eta_r + eta_df)) / torch.sqrt(a_bar)
@@ -124,9 +155,15 @@ class EllipticEstimator:
         return (th * t_q).sum(0)
 
     def local_quantities(self, U, mu, tensors: dict | None = None,
-                         elliptic_reconstruction: bool = False, d_model=None):
+                         elliptic_reconstruction: bool = False, d_model=None,
+                         band=None):
         """Matrix-form squared local quantities; U [..., K, N] -> each
         [..., K] (needs the non-lean estimator tensors).
+
+        ``band`` = (k0, k1): the quantities of subdomains [k0, k1) only
+        (U is still the whole field: the Oswald interpolation and the flux
+        reconstruction read the neighbors); ``tensors`` then holds the
+        band's tensors, and any missing one is cut from the data.
 
         ``elliptic_reconstruction`` adds the parabolic extension of the
         residual part, per subdomain (``d_model`` supplies the operator, the
@@ -134,21 +171,24 @@ class EllipticEstimator:
           eta_r += (M^-1 B u)^T L2 (M^-1 B u) - (M^-1 F)^T L2 (M^-1 F)
                    - 2 (M^-1 (B u - F))^T L2 div(t)."""
         d = self.data
-        g = (tensors or {}).get
+        g = _tensor_getter(d, tensors, band)
         dtype, dev = U.dtype, U.device
         theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
         theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
         t = self.reconstruct_flux(U, mu)
         U_o = d.oswald.apply(U)
-        eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, g("E_bar", d.E_bar), U_o)
-        rf = torch.einsum("...p,...r,prk->...k", theta_f, theta_f, g("rf_qq", d.rf_qq))
-        r_fd = torch.einsum("...p,pkn,...kn->...k", theta_f, g("d_vec", d.d_vec), t)
-        r_dd = torch.einsum("...kn,knm,...km->...k", t, g("R_dd", d.R_dd), t)
+        U, t, U_o = _band_rows(band, U, t, U_o)
+        eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, g("E_bar"), U_o)
+        rf = torch.einsum("...p,...r,prk->...k", theta_f, theta_f, g("rf_qq"))
+        r_fd = torch.einsum("...p,pkn,...kn->...k", theta_f, g("d_vec"), t)
+        r_dd = torch.einsum("...kn,knm,...km->...k", t, g("R_dd"), t)
         eta_r = rf - 2.0 * r_fd + r_dd
         if elliptic_reconstruction:
             if d_model is None:
                 raise ValueError("elliptic_reconstruction needs the model (d_model=)")
-            L2 = g("L2", d.L2)
+            if band is not None:
+                raise ValueError("the elliptic reconstruction is evaluated on all subdomains")
+            L2 = g("L2")
             BU_R = d_model.l2_solve(d_model.operator_apply(U, mu))
             F_R = d_model.l2_solve(d_model.rhs(mu)).expand(U.shape)
             div_t = torch.einsum("nr,...kr->...kn", d.A_div, t)
@@ -158,35 +198,41 @@ class EllipticEstimator:
 
             eta_r = (eta_r + form(BU_R, BU_R) - form(F_R, F_R)
                      - 2.0 * form(BU_R - F_R, div_t))
-        scale = (self.poincare_constant / g("min_ev", d.min_ev)) * g("diam", d.diam) ** 2
+        scale = (self.poincare_constant / g("min_ev")) * g("diam") ** 2
         eta_r = eta_r * scale
         aa = torch.einsum("...p,...r,prknm,...kn,...km->...k",
-                          theta, theta, g("M_aa", d.M_aa), U, U)
-        bb = torch.einsum("...kn,knm,...km->...k", t, g("BB", d.BB), t)
-        ab = torch.einsum("...p,pknm,...kn,...km->...k", theta, g("M_ab", d.M_ab), U, t)
+                          theta, theta, g("M_aa"), U, U)
+        bb = torch.einsum("...kn,knm,...km->...k", t, g("BB"), t)
+        ab = torch.einsum("...p,pknm,...kn,...km->...k", theta, g("M_ab"), U, t)
         return eta_nc, eta_r, aa + bb + 2.0 * ab
 
-    def local_quantities_positive(self, U, mu, tensors: dict | None = None):
+    def local_quantities_positive(self, U, mu, tensors: dict | None = None, band=None):
         """Cancellation-free evaluation of the squared local quantities as
         manifestly non-negative integrals (kappa = I):
 
           eta_r_sq  ~ int (f(mu) - div t)^2,
           eta_df_sq = int (lam(mu) k grad u + t) . (lam_hat k)^{-1} (...).
+
+        ``band``: as in :meth:`local_quantities`.
         """
         d = self.data
         sp = d.flux.space
         if getattr(sp, "dim", 2) == 3:
-            return self._local_quantities_positive3(U, mu, tensors)
+            return self._local_quantities_positive3(U, mu, tensors, band)
         dtype, dev = U.dtype, U.device
+        g = _tensor_getter(d, tensors, band)
         theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
         theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
 
-        E_bar = (tensors or {}).get("E_bar", d.E_bar).to(dtype)
+        E_bar = g("E_bar").to(dtype)
         t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
         U_o = d.oswald.apply(U)
+        U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 
         xq = asm.tensor(asm.vol_points(sp), dtype, dev)        # [K,s,s,T,nq,2]
+        if band is not None:
+            xq = xq[band[0]:band[1]]
         w = asm.tensor(sp.vol_w, dtype, dev)
         area = sp.hx * sp.hy
         lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
@@ -197,7 +243,7 @@ class EllipticEstimator:
         # for order 1, RT1 for order 2) with div at the quadrature points
         ein = lambda e: asm.vol_ein(sp, e)                     # noqa: E731
         dphi = asm.tensor(sp.vol_dphi, dtype, dev)             # [T,nq,nb,2]
-        Uc = U.reshape(U.shape[:-2] + (sp.K, sp.s, sp.s, sp.T, sp.nb))
+        Uc = U.reshape(U.shape[:-2] + (U.shape[-2], sp.s, sp.s, sp.T, sp.nb))
         gu = torch.einsum(ein("...kyxtj,tqja->...kyxtqa"), Uc, dphi)
         chi, idx, div_q, _nrt = rt_tab_any_order(sp)
         nf = idx.shape[-1]
@@ -214,32 +260,36 @@ class EllipticEstimator:
         div_t = torch.einsum(ein("...kyxte,tqe->...kyxtq"), t_cell,
                              asm.tensor(div_q, dtype, dev))
         res = f_mu - div_t
-        scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
+        scale = ((self.poincare_constant / g("min_ev")) * g("diam") ** 2).to(dtype)
         eta_r = area * torch.einsum(ein("tq,...kyxtq->...k"), w, res * res) * scale
         return eta_nc, eta_r, eta_df
 
-    def _local_quantities_positive3(self, U, mu, tensors: dict | None = None):
+    def _local_quantities_positive3(self, U, mu, tensors: dict | None = None, band=None):
         """3D hex variant of :meth:`local_quantities_positive` (the same
         manifestly non-negative integrals; kappa = I)."""
         d = self.data
         sp = d.flux.space
         dtype, dev = U.dtype, U.device
+        g = _tensor_getter(d, tensors, band)
         theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=dtype, device=dev)
         theta_f = evaluate_coefficients(d.f_coeffs, mu, dtype=dtype, device=dev)
 
-        E_bar = (tensors or {}).get("E_bar", d.E_bar).to(dtype)
+        E_bar = g("E_bar").to(dtype)
         t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
         U_o = d.oswald.apply(U)
+        U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 
         xq = asm3.vol_points(sp, dtype, dev)                   # [K, C, nq, 3]
+        if band is not None:
+            xq = xq[band[0]:band[1]]
         w = asm.tensor(sp.vol_w, dtype, dev)
         lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
         lam_mu = _contract(theta, lam_q)                       # [..., K, C, nq]
         lam_hat_v = d.lambda_hat(xq).to(dtype)
 
         C = sp.s ** 3
-        Uc = U.reshape(U.shape[:-2] + (sp.K, C, sp.nb))
+        Uc = U.reshape(U.shape[:-2] + (U.shape[-2], C, sp.nb))
         gu = torch.einsum("...kcj,qja->...kcqa", Uc, asm.tensor(sp.vol_dphi, dtype, dev))
         # the degree-matched RT hex tab (RT0 for Q1, RT_[1] for Q2) with div
         # at the quadrature points
@@ -257,7 +307,7 @@ class EllipticEstimator:
         div_t = torch.einsum("...kce,qe->...kcq", t_cell,
                              asm.tensor(np.ascontiguousarray(div_q), dtype, dev))
         res = f_mu - div_t
-        scale = ((self.poincare_constant / d.min_ev) * d.diam ** 2).to(dtype)
+        scale = ((self.poincare_constant / g("min_ev")) * g("diam") ** 2).to(dtype)
         eta_r = sp.volume * torch.einsum("q,...kcq->...k", w, res * res) * scale
         return eta_nc, eta_r, eta_df
 

@@ -1,11 +1,15 @@
 """Offline weak-greedy basis construction, batched over the training set.
 
 The port of ``pylrbms_tpu/greedy.py``: ``weak_greedy`` and the parabolic
-``pod_greedy`` (the device-mesh sharding of the sweep is not ported yet).  The greedy's inner loop — "estimate the reduced error for every
-training parameter" — is ONE lane-batched evaluation over the whole training
-set: the reduced solves are one batched dense ``[B, R, R]`` LU, the
+``pod_greedy``.  The greedy's inner loop — "estimate the reduced error for
+every training parameter" — is ONE lane-batched evaluation over the whole
+training set: the reduced solves are one batched dense ``[B, R, R]`` LU, the
 localized estimator and the residual Gramian forms are batched einsums, and
 the direct FOM residual goes through the lane-batched stencil operator.
+With a :class:`~pylrbms_tpu_torch.parallel.mesh.SubdomainMesh` the sweep is
+split over the ranks by training parameter (it is embarrassingly parallel
+in mu): each rank evaluates its share of the lanes and the surrogates are
+all-gathered, so every rank takes the same argmax.
 """
 from __future__ import annotations
 
@@ -40,7 +44,28 @@ def _stack_mus(mus):
     return {k: torch.stack([torch.as_tensor(mu[k]) for mu in mus]) for k in mus[0].keys()}
 
 
-def batched_estimates(rd, mus_stacked, criterion: str = "estimator"):
+def _pad_lanes(mus_stacked, n: int):
+    """The lane axis padded to a multiple of ``n`` by TILING (so that a
+    batch smaller than the pad still splits evenly); returns (padded
+    stacked mus, original B)."""
+    B = next(iter(mus_stacked.values())).shape[0]
+    pad = (-B) % n
+    if pad:
+        reps = 1 + -(-pad // B)
+        mus_stacked = {k: torch.cat([torch.as_tensor(v)] * reps)[:B + pad]
+                       for k, v in mus_stacked.items()}
+    return mus_stacked, B
+
+
+def _shard_batch(mesh, mus_stacked):
+    """This rank's share of the training lanes: :func:`_pad_lanes` to the
+    mesh size, then cut into contiguous parts.  Returns (this rank's
+    stacked mus, original B)."""
+    padded, B = _pad_lanes(mus_stacked, mesh.size)
+    return {k: mesh.put(v, mesh.shard_k(0)) for k, v in padded.items()}, B
+
+
+def batched_estimates(rd, mus_stacked, criterion: str = "estimator", mesh=None):
     """Error surrogate [B] for every training parameter in one lane-batched
     evaluation.  criterion='residual' uses the algebraic-residual dual norm
     via the projected Gramians (N-independent; goes to 0 as ROM -> FOM);
@@ -48,7 +73,15 @@ def batched_estimates(rd, mus_stacked, criterion: str = "estimator"):
     matrix-free stencil operator — numerically exact where the expanded
     quadratic form cancels below floating-point noise (high-contrast
     problems at scale); 'estimator' uses the LRBMS total-error estimator
-    (floored by the discretization error: the certification quantity)."""
+    (floored by the discretization error: the certification quantity).
+
+    With ``mesh`` each rank evaluates its share of the lanes
+    (:func:`_shard_batch`) and the [B] surrogates are all-gathered: every
+    rank returns the same tensor."""
+    if mesh is not None:
+        mine, B = _shard_batch(mesh, mus_stacked)
+        part = batched_estimates(rd, mine, criterion).to(mesh.device)
+        return mesh.gather(part.contiguous(), mesh.shard_k(0))[:B]
     if criterion == "residual" and rd.G_AA is None:
         # the reductor skipped the algebraic-residual Gramians
         criterion = "residual_fom"
@@ -75,7 +108,7 @@ def weak_greedy(d, training_set, target_error: float = 1e-4,
                 order: int = 0, criterion: str = "residual",
                 checkpoint_path: Optional[str] = None,
                 resume: bool = False,
-                snapshot_options: Optional[dict] = None) -> GreedyResult:
+                snapshot_options: Optional[dict] = None, mesh=None) -> GreedyResult:
     """Weak greedy: until the worst surrogate error over the training set
     drops below target_error, pick the worst parameter, FOM-solve it, extend
     the local bases blockwise, re-project.  Parameters whose snapshot adds
@@ -90,7 +123,13 @@ def weak_greedy(d, training_set, target_error: float = 1e-4,
     snapshot only feeds the basis through Gram-Schmidt, so accuracy far
     below the greedy's own surrogate target buys nothing, while the default
     model precision (1e-10) lengthens the Krylov tail (the preconditioner
-    is frozen at mu_bar, so the tail flattens for far-away mus)."""
+    is frozen at mu_bar, so the tail flattens for far-away mus).
+
+    ``mesh`` (a SubdomainMesh) splits the surrogate sweep over its ranks
+    (:func:`batched_estimates`); every rank holds the same surrogates, picks
+    the same worst parameter and runs the same (replicated) snapshot solve,
+    extension and re-reduction.  Pass a reductor with ``mesh=`` to run the
+    re-reductions K-sharded too."""
     logger = getLogger("pylrbms.greedy")
     snapshot_options = {**(d.solver_options or {}), "precision": 1e-8,
                         **(snapshot_options or {})}
@@ -142,7 +181,7 @@ def weak_greedy(d, training_set, target_error: float = 1e-4,
         with T.span('greedy: surrogate sweep'):
             # the host copy blocks: the span also absorbs device work the
             # preceding re-reduction left in flight
-            etas = batched_estimates(rd, stacked, criterion).detach().cpu().numpy()
+            etas = batched_estimates(rd, stacked, criterion, mesh=mesh).detach().cpu().numpy()
         sel = np.where(retired, -np.inf, etas)
         worst = int(np.argmax(sel))
         max_eta = float(etas[worst])

@@ -9,6 +9,14 @@ lane is still active (``|r|^2 > tol^2 |b|^2`` and ``it < maxiter``), so each
 lane's iterate sequence is the plain CG sequence and its iteration count is
 its own.  Convergence is read on the host once per ``chunk`` body
 evaluations — the only host synchronization of the loop.
+
+With ``comm`` (an object whose ``sum`` all-reduces a tensor over the ranks
+that share the subdomain axis, e.g. a
+:class:`~pylrbms_tpu_torch.parallel.mesh.SubdomainMesh`) every vector holds
+one rank's band of subdomains and every dot product is the sum of the
+ranks' partials: ``p . Ap`` in one all-reduce, ``r . z`` and ``r . r`` of
+the new residual stacked into a second one.  Each rank then reads the same
+numbers, so every rank stops on the same iteration.
 """
 from __future__ import annotations
 
@@ -25,36 +33,47 @@ def lane_dot(u, v):
     return (u * v).sum(dim=(-2, -1))
 
 
-def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None):
+def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None, comm=None):
     """Preconditioned CG on ``b`` [..., K, N]; ``M(r) -> (z, rz)`` returns the
-    preconditioned residual and the per-lane CG scalar ``r . z``.  Returns
-    ``(x, iters)`` with ``iters`` of the lane shape.  Stopping per lane:
+    preconditioned residual and the per-lane CG scalar ``r . z`` (with
+    ``comm``: this rank's partial of it).  Returns ``(x, iters)`` with
+    ``iters`` of the lane shape.  Stopping per lane:
     ``||r||_2 <= tol * ||b||_2`` on the recurrence residual, or ``maxiter``."""
     if chunk is None:
         chunk = default_chunk(b.device)
-    atol2 = (tol ** 2) * torch.clamp(lane_dot(b, b), min=torch.finfo(b.dtype).tiny)
+    if comm is None:
+        def total(*partials):
+            return partials if len(partials) > 1 else partials[0]
+    else:
+        def total(*partials):
+            return tuple(comm.sum(torch.stack(partials)).unbind(0)) \
+                if len(partials) > 1 else comm.sum(partials[0])
+    atol2 = (tol ** 2) * torch.clamp(total(lane_dot(b, b)), min=torch.finfo(b.dtype).tiny)
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
     r = b - matvec(x)
     z, rz = M(r)
+    rz, rr = total(rz, lane_dot(r, r))
     p = z
     it = torch.zeros(b.shape[:-2], dtype=torch.int64, device=b.device)
 
     def active():
-        return (lane_dot(r, r) > atol2) & (it < maxiter)
+        return (rr > atol2) & (it < maxiter)
 
     while bool(active().any()):
         for _ in range(chunk):
             act = active()
             Ap = matvec(p)
-            alpha = rz / lane_dot(p, Ap)
+            alpha = rz / total(lane_dot(p, Ap))
             xn = x + alpha[..., None, None] * p
             rn = r - alpha[..., None, None] * Ap
             zn, rzn = M(rn)
+            rzn, rrn = total(rzn, lane_dot(rn, rn))
             pn = zn + (rzn / rz)[..., None, None] * p
             sel = act[..., None, None]
             x = torch.where(sel, xn, x)
             r = torch.where(sel, rn, r)
             p = torch.where(sel, pn, p)
             rz = torch.where(act, rzn, rz)
+            rr = torch.where(act, rrn, rr)
             it = it + act.to(it.dtype)
     return x, it

@@ -825,7 +825,7 @@ class InstationaryBlockModel:
                   two_level: bool = None, coarse_modes: int = 16,
                   coarse_space: str = "harvested", precision: str = None,
                   extrapolate: bool = True, return_iters: bool = False,
-                  inner: str = None):
+                  inner: str = None, mesh=None):
         """Matrix-free implicit Euler: G = M + dt A as one stencil family
         (the mass is its first component, :func:`mass_stencil`), the M
         apply is the mass component alone, the per-mu block-Jacobi factors
@@ -839,22 +839,31 @@ class InstationaryBlockModel:
         or, with ``inner='halo'``, the halo-dense form of the dense G built
         once per mu (``ops/halodense.py``: one gather and one batched
         product per apply); the f64 residuals keep the stencil.  Returns the
-        trajectory (and the iterations per step with ``return_iters``)."""
+        trajectory (and the iterations per step with ``return_iters``).
+
+        With ``mesh`` (a :class:`~pylrbms_tpu_torch.parallel.mesh.SubdomainMesh`)
+        the trajectory runs K-sharded: G and M are banded stencils (one halo
+        exchange per apply), the block factors are built for the rank's
+        band only, the coarse level (built on every rank) is applied as in
+        ``mesh.mf_solve``, and the result is this rank's band
+        [nt+1, Kb, N] (``inner='halo'`` is not sharded)."""
         st = self.stationary
         mu = self.parse_parameter(mu)
-        G_sop, M_op = self._mf_parab_setup()
+        G_sop, M_op = self._mf_parab_setup(mesh)
         theta = st.theta(mu)
         theta_G = torch.cat([torch.ones_like(theta[:1]), dt * theta])
-        bf = self._parab_factors(dt * theta)
+        band = None if mesh is None else mesh.band(st.space.K)
+        bf = self._parab_factors(dt * theta, band)
         if two_level is None:
             two_level = st.space.K * st.space.N > MF_SOLVE_MIN_DOFS
         C = ci = None
         if two_level:
             C, ci = self._mf_parab_coarse(dt, theta, coarse_space, coarse_modes)
+            C = C if band is None else C[band[0]:band[1]]
         precision = self._resolve_traj_precision(precision)
         inner = self._resolve_traj_inner(inner, precision)
         traj, its = self._mf_traj(G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol,
-                                  maxiter, precision, extrapolate, inner)
+                                  maxiter, precision, extrapolate, inner, mesh=mesh)
         self.last_solve_iters = its
         return (traj, its) if return_iters else traj
 
@@ -877,9 +886,10 @@ class InstationaryBlockModel:
             raise ValueError(f"unknown trajectory precision {precision!r}")
         return precision
 
-    def _mf_parab_setup(self):
+    def _mf_parab_setup(self, mesh=None):
         """(G_sop, M_op): the stencil family of G = M + dt A (the mass
-        first, built once per stationary model) and the assembled mass."""
+        first, built once per stationary model) and the assembled mass;
+        with ``mesh`` both are the rank's banded stencils."""
         st = self.stationary
         sop = st.mf_operator()
         _, Op, mk_mass = _stencil_kit(st.space)
@@ -888,16 +898,20 @@ class InstationaryBlockModel:
             if m_st is None:
                 m_st = st._mf_cache["mass_stencil"] = mk_mass(st.space, sop.stencils[0])
         G_sop = Op(st.space, (m_st,) + tuple(sop.stencils))
-        M_op = Op(st.space, (m_st,)).assemble(
-            torch.ones((1,), dtype=m_st.vol.dtype, device=m_st.vol.device))
+        M_sop = Op(st.space, (m_st,))
+        if mesh is not None:
+            G_sop, M_sop = mesh.shard_stencil(G_sop), mesh.shard_stencil(M_sop)
+        M_op = M_sop.assemble(torch.ones((1,), dtype=m_st.vol.dtype, device=m_st.vol.device))
         return G_sop, M_op
 
-    def _parab_factors(self, dt_theta):
+    def _parab_factors(self, dt_theta, band=None):
         """Block-Jacobi factors of M + dt A(theta) for dt_theta [Q], or one
-        set per lane for [B, Q]."""
-        A_diag = self.stationary.op.A_diag
+        set per lane for [B, Q]; with ``band`` = (k0, k1) those of
+        subdomains [k0, k1) only."""
+        k = slice(None) if band is None else slice(*band)
+        A_diag = self.stationary.op.A_diag[:, k]
         return block_jacobi_factors(
-            self.mass + torch.einsum("...q,qkij->...kij", dt_theta.to(A_diag), A_diag))
+            self.mass[k] + torch.einsum("...q,qkij->...kij", dt_theta.to(A_diag), A_diag))
 
     def _parab_diag_q(self):
         """[1+Q, K, N] diagonals of (mass, A_1..A_Q): with theta_G they
@@ -927,18 +941,29 @@ class InstationaryBlockModel:
         return pre
 
     def _mf_traj(self, G_sop, M_op, theta_G, bf, C, ci, mu, dt, tol, maxiter,
-                 precision, extrapolate, inner="stencil"):
+                 precision, extrapolate, inner="stencil", mesh=None):
         """The trajectory loop for theta_G [1+Q] (one mu) or [B, 1+Q] (B
         lanes of one per-lane frozen PCG, mu with [B, ...] leaves).
-        Returns (trajectory [(B,) nt+1, K, N], iterations [(B,) nt])."""
+        Returns (trajectory [(B,) nt+1, K, N], iterations [(B,) nt]); with
+        ``mesh`` the operators, ``bf`` and ``C`` are the rank's bands and so
+        is the trajectory."""
         st = self.stationary
         K, N = st.space.K, st.space.N
+        rhs_q, diag_q, ir_kw = st.rhs_q, self._parab_diag_q, {}
+        if mesh is not None:
+            if inner == "halo":
+                raise ValueError("inner='halo' is not K-sharded")
+            k0, k1 = mesh.band(K)
+            rhs_q = rhs_q[:, k0:k1]
+            diag_q = lambda: self._parab_diag_q()[:, k0:k1]          # noqa: E731
+            ir_kw = dict(comm=mesh, band=(k0, K))
+            K = k1 - k0
         lanes = tuple(theta_G.shape[:-1])
         G = G_sop.assemble(theta_G)
         if precision == "mixed":
             if lanes:
                 raise ValueError("the mixed trajectory takes one mu at a time")
-            dvec = torch.einsum("q,qkn->kn", theta_G, self._parab_diag_q())
+            dvec = torch.einsum("q,qkn->kn", theta_G, diag_q())
             if inner == "halo":
                 G_dense = self._euler_operator(st.op.assemble(theta_G[1:] / dt), dt)
                 G32 = halo_from_assembled(G_dense, dtype=torch.float32)
@@ -948,13 +973,13 @@ class InstationaryBlockModel:
         u = u_prev = torch.zeros(lanes + (K, N), dtype=st.dtype, device=st.device)
         traj, its = [u], []
         for n in range(self.nt):
-            f = torch.einsum("...q,qkn->...kn", theta_f[n], st.rhs_q)
+            f = torch.einsum("...q,qkn->...kn", theta_f[n], rhs_q)
             rhs = M_op.apply(u) + dt * f
             x0 = u + (u - u_prev) if extrapolate else u
             if precision == "mixed":
                 u_next, it32, _, it64 = solve_ir(
                     G, G32, rhs, dvec, tol=tol, maxiter=maxiter, block_factors=bf,
-                    coarse_basis=C, coarse_inv=ci, x0=x0, return_info=True)
+                    coarse_basis=C, coarse_inv=ci, x0=x0, return_info=True, **ir_kw)
                 it = it32 + it64
             else:
                 u_next, it = G.solve_pcg(rhs, tol=tol, maxiter=maxiter, block_factors=bf,
@@ -969,7 +994,7 @@ class InstationaryBlockModel:
                     tol: float = 1e-10, maxiter: int = 500,
                     two_level: bool = None, coarse_modes: int = 16,
                     coarse_space: str = "harvested", precision: str = None,
-                    extrapolate: bool = True, inner: str = None):
+                    extrapolate: bool = True, inner: str = None, mesh=None):
         """B implicit-Euler trajectories in one call: [B, nt+1, K, N].
 
         The lanes run one per-lane frozen chunked PCG through the
@@ -978,14 +1003,16 @@ class InstationaryBlockModel:
         factors are shared at mu_bar (``shared_preconditioner``) or built
         exactly per mu (B x [K, N, N], folded into one ``precond_dot``
         launch per apply).  ``precision='mixed'`` answers the lanes one by
-        one."""
+        one.  ``mesh``: K-sharded as in :meth:`_solve_mf` (the lanes share
+        the banded G stencil; the rank's band [B, nt+1, Kb, N] returned)."""
         st = self.stationary
         if not self._uses_stencil():
             raise NotImplementedError("solve_batch needs the matrix-free stencil path "
                                       "(estimator data with lambda_funcs)")
         dt = self.T / self.nt
         mus = [self.parse_parameter(m) for m in mus]
-        G_sop, M_op = self._mf_parab_setup()
+        G_sop, M_op = self._mf_parab_setup(mesh)
+        band = None if mesh is None else mesh.band(st.space.K)
         thetas = torch.stack([st.theta(m) for m in mus])                  # [B, Q]
         theta_G = torch.cat([torch.ones_like(thetas[:, :1]), dt * thetas], dim=1)
         if two_level is None:
@@ -993,21 +1020,22 @@ class InstationaryBlockModel:
         C = ci = None
         if two_level:
             C, ci = self._mf_parab_coarse(dt, thetas[0], coarse_space, coarse_modes)
+            C = C if band is None else C[band[0]:band[1]]
         if shared_preconditioner:
-            bf = self._parab_factors(dt * _resolve_theta_bar(st))
+            bf = self._parab_factors(dt * _resolve_theta_bar(st), band)
         else:
-            bf = self._parab_factors(dt * thetas)                         # [B, K, N, N]
+            bf = self._parab_factors(dt * thetas, band)                   # [B, K, N, N]
         precision = self._resolve_traj_precision(precision)
         inner = self._resolve_traj_inner(inner, precision)
         if precision == "mixed":
             outs = [self._mf_traj(G_sop, M_op, theta_G[b],
                                   bf if shared_preconditioner else bf[b], C, ci, mus[b],
-                                  dt, tol, maxiter, precision, extrapolate, inner)
+                                  dt, tol, maxiter, precision, extrapolate, inner, mesh=mesh)
                     for b in range(len(mus))]
             traj, its = torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
         else:
             stacked = {k: torch.stack([torch.as_tensor(m[k]) for m in mus]) for k in mus[0]}
             traj, its = self._mf_traj(G_sop, M_op, theta_G, bf, C, ci, stacked, dt, tol,
-                                      maxiter, precision, extrapolate)
+                                      maxiter, precision, extrapolate, mesh=mesh)
         self.last_solve_iters = its
         return traj

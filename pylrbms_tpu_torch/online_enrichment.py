@@ -80,6 +80,9 @@ class AdaptiveEnrichment:
         if self.batched_correctors:
             if self._corrector is None:
                 self._corrector = BatchedCorrector(self.discretization)
+                # inherit the reductor's mesh: the whole enrichment loop
+                # (corrector, re-reduction) then runs K-sharded
+                self._corrector.mesh = getattr(self.reductor, "mesh", None)
             marked_sorted = sorted(marked)
             with T.span('enrich: corrector solve') as _s:
                 W = self._corrector.solve(marked_sorted, mu, current_solution=u_full)
@@ -189,6 +192,7 @@ class ParabolicAdaptiveEnrichment:
                       - self.d.assemble(mu).apply(u_b))
             if self._corrector is None:
                 self._corrector = BatchedCorrector(self.d)
+                self._corrector.mesh = getattr(self.reductor, "mesh", None)
             mu_t = dict(mu)
             mu_t.setdefault("_t", 0.0)
             marked_sorted = sorted(marked)

@@ -34,6 +34,8 @@ patch solver in tests/test_torch_corrector.py.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -151,6 +153,8 @@ class BatchedCorrector:
                                   for q in range(Q)]).to(cdt)
         # PCG iterations of the last solve (the lock-step count of its lanes)
         self.last_iters = None
+        # default SubdomainMesh of solve (the enrichment sets the reductor's)
+        self.mesh = None
 
     def enable_stencil(self):
         """Use the matrix-free patch apply (at any scale: the test hook)."""
@@ -159,49 +163,91 @@ class BatchedCorrector:
         return self
 
     # ------------------------------------------------------------------
-    def _solve(self, theta, marked, rhs_full, tol, maxiter, two_level):
+    def _view(self, e0: int, e1: int):
+        """The corrector's pieces on subdomains [e0, e1) (whole rows, the
+        interfaces inside them renumbered from 0): static, neighbor table
+        (a neighbor outside the rows counts as boundary), A_loc, D_side,
+        interface quadruples and the stencil (space, stencils)."""
+        K = self.st.K
+        if (e0, e1) == (0, K):
+            return SimpleNamespace(st=self.st, nbr=self.nbr, A_loc=self.A_loc,
+                                   D_side=self.D_side, quads=self.quads,
+                                   space=self.d.space, stencils=self.stencils)
+        from ..parallel.stencil import BandSpace, _slice_stencil, band_static, rows_of
+        st_e, sel = band_static(self.st, e0, e1)
+        nbr = self.nbr[e0:e1] - e0
+        nbr[(nbr < 0) | (nbr >= e1 - e0)] = -1
+        dev = self.A_loc.device
+        quads = {stem: {nm: C[:, torch.as_tensor(sel[pk[0]], device=dev)]
+                        for nm, C in self.quads[stem].items()}
+                 for stem, _hi, _lo, pk, _fl in self.axes}
+        space = stencils = None
+        if self.stencils is not None:
+            row = rows_of(self.st, self.dim3)[1]
+            space = BandSpace(self.d.space, (e1 - e0) // row)
+            stencils = tuple(_slice_stencil(t, self.d.space, e0 // row, e1 // row)
+                             for t in self.stencils)
+        return SimpleNamespace(st=st_e, nbr=nbr, A_loc=self.A_loc[:, e0:e1],
+                               D_side={sd: v[:, e0:e1] for sd, v in self.D_side.items()},
+                               quads=quads, space=space, stencils=stencils)
+
+    def _solve(self, theta, marked, rhs_full, tol, maxiter, two_level, mesh=None):
         st = self.st
         K, N, nb = st.K, st.N, st.nb
         B = marked.numel()
         dev = rhs_full.device
         side_rows = self.side_rows
         mix = lambda C: torch.einsum("q,q...->...", theta, C)       # noqa: E731
-        A_loc = mix(self.A_loc).contiguous()
-        D = {sd: mix(self.D_side[sd]) for sd in self.sides}
         idx = lambda a: torch.as_tensor(a, device=dev)              # noqa: E731
+        pmask_full = self.patch_mask_table[marked]                  # [B, K]
+        # K-sharded: this rank's rows [k0, k1) and the rows [e0, e1) with
+        # one halo row on each side that has a neighbor; the apply runs on
+        # the latter and keeps the former
+        if mesh is None:
+            k0, k1, e0, e1, row = 0, K, 0, K, 0
+        else:
+            from ..parallel.stencil import band_rows, rows_of
+            n_rows, row = rows_of(st, self.dim3)
+            r0, r1, lo, hi = band_rows(mesh, n_rows)
+            k0, k1, e0, e1 = r0 * row, r1 * row, (r0 - lo) * row, (r1 + hi) * row
+        v = self._view(e0, e1)
+        Ke = e1 - e0
+        kb = slice(k0 - e0, k1 - e0)
+        A_loc = mix(v.A_loc).contiguous()
+        D = {sd: mix(v.D_side[sd]) for sd in self.sides}
         # per axis: (theta-assembled quadruples, hi side, lo side, lower /
         # upper subdomain of each pair, flat-rows family)
-        fams = [({nm: mix(C) for nm, C in self.quads[stem].items()}, hi, lo,
-                 idx(getattr(st, pk[0])), idx(getattr(st, pk[1])), fl)
+        fams = [({nm: mix(C) for nm, C in v.quads[stem].items()}, hi, lo,
+                 idx(getattr(v.st, pk[0])), idx(getattr(v.st, pk[1])), fl)
                 for stem, hi, lo, pk, fl in self.axes]
 
-        pmask = self.patch_mask_table[marked]                       # [B, K]
+        pmask = pmask_full[:, e0:e1]                                # [B, Ke]
         pm3 = pmask[:, :, None]
-        # neighbor-inside-patch [B, K, 4]; Dirichlet on side i of member k
+        # neighbor-inside-patch [B, Ke, 4]; Dirichlet on side i of member k
         # iff k is in the patch and its neighbor is not
-        nbr = idx(self.nbr)
+        nbr = idx(v.nbr)
         nbr_in = torch.where(nbr[None] >= 0, pmask[:, torch.clamp(nbr, min=0)],
                              torch.zeros((), dtype=pmask.dtype, device=dev))
         dir_mask = pm3 * (1.0 - nbr_in)
 
-        # preconditioner: all-Dirichlet local diagonal blocks, symmetrically
-        # Jacobi-scaled, inverted once per parameter
-        A_dir = A_loc.clone()
+        # preconditioner: all-Dirichlet local diagonal blocks of the band,
+        # symmetrically Jacobi-scaled, inverted once per parameter
+        A_dir = A_loc[kb].clone()
         for sd in self.sides:
             rows = side_rows[sd].reshape(-1, nb)
-            A_dir[:, rows[:, :, None], rows[:, None, :]] += D[sd]
+            A_dir[:, rows[:, :, None], rows[:, None, :]] += D[sd][kb]
         dg = torch.diagonal(A_dir, dim1=-2, dim2=-1)
         sc = torch.where(dg > 0, 1.0 / torch.sqrt(torch.where(dg > 0, dg, torch.ones_like(dg))),
                          torch.ones_like(dg))
         S = sc[:, :, None] * sc[:, None, :]
         Minv = (torch.linalg.inv(A_dir * S) * S).contiguous()
 
-        flat = st.flat_rows(dev)
+        flat = v.st.flat_rows(dev)
 
-        if self.stencils is not None:
+        if v.stencils is not None:
             Op = StencilOperator3 if self.dim3 else StencilOperator
-            sA = Op(self.d.space, self.stencils).assemble(theta)
-            gdims = (st.kz, st.ky, st.kx) if self.dim3 else (st.ky, st.kx)
+            sA = Op(v.space, v.stencils).assemble(theta)
+            gdims = (v.st.kz, v.st.ky, v.st.kx) if self.dim3 else (v.st.ky, v.st.kx)
             nd = len(gdims)
             F = side_rows[SIDES[0]].numel() // nb
             # (family, D side of the LO subdomain, of the HI one, grid axis:
@@ -209,7 +255,7 @@ class BatchedCorrector:
             cross_fams = [(Cq, hi, lo, nd - 1 - a)
                           for a, (Cq, hi, lo, *_r) in enumerate(fams)]
 
-            def apply(x):                              # x [B, K, N]
+            def apply_rows(x):                         # x [B, Ke, N]
                 xm = x * pm3
                 y = sA.apply(xm)
                 # patch-crossing faces: the global stencil applied the
@@ -238,7 +284,7 @@ class BatchedCorrector:
                     eshape = tuple(g - 1 if i == ax else g for i, g in enumerate(gdims))
                     cross(Cq["in_in"], D[sd_lo], side_rows[sd_lo], lo, hi, eshape)
                     cross(Cq["out_out"], D[sd_hi], side_rows[sd_hi], hi, lo, eshape)
-                return yg.reshape(B, K, N) * pm3
+                return yg.reshape(B, Ke, N) * pm3
         else:
             A1 = A_loc[None]
 
@@ -256,57 +302,88 @@ class BatchedCorrector:
                 yf.index_add_(1, fl.reshape(-1), (gate * upd_l).reshape(B, -1))
                 yf.index_add_(1, fr.reshape(-1), (gate * upd_r).reshape(B, -1))
 
-            def apply(x):                              # x [B, K, N], contiguous
+            def apply_rows(x):                         # x [B, Ke, N], contiguous
                 y = block_matvec(A1, x)
                 for i, sd in enumerate(self.sides):
                     rows = side_rows[sd]
-                    xs = x[..., rows].reshape(B, K, -1, nb)
+                    xs = x[..., rows].reshape(B, Ke, -1, nb)
                     upd = torch.einsum("kfij,bkfj->bkfi", D[sd], xs)
-                    y[..., rows] += dir_mask[:, :, i, None] * upd.reshape(B, K, rows.numel())
+                    y[..., rows] += dir_mask[:, :, i, None] * upd.reshape(B, Ke, rows.numel())
                 yf, xf = y.view(B, -1), x.reshape(B, -1)
                 for Cq, _hi, _lo, kl, kr, fl in fams:
                     couple(yf, xf, Cq, *flat[fl], kl, kr)
                 return y * pm3
 
-        def dot(u, v):
-            return (u * v).sum(dim=(1, 2))             # per-batch [B]
+        pm_b = pmask_full[:, k0:k1]                                 # [B, Kb]
+        if mesh is None:
+            apply = apply_rows
+
+            def total(*t):
+                return t if len(t) > 1 else t[0]
+        else:
+            from ..parallel.stencil import extend_band
+
+            def apply(x):                              # x [B, Kb, N]: this rank's rows
+                return apply_rows(extend_band(mesh, x, row).contiguous())[:, kb]
+
+            def total(*t):
+                return tuple(mesh.sum(torch.stack(t)).unbind(0)) if len(t) > 1 else mesh.sum(t[0])
+
+        def dot(u, v_):
+            return (u * v_).sum(dim=(1, 2))            # per-batch [B]
 
         # M(r) -> (z, r . z).  precond_dot returns the fine level's
         # per-subdomain partials r[b,k] . (Minv[k] r[b,k]); the reference
         # masks z with pmask AFTER the product, so the partials are masked
         # the same way here (and the coarse term added) instead of masking
         # r before the launch: r . z then equals dot(r, z) for any r.
+        # K-sharded, r . z is this rank's partial (summed with r . r).
         if two_level:
             # additive patch-constant coarse level: the EXACT Galerkin
             # coarse matrix of the masked patch operator, + identity on the
-            # masked-out block ([[A_pp, 0], [0, I]] inverts blockwise)
+            # masked-out block ([[A_pp, 0], [0, I]] inverts blockwise); it
+            # needs the whole K (every rank builds it: [B, K, K])
+            fams_k = fams if mesh is None else [
+                ({nm: mix(C) for nm, C in self.quads[stem].items()}, hi, lo,
+                 idx(getattr(st, pk[0])), idx(getattr(st, pk[1])), fl)
+                for stem, hi, lo, pk, fl in self.axes]
+            D_k = D if mesh is None else {sd: mix(self.D_side[sd]) for sd in self.sides}
             A0c = torch.einsum("q,qkl->kl", theta, self.A0c_q)
-            Ac = (patch_coarse_matrix(A0c, pmask, [(Cq, D[hi], D[lo], kl, kr)
-                                                   for Cq, hi, lo, kl, kr, _f in fams])
-                  + torch.diag_embed(1.0 - pmask))
-            cinv = torch.linalg.inv(Ac)                                # [B, K, K]
+            Ac = (patch_coarse_matrix(A0c, pmask_full,
+                                      [(Cq, D_k[hi], D_k[lo], kl, kr)
+                                       for Cq, hi, lo, kl, kr, _f in fams_k])
+                  + torch.diag_embed(1.0 - pmask_full))
+            cinv = torch.linalg.inv(Ac)[:, k0:k1]                       # [B, Kb, K]
 
             def M(r):
                 fine, rz_k = precond_dot(Minv, r)
                 rs = r.sum(dim=2)
-                y = torch.einsum("bkl,bl->bk", cinv, rs)
-                return (fine + y[:, :, None]) * pm3, ((rz_k + y * rs) * pmask).sum(dim=1)
+                if mesh is None:
+                    rs_k = rs
+                else:
+                    rs_k = rs.new_zeros((B, K))
+                    rs_k[:, k0:k1] = rs
+                    rs_k = mesh.sum(rs_k)
+                y = torch.einsum("bkl,bl->bk", cinv, rs_k)
+                return ((fine + y[:, :, None]) * pm_b[:, :, None],
+                        ((rz_k + y * rs) * pm_b).sum(dim=1))
         else:
             def M(r):
                 fine, rz_k = precond_dot(Minv, r)
-                return fine * pm3, (rz_k * pmask).sum(dim=1)
+                return fine * pm_b[:, :, None], (rz_k * pm_b).sum(dim=1)
 
-        b = (rhs_full[None] * pm3).contiguous()
+        b = (rhs_full[None, k0:k1] * pm_b[:, :, None]).contiguous()
         x = torch.zeros_like(b)
         r = b.clone()                                  # b - apply(0)
         z, rz = M(r)
+        rz, rr = total(rz, dot(r, r))
         p = z
-        atol2 = (tol ** 2) * torch.clamp(dot(b, b), min=1e-300)
+        atol2 = (tol ** 2) * torch.clamp(total(dot(b, b)), min=1e-300)
         act = torch.ones((B,), dtype=torch.bool, device=dev)
         it = torch.zeros((), dtype=torch.int64, device=dev)
 
         def go():
-            return torch.any(act & (dot(r, r) > atol2)) & (it < maxiter)
+            return torch.any(act & (rr > atol2)) & (it < maxiter)
 
         # truncated CG with a negative-curvature FREEZE: at extreme
         # intra-cell coefficient contrast the one-sided-penalty patch system
@@ -317,19 +394,21 @@ class BatchedCorrector:
         # keep maxiter at the default O(300) for enrichment corrections.
         # The host reads ``go`` once per chunk; inside a chunk every body
         # evaluation is guarded by it on the device, which keeps ``it`` and
-        # fully converged states bitwise frozen.
+        # fully converged states bitwise frozen.  K-sharded, every value it
+        # reads is summed over the ranks: all ranks stop together.
         chunk = default_chunk(dev)
         while bool(go()):
             for _ in range(chunk):
                 run = go()
                 Ap = apply(p.contiguous())
-                pAp = dot(p, Ap)
+                pAp = total(dot(p, Ap))
                 act_n = act & (pAp > 0)
                 step = act_n.to(x.dtype)
                 alpha = step * rz / torch.where(pAp > 0, pAp, torch.ones_like(pAp))
                 x_n = x + alpha[:, None, None] * p
                 r_n = r - alpha[:, None, None] * Ap
                 z_n, rz_new = M(r_n)
+                rz_new, rr_n = total(rz_new, dot(r_n, r_n))
                 rz_n = torch.where(act_n, rz_new, rz)
                 # rz <= 0 (indefinite preconditioner at extreme contrast):
                 # restart with p = z instead of scaling by a meaningless
@@ -339,17 +418,33 @@ class BatchedCorrector:
                 p_n = z_n * step[:, None, None] + beta[:, None, None] * p
                 x, r, p = (torch.where(run, n, o) for n, o in ((x_n, x), (r_n, r), (p_n, p)))
                 rz = torch.where(run, rz_n, rz)
+                rr = torch.where(run, rr_n, rr)
                 act = torch.where(run, act_n, act)
                 it = it + run.to(it.dtype)
         self.last_iters = int(it)
         # each patch's own subdomain
-        return x[torch.arange(B, device=dev), marked, :]           # [B, N]
+        if mesh is None:
+            return x[torch.arange(B, device=dev), marked, :]       # [B, N]
+        mine = (marked >= k0) & (marked < k1)
+        W = torch.zeros((B, N), dtype=x.dtype, device=dev)
+        W[mine] = x[torch.arange(B, device=dev)[mine], marked[mine] - k0, :]
+        return mesh.sum(W)
 
     def solve(self, marked, mu=None, current_solution=None, mode="residual",
               tol: float = 1e-10, maxiter: int = 300, rhs_full=None,
-              two_level: bool = True):
+              two_level: bool = True, mesh=None):
         """marked: list[int] -> corrections [n_marked, N], row i for the
         i-th smallest marked subdomain.
+
+        With ``mesh`` (a SubdomainMesh; default ``self.mesh``) the union
+        patch solve runs K-banded over its ranks: each rank holds its rows
+        of the masked PCG iterate, applies the patch operator on band +
+        halo rows (one exchange per matvec: the block apply and the strip
+        couplings, or the banded stencil), preconditions on its band
+        (``precond_dot``) and sums every dot product and the coarse
+        residual over the ranks.  The small pieces (the rhs, the patch
+        masks, the [B, K, K] coarse inverse) are replicated.  Every rank
+        returns the same corrections.
 
         ``rhs_full`` [K, N], when given, overrides the built-in rhs modes:
         the patch solve then corrects against a caller-supplied residual.
@@ -372,4 +467,6 @@ class BatchedCorrector:
         if n_marked == 0:
             return torch.zeros((0, d.space.N), dtype=self.dtype, device=d.device)
         marked_t = torch.as_tensor(marked, device=d.device)
-        return self._solve(theta, marked_t, rhs_full.to(self.dtype), tol, maxiter, two_level)
+        mesh = mesh if mesh is not None else self.mesh
+        return self._solve(theta, marked_t, rhs_full.to(self.dtype), tol, maxiter, two_level,
+                           mesh=mesh)

@@ -281,7 +281,8 @@ def bmv(A, v):
 
 
 def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
-                 coarse_inv=None, coarse_basis=None, coarse_dtype=None):
+                 coarse_inv=None, coarse_basis=None, coarse_dtype=None,
+                 comm=None, band=None):
     """Preconditioner of the matrix-free solves, ``r [..., K, N] -> (z, rz)``
     for vectors in ``dtype``.
 
@@ -295,7 +296,14 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
     [K, N, m] ([K*m, K*m] inverse), or subdomain constants without a basis
     ([K, K]), applied in ``coarse_dtype`` (default ``dtype``).  ``rz`` is
     the per-lane r . z from the kernel's fused partials for f32 vectors on
-    block factors, else None (the caller takes r . z in r's dtype)."""
+    block factors, else None (the caller takes r . z in r's dtype).
+
+    K-sharded (``comm`` and ``band = (k0, K)``: r holds subdomains
+    [k0, k0 + Kb) of K, the factors and ``coarse_basis`` the same band,
+    ``coarse_inv`` the whole coarse inverse): the band's coarse residual is
+    placed into the K-long coarse vector and summed over the ranks
+    (``comm.sum``), the coarse solve takes the band's rows of the inverse,
+    and ``rz`` is this rank's partial."""
     f32 = torch.float32
     if block_factors is not None:
         Binv = (block_factors if block_factors.dtype == torch.bfloat16
@@ -326,18 +334,32 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
         return M_fine
     cdt = coarse_dtype or dtype
     Ci = coarse_inv.to(cdt)
+    mc = 1 if coarse_basis is None else coarse_basis.shape[-1]
+    if band is None:
+        def total(rc):
+            return rc
+    else:
+        k0, K_all = band
+        Ci = Ci[k0 * mc:]
+
+        def total(rc):
+            """[..., Kb, m] band residual -> [..., K, m] summed over ranks."""
+            full = rc.new_zeros(rc.shape[:-2] + (K_all, mc))
+            full[..., k0:k0 + rc.shape[-2], :] = rc
+            return comm.sum(full)
     if coarse_basis is not None:
         Cb = coarse_basis.to(cdt)
-        Kc, _, mc = Cb.shape
+        Kc = Cb.shape[0]
 
         def coarse(r):
-            rc = torch.einsum("knm,...kn->...km", Cb, r.to(cdt))
-            xc = torch.einsum("ij,...j->...i", Ci, rc.reshape(r.shape[:-2] + (-1,)))
+            rc = total(torch.einsum("knm,...kn->...km", Cb, r.to(cdt)))
+            xc = torch.einsum("ij,...j->...i", Ci[:Kc * mc], rc.reshape(r.shape[:-2] + (-1,)))
             return torch.einsum("knm,...km->...kn", Cb,
                                 xc.reshape(r.shape[:-2] + (Kc, mc))).to(r.dtype)
     else:
         def coarse(r):
-            xc = torch.einsum("ij,...j->...i", Ci, r.sum(-1).to(cdt))
+            rc = total(r.sum(-1, keepdim=True).to(cdt))[..., 0]
+            xc = torch.einsum("ij,...j->...i", Ci[:r.shape[-2]], rc)
             return xc.to(r.dtype)[..., None]
 
     def M(r):

@@ -28,8 +28,15 @@ of ``R_BUCKET``: it fixes the padded shapes.
 parabolic estimator tensors (built through an f64 inverse of the L2
 blocks); its :class:`ReducedParabolicModel` runs implicit Euler on the
 reduced system and the N-independent parabolic estimate.  The 3D hex
-family adds the z coupling family and 27-subdomain patches.  Not ported
-yet: ``mesh=`` (K-sharded projections, ``solve_sharded``).
+family adds the z coupling family and 27-subdomain patches.
+
+With a :class:`~pylrbms_tpu_torch.parallel.mesh.SubdomainMesh` (``mesh=``
+to the reductor or to ``reduce``) the projection runs K-sharded: each rank
+projects its band of subdomains (the coupling strips read the neighbors'
+basis from the replicated host bases), the Gramians are summed over the
+ranks and every rank receives the whole, replicated :class:`ReducedModel`
+(all_gather).  ``ReducedModel.solve_sharded`` is the block-row-sharded
+reduced PCG.
 """
 from __future__ import annotations
 
@@ -39,9 +46,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .estimators import aggregate_eta
+from .estimators import K_AXIS, aggregate_eta
 from .la.block import AssembledBlockOp
-from .ops.hopper_kernels import block_matvec
+from .la.krylov import pcg_chunked
+from .ops.hopper_kernels import block_matvec, precond_dot
 from .model import StationaryBlockModel
 from .parameters import evaluate_coefficients
 
@@ -161,6 +169,39 @@ class ReducedModel:
     def reconstruct(self, c):
         return self.reductor.reconstruct(c)
 
+    def solve_sharded(self, mu, mesh, tol: float = 1e-12, maxiter: int = 2000):
+        """Block-row-sharded reduced solve (<-> ``solve_sharded``, the TP
+        analog): each rank of ``mesh`` owns its band's block rows of
+        A_red(theta) and solves by block-Jacobi PCG on the SPD,
+        identity-padded reduced system: the matvec all-gathers the iterate,
+        the [r_max, r_max] diagonal-block inverses precondition through
+        ``precond_dot`` (the band's ``r . z`` partials summed and
+        all-reduced with ``r . r``), ``p . Ap`` is all-reduced.  Returns the
+        replicated c [K, r_max] (one mu); equals :meth:`solve` to solver
+        tolerance."""
+        mu = self.parse_parameter(mu)
+        theta, theta_f = self._thetas(mu)
+        K, r = len(self.sizes), self.r_max
+        k0, k1 = mesh.band(K)
+        Kb, dev = k1 - k0, mesh.device
+        rows = slice(k0 * r, k1 * r)
+        A = torch.einsum("q,qij->ij", theta, self.A_red[:, rows]).to(dev)    # [Kb r, K r]
+        b = torch.einsum("q,qi->i", theta_f, self.b_red[:, rows]).to(dev).reshape(Kb, r)
+        kb = torch.arange(Kb, device=dev)
+        D = A.reshape(Kb, r, K, r)[kb, :, k0 + kb, :]                      # [Kb, r, r]
+        Dinv = torch.linalg.inv(D).contiguous()
+
+        def mv(c):
+            return (A @ mesh.gather(c, mesh.shard_k(0)).reshape(-1)).reshape(Kb, r)
+
+        def M(rv):
+            z, rz = precond_dot(Dinv, rv[None].contiguous())
+            return z[0], rz.sum()
+
+        c, it = pcg_chunked(mv, M, b, tol, maxiter, comm=mesh)
+        self.last_sharded_iters = int(it)
+        return mesh.gather(c, mesh.shard_k(0))
+
     def _gather_neighborhood(self, c):
         """c [..., K, r_max] -> chat [..., K, P*r_max] (zero-padded; P = 9,
         27 in 3D)."""
@@ -279,11 +320,15 @@ class LRBMSReductor:
     UPD_CHUNK = 512
 
     def __init__(self, d: StationaryBlockModel, bases: Optional[List[np.ndarray]] = None,
-                 products=None, order: Optional[int] = None, solver_options=None):
+                 products=None, order: Optional[int] = None, solver_options=None,
+                 mesh=None):
         if not (order is None or 0 <= order <= 1):
             raise ValueError(f"order must be None, 0 or 1, got {order}")
         self.d = d
         self.solver_options = solver_options
+        # default SubdomainMesh of reduce(): the greedy and enrichment
+        # re-reductions then run K-sharded
+        self.mesh = mesh
         K, N = d.space.K, d.space.N
         if products is None:
             products = d.products.get("energy_mu_bar", d.products["l2"])
@@ -423,38 +468,44 @@ class LRBMSReductor:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _project(op_arrays, rhs_q, V, mask, static):
+    def _project(op_arrays, rhs_q, V, mask, static, band=None):
         """V [K, r_max, N] padded bases (rows masked) -> (A_red, b_red);
         ``op_arrays`` = (A_diag, the coupling stacks in ``static.families()``
-        order)."""
+        order).  With ``band`` = (k0, k1) only the block rows of subdomains
+        [k0, k1) ([Q, (k1-k0) r_max, K r_max] and [Qf, (k1-k0) r_max]);
+        the couplings into the band read the neighbors' columns of V."""
         A_diag = op_arrays[0]
         side_rows = static.side_rows
         K, r_max, N = V.shape
+        k0, k1 = band if band is not None else (0, K)
         Q = A_diag.shape[0]
-        R = K * r_max
+        R, Rb = K * r_max, (k1 - k0) * r_max
         dev = V.device
         ar = torch.arange(r_max, device=dev)
 
         def rows_of(k):
             return torch.as_tensor(k, device=dev)[:, None] * r_max + ar[None, :]
 
-        diag = torch.einsum("kan,qknm,kbm->qkab", V, A_diag, V)
-        A_red = torch.zeros((Q, R, R), dtype=V.dtype, device=dev)
-        blk_r = rows_of(np.arange(K))
+        diag = torch.einsum("kan,qknm,kbm->qkab", V[k0:k1], A_diag[:, k0:k1], V[k0:k1])
+        A_red = torch.zeros((Q, Rb, R), dtype=V.dtype, device=dev)
+        blk_r = rows_of(np.arange(k0, k1))
         # the index pairs of one statement are distinct (one block per
         # subdomain, one per edge), so += needs no accumulate
-        A_red[:, blk_r[:, :, None], blk_r[:, None, :]] += diag
+        A_red[:, blk_r[:, :, None] - k0 * r_max, blk_r[:, None, :]] += diag
 
         def couple(C, k_out, k_in, rows_out, rows_in):
-            if k_out.size == 0:
+            sel = np.nonzero((k_out >= k0) & (k_out < k1))[0]
+            if sel.size == 0:
                 return
+            k_out, k_in = k_out[sel], k_in[sel]
+            C = C[:, torch.as_tensor(sel, device=C.device)]
             s, nb = C.shape[2], C.shape[3]
             ro_f = torch.as_tensor(rows_out.reshape(-1), device=dev)
             ri_f = torch.as_tensor(rows_in.reshape(-1), device=dev)
             Vo = V[torch.as_tensor(k_out, device=dev)][:, :, ro_f].reshape(-1, r_max, s, nb)
             Vi = V[torch.as_tensor(k_in, device=dev)][:, :, ri_f].reshape(-1, r_max, s, nb)
             blk = torch.einsum("eafi,qefij,ebfj->qeab", Vo, C, Vi)
-            ro, ri = rows_of(k_out), rows_of(k_in)
+            ro, ri = rows_of(k_out) - k0 * r_max, rows_of(k_in)
             A_red[:, ro[:, :, None], ri[:, None, :]] += blk
 
         for C, (_name, ro, ri, k_out, k_in) in zip(op_arrays[1:], static.families()):
@@ -462,11 +513,13 @@ class LRBMSReductor:
 
         # identity on padded rows keeps the dense solve well-posed
         flat_mask = mask.reshape(R)          # 1 = real dof, 0 = padding
-        A_red = A_red * flat_mask[None, :, None] * flat_mask[None, None, :]
-        A_red[0] += torch.diag(1.0 - flat_mask)
+        band_mask = flat_mask[k0 * r_max:k1 * r_max]
+        A_red = A_red * band_mask[None, :, None] * flat_mask[None, None, :]
+        ib = torch.arange(Rb, device=dev)
+        A_red[0, ib, k0 * r_max + ib] += 1.0 - band_mask
 
-        b_red = torch.einsum("qkn,krn->qkr", rhs_q, V).reshape(-1, R)
-        return A_red, b_red * flat_mask[None, :]
+        b_red = torch.einsum("qkn,krn->qkr", rhs_q[:, k0:k1], V[k0:k1]).reshape(-1, Rb)
+        return A_red, b_red * band_mask[None, :]
 
     @staticmethod
     def _column_chunk(V, c0: int, ch: int):
@@ -652,16 +705,18 @@ class LRBMSReductor:
                             for Ap in AVs])                                 # [Q, Q, R, R]
         return G_bb, G_Ab, G_AA
 
-    def _parabolic(self, AVs, rhs_q, Tk, rows_t, valid_t, ch: int, chV: int):
+    def _parabolic(self, AVs, rhs_q, Tk, rows_t, valid_t, ch: int, chV: int, L2=None):
         """The projected parabolic estimator tensors, through an f64
         inverse of the L2 blocks: with B_q = M^-1 A_q V (per column, in
         chunks of ``chV`` through ``block_matvec``) and F_R = M^-1 F,
         G_MAA [Q, Q, R, R] = (A_p V)^T M^-1 (A_q V) (the time residual) and
         the neighborhood-padded G_BLB, G_BLdiv [Q, Q, K, P, P], G_FLF
         [Qf, Qf, K], G_BLF [Q, Qf, K, P], G_FLdiv [Qf, Q, K, P] (the
-        elliptic-reconstruction parts of eta_r)."""
+        elliptic-reconstruction parts of eta_r).  On a band (``L2`` and every
+        per-subdomain input cut to it) G_MAA is the band's partial sum."""
         ed = self.d.estimator.data
-        L2, A_div = ed.L2.to(WIDE), ed.A_div.to(WIDE)
+        L2 = (ed.L2 if L2 is None else L2).to(WIDE)
+        A_div = ed.A_div.to(WIDE)
         Linv = torch.linalg.inv(L2)[None].contiguous()                       # [1, K, N, N]
         R_all = AVs[0].shape[0]
         MAVs = [torch.cat([block_matvec(Linv, AVq[c0:c0 + chV].contiguous())
@@ -698,12 +753,36 @@ class LRBMSReductor:
         valid = (rows >= 0)
         return nbhd_idx, np.where(valid, rows, 0), valid
 
-    def reduce(self) -> ReducedModel:
+    def reduce(self, mesh=None) -> ReducedModel:
         """Blockwise Galerkin projection + projected estimator tensors, in
-        float64 on the model's device."""
+        float64 on the model's device.
+
+        With ``mesh`` (default ``self.mesh``) the projection runs K-sharded
+        (<-> ``reduce(mesh=)``): each rank projects its band, the diagonal
+        and coupling blocks of its block rows, the estimator projections of
+        its subdomains and the operator images (and with them the Gramians
+        and the parabolic tensors) on its rows through the banded block
+        apply (``parallel.stencil.BandedBlockOp``), whose halo rows it reads
+        from the replicated bases.  The neighborhood images of the Oswald
+        and flux operators are global operators: every rank computes them
+        and keeps its band's rows.  Per-subdomain results are all-gathered,
+        Gramians summed over the ranks; the returned model is replicated and
+        the incremental image cache is not used.  Without a mesh the band is
+        all of K and the collectives are the identity."""
+        mesh = mesh if mesh is not None else self.mesh
         d = self.d
         dev = d.device
         K = d.space.K
+        if mesh is None:
+            k0, k1 = 0, K
+            gather = lambda v, k_dim: v                     # noqa: E731
+            psum = lambda v: v                              # noqa: E731
+        else:
+            if torch.device(mesh.device) != torch.device(dev):
+                raise ValueError(f"the model lives on {dev}, the mesh rank on {mesh.device}")
+            k0, k1 = mesh.band(K)
+            gather = lambda v, k_dim: mesh.gather(v, mesh.shard_k(k_dim))   # noqa: E731
+            psum = mesh.sum
         sizes = self.basis_sizes()
         r_max = int(max(1, sizes.max()))
         r_max = -(-r_max // self.R_BUCKET) * self.R_BUCKET   # bucket
@@ -719,7 +798,6 @@ class LRBMSReductor:
         valid_t = torch.as_tensor(valid, device=dev).to(WIDE)
 
         op_arrays = tuple(a.to(WIDE) for a in (d.op.A_diag, *d.op.couplings().values()))
-        ed_arrays = (ed.E_bar, ed.BB, ed.M_aa, ed.M_ab, ed.d_vec, ed.R_dd)
         rhs_q = d.rhs_q.to(WIDE)
         st = d.op.static
         # the algebraic-residual Gramians: always, unless force_lean (set by
@@ -728,18 +806,45 @@ class LRBMSReductor:
         parabolic = self.parabolic_tensors
 
         Wk, Tk = self._images(Vm, sizes, r_max, rows_t, valid_t,
-                              lean=not (with_gramians or parabolic))
-        A_red, b_red = self._project(op_arrays, rhs_q, Vm, mask, st)
-        out = self._est_projections(ed_arrays, Vm, Wk, Tk)
-        out.update(A_red=A_red, b_red=b_red, G_bb=None, G_Ab=None, G_AA=None, parabolic=None)
+                              lean=mesh is None and not (with_gramians or parabolic))
+        A_red, b_red = self._project(op_arrays, rhs_q, Vm, mask, st, band=(k0, k1))
+        names = ("E_bar", "BB", "M_aa", "M_ab", "d_vec", "R_dd")
+        ed_band = tuple(getattr(ed, n).narrow(K_AXIS[n], k0, k1 - k0) for n in names)
+        out = self._est_projections(ed_band, Vm[k0:k1], Wk[k0:k1], Tk[:, k0:k1])
+        out = {n: gather(v, 0 if n == "G_nc" else 2) for n, v in out.items()}
+        out.update(A_red=gather(A_red, 1), b_red=gather(b_red, 1),
+                   G_bb=None, G_Ab=None, G_AA=None, parabolic=None)
         if with_gramians or parabolic:
             ch, chV = self._chunks(K, r_max)
-            AVs = self._operator_images(op_arrays, Vm, chV)
+            AVs = (self._operator_images(op_arrays, Vm, chV) if mesh is None
+                   else self._band_images(mesh, Vm, chV))                  # Q x [R, Kb, N]
+            rhs_b = rhs_q[:, k0:k1]
             if with_gramians:
-                out["G_bb"], out["G_Ab"], out["G_AA"] = self._gramians(AVs, rhs_q, ch)
+                out["G_bb"], out["G_Ab"], out["G_AA"] = (
+                    psum(g) for g in self._gramians(AVs, rhs_b, ch))
             if parabolic:
-                out["parabolic"] = self._parabolic(AVs, rhs_q, Tk, rows_t, valid_t, ch, chV)
+                par = self._parabolic(AVs, rhs_b, Tk[:, k0:k1], rows_t[k0:k1],
+                                      valid_t[k0:k1], ch, chV, L2=ed.L2[k0:k1])
+                out["parabolic"] = {n: psum(v) if n == "G_MAA" else gather(v, 2)
+                                    for n, v in par.items()}
         return self._build_reduced(out, sizes, r_max, nbhd_idx)
+
+    def _band_images(self, mesh, Vm, chV: int):
+        """:meth:`_operator_images` on the rank's band of ``mesh``: Q x
+        [R, Kb, N], every basis column through the banded block apply, which
+        reads the halo rows of the (replicated) columns."""
+        from .parallel.stencil import BandedBlockOp
+        K, r_max, _ = Vm.shape
+        k0, k1 = mesh.band(K)
+        bop = BandedBlockOp.from_affine(mesh, self.d.op)
+        e0 = k0 - bop.lo * bop.row
+        e1 = k1 + (bop.row if k1 < K else 0)
+        AVs = []
+        for q in range(self.d.op.A_diag.shape[0]):
+            Aq = bop.component(q, WIDE)
+            AVs.append(torch.cat([Aq.apply_ext(self._column_chunk(Vm, c0, chV)[:, e0:e1])
+                                  for c0 in range(0, K * r_max, chV)]))
+        return AVs
 
     def _chunks(self, K: int, r_max: int):
         """(ch, chV): basis columns per chunk of the row-chunked image path
@@ -813,10 +918,28 @@ class LRBMSReductor:
 
 
 class ParallelLRBMSReductor(LRBMSReductor):
-    """<-> ``reductor.ParallelLRBMSReductor``: the reference distributes the
-    projection over a device mesh by default.  The K-sharded projection is
-    not ported yet, so this is the single-device reductor under the name the
-    scripts use; it takes no mesh."""
+    """Distributed-by-default reductor (<-> ``reductor.ParallelLRBMSReductor``;
+    the reference's MPI op-sum is dead code).  Without a ``mesh`` and with
+    a process group of more than one rank up, it builds a
+    :class:`~pylrbms_tpu_torch.parallel.mesh.SubdomainMesh` over the
+    largest rank prefix whose size divides the subdomain rows (z-layers in
+    3D), and so K: every reduce and re-reduction then runs K-sharded.  Every
+    rank of the group must construct it (a prefix below the world size is a
+    new subgroup); ranks outside the prefix, and a single process, take the
+    (identical-result) local path."""
+
+    def __init__(self, d, *args, mesh=None, **kwargs):
+        import torch.distributed as dist
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            st = d.op.static
+            rows = st.kz if st.dim3 else st.ky
+            n = dist.get_world_size()
+            while n > 1 and rows % n:
+                n -= 1
+            if n > 1:
+                from .parallel.mesh import SubdomainMesh
+                mesh = SubdomainMesh.create(n, device=d.device)
+        super().__init__(d, *args, mesh=mesh, **kwargs)
 
 
 class ParabolicLRBMSReductor(LRBMSReductor):
@@ -825,8 +948,8 @@ class ParabolicLRBMSReductor(LRBMSReductor):
 
     parabolic_tensors = True
 
-    def reduce(self) -> "ReducedParabolicModel":
-        rd = super().reduce()
+    def reduce(self, mesh=None) -> "ReducedParabolicModel":
+        rd = super().reduce(mesh=mesh)
         d = self.d
         K, r_max = d.space.K, rd.r_max
         V = torch.as_tensor(self._padded_bases(r_max), device=d.device)

@@ -445,3 +445,20 @@ def test_truth_solve_on_cuda_matches_cpu(cuda):
         assert r0 <= 1e-9 and r1 <= 1e-9
         assert float(np.abs(U1 - U0).max() / np.abs(U0).max()) <= 1e-8
         assert n0 == 0 and n1 > 0
+
+
+def test_distributed_dryrun_two_gloo_ranks_on_the_card(cuda):
+    """The multi-rank dry run (``scripts/dryrun_multichip``, the reference's
+    sizes) with two gloo ranks sharing the card: every leg held to its
+    unsharded reference on rank 0 (1e-8; reduced arrays rtol 1e-12), the
+    halo strips staged through host buffers, the kernels launched in the
+    ranks on band shapes (K = 2, the band of 2 x 2 subdomains)."""
+    from pylrbms_tpu_torch.scripts import dryrun_multichip
+    hk.load()                     # the ranks only load the library
+    payloads = dryrun_multichip.run(2, device="cuda", backend="gloo", preset="small",
+                                    timeout_s=600)
+    for p in payloads:
+        assert all(p["launches"][k] for k in ("block_matvec", "precond_dot")), p["launches"]
+        assert p["peak_bytes"] > 0
+    for leg in payloads[0]["result"]:
+        assert all(err <= 1e-8 for err in leg["errors"].values()), leg

@@ -376,6 +376,23 @@ def test_port_imports_no_jax():
         "    h1.grid.visualize(tmp + '/g'); d.grid.visualize(tmp + '/g2')\n"
         "assert roofline.matvec_cost(h1.mf_operator().assemble(h1.theta(mu))).flops > 0\n"
         "native.available()\n"
+        "import torch.distributed as dist\n"
+        "from pylrbms_tpu_torch.parallel.mesh import (SubdomainMesh, initialize_distributed,\n"
+        "                                             psum_norm)\n"
+        "from pylrbms_tpu_torch.parallel.spmd import SpmdOnlineSolver\n"
+        "from pylrbms_tpu_torch.parallel.stencil import BandedStencil, BandedBlockOp\n"
+        "from pylrbms_tpu_torch.scripts import distributed_smoke, dryrun_multichip\n"
+        "mu0 = d.parse_parameter(0.5)\n"
+        "U0 = d.assemble(mu0).solve_pcg(d.rhs(mu0), tol=1e-10)\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    initialize_distributed('file://' + tmp + '/store', 1, 0, device='cpu')\n"
+        "    mesh = SubdomainMesh.create()\n"
+        "    Um, ind = mesh.online_step(d, tol=1e-10)(d.theta(mu0), d.theta_f(mu0), mu0)\n"
+        "    Us = SpmdOnlineSolver(d, mesh).make_step(tol=1e-10)(d.theta(mu0), d.theta_f(mu0))\n"
+        "    assert mesh.axis == 'k' and mesh.to_host(Um, mesh.shard_k(0)).shape == (4, 24)\n"
+        "    assert float(psum_norm(mesh.globalize(torch.ones(4, dtype=torch.float64)), mesh)) == 2\n"
+        "    dist.destroy_process_group()\n"
+        "assert float((Um - U0).abs().max()) < 1e-12 and float((Us - U0).abs().max()) < 1e-12\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'pylrbms_tpu')\n"
         "assert not ref, ref\n"
