@@ -157,13 +157,31 @@ phase passes:
    sharded and unsharded, per-rank ms per iteration and exchange ms per
    iteration, per-rank peak memory.  Ranks sharing the card are no
    speedup, and NCCL across devices is not exercised.
+27. the entry-point scripts (``pylrbms_tpu_torch/scripts``), each at the
+   configuration its ``docs/results/`` file records, held to that file by
+   ``scripts/_results.py``: the CPU-written tables (OS2015 plain,
+   crisscross, paper and reduced; P2; the thermal-block EOC; academic3d
+   Q1 and Q2; the SPE10 efficiency study) to their printed digits, EOC
+   cells to 0.02; the TPU files' accuracy values (the channels demo at 8x8,
+   nt=100; the SPE10 greedy at K=256; ``spe10_scale --matrix-free``; the
+   SPE10 trajectory and its ROM; five ``spe10_3d`` commands; the 1M-dof
+   sharded solve) at rel 1e-3 or their own tolerance, residuals under
+   their solve's bound (the channels' switch decided at its zeros as in
+   the file's run; the at-scale 3D eta of the file, an f32 artifact of the
+   JAX accelerator branch, printed, not held); the demo and
+   ``spe10_3d_efficiency_study --smoke``
+   against the port on the CPU (1e-8); the acceptance script to GOLDEN
+   (1e-5) and the golden triple (1e-4); the VTU parsed back; W threads on
+   their own streams and the batched apply equal to the sequential applies.
+   Per script: card seconds, peak device memory and kernel launches; the
+   scripts' output goes to ``results_out/chip_smoke_scripts/``.
 
-Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 26, 9, each
+Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 26, 27, 9, each
 timed with its peak device memory, and the total is printed.  Each main
-path (phases 5, 7, 8, 10-13, 15, 16, 18a, 20-26) runs with the kernel
+path (phases 5, 7, 8, 10-13, 15, 16, 18a, 20-27) runs with the kernel
 launch counts and signatures cleared just before it and read just after
-(phase 26's in its ranks); the summary's ``launches`` is the sum of the
-counts.
+(phase 26's and the sharded script's in their ranks); the summary's
+``launches`` is the sum of the counts.
 
 Its last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -201,8 +219,11 @@ B_SERVE = 256
 TOL = {"f64": (1e-12, 1e-12), "f32": (2e-5, 2e-4)}
 
 
+_LOG_TO = [None]          # where log() prints while a phase redirects stdout
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(msg, flush=True, file=_LOG_TO[0] or sys.stdout)
 
 
 def smi_line() -> str:
@@ -1909,6 +1930,384 @@ def distributed_phase(hk, torch, dev, smi, paths, runs=DIST_RUNS):
             raise RuntimeError(f"{label}: a kernel was not launched in the ranks: {sigs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the entry-point scripts of ``pylrbms_tpu_torch/scripts``, each at
+# the configuration its ``docs/results/`` file records and held to that file
+# (``scripts/_results.py``: CPU-written tables to their printed digits, the
+# TPU files' accuracy values at their tolerances); their output goes to
+# SCRIPT_LOGS, one file a script.
+
+SCRIPT_LOGS = "results_out/chip_smoke_scripts"
+
+
+def _close(label, a, b, rtol):
+    a, b = float(a), float(b)
+    err = abs(a - b) / max(abs(b), 1e-300)
+    ok = err <= rtol
+    log(f"  {label}: {a:.10e} vs {b:.10e}, rel {err:.2e} (tol {rtol:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return [] if ok else [f"{label}: {a!r} vs {b!r}, rel {err:.2e} > {rtol:.0e}"]
+
+
+def _equal(label, a, b):
+    ok = a == b
+    log(f"  {label}: {a} vs {b} {'ok' if ok else 'FAIL'}")
+    return [] if ok else [f"{label}: {a!r} != {b!r}"]
+
+
+def _held(label, bad):
+    log(f"  {label}: {'ok' if not bad else f'{len(bad)} off'}")
+    for b in bad[:20]:
+        log(f"    {b}")
+    return list(bad)
+
+
+def _tpu(R, values):
+    return R.hold_tpu(values, log=lambda s: log(f"  {s}"))
+
+
+def _counts(R, values, note=""):
+    for key, v in values.items():
+        fname, line, text = R.TPU_COUNTS[key]
+        log(f"  count {key}{note}: {v} (the file's {text}, {fname}:{line}; not held)")
+
+
+def _script_demo(R, torch, dev, timed):
+    """Row 1: the README demo on the card against the port on the CPU."""
+    from pylrbms_tpu_torch.scripts import online_adaptive_lrbms as m
+    cpu = m.main(device="cpu")
+    out = timed(m.main, device=dev)
+    bad = _close("detailed eta vs the port on the CPU", out["eta"], cpu["eta"], 1e-8)
+    bad += _close("reduced eta vs the port on the CPU", out["eta_red"], cpu["eta_red"], 1e-8)
+    for i, ((e, n), (e_c, n_c)) in enumerate(zip(out["online"], cpu["online"])):
+        bad += _close(f"online mu #{i} final eta", e, e_c, 1e-8)
+        bad += _equal(f"online mu #{i} RB size", n, n_c)
+    return bad + _equal("online mus", len(out["online"]), len(cpu["online"]))
+
+
+def _script_decomp(R, torch, dev, timed):
+    """Row 2: the acceptance script (GOLDEN at rel 1e-5, the ROM's triple =
+    the detailed one) and, crisscross with the paper convention, the
+    reference's golden triple (rel 1e-4, as phase 14)."""
+    from pylrbms_tpu_torch.scripts import linearelliptic_block_swipdg_decomp as m
+    out = timed(m.main, device=dev)
+    bad = []
+    for k, g in R.DECOMP_GOLDEN.items():
+        bad += _close(f"{k} vs GOLDEN", out["fom"][k], g, 1e-5)
+    for k in ("eta_nc", "eta_r", "eta_df"):
+        bad += _close(f"ROM {k} vs detailed", out["rom"][k], out["fom"][k], 1e-8)
+    cc = timed(m.main, crisscross=True, paper_convention=True, device=dev)
+    for k, g in zip(("eta_nc", "eta_r", "eta_df"), GOLDEN):
+        bad += _close(f"crisscross paper {k} vs the reference's golden", cc["fom"][k], g, 1e-4)
+    return bad
+
+
+def _script_golden_gap(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import golden_gap_study as m
+    out = timed(m.main, out="results_out/golden_gap_attribution.md", device=dev)
+    return _held(R.GOLDEN_GAP, R.hold_golden_gap(out["rows"], out["text"]))
+
+
+def _script_mpi_elliptic(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import mpi_elliptic as m
+    out = timed(m.main, "results_out/vtu", device=dev)
+    sp = out["d"].space
+    try:
+        _vtu_check(out["path"], sp.K, sp.N, sp.K * sp.s * sp.s * sp.T, out["U"].cpu().numpy())
+    except AssertionError as e:
+        return [f"mpi_elliptic VTU: {e}"]
+    log(f"  VTU {out['path']} parsed back: counts and point values = U ok")
+    return []
+
+
+def _script_os2015(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import OS2015_convergence_study as m
+    bad = []
+    for fname, kw in (("OS2015_convergence_study.txt", {}),
+                      ("OS2015_convergence_study_crisscross.txt",
+                       dict(crisscross=True, paper_convention=True)),
+                      ("OS2015_convergence_study_paper.txt", dict(paper_convention=True))):
+        bad += _held(fname, R.hold_studies(fname, timed(m.main, device=dev, **kw)))
+    return bad
+
+
+def _script_os2015_reduced(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import OS2015_convergence_study_as_reduced as m
+    fname = "OS2015_convergence_study_as_reduced.txt"
+    return _held(fname, R.hold_studies(fname, [timed(m.main, device=dev)]))
+
+
+def _script_p2(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import p2_convergence_study as m
+    out = timed(m.main, device=dev)
+    fname = "P2_convergence_study.txt"
+    return _held(fname, R.hold_rows(fname, [out["tri"], out["crisscross"], out["quad"]]))
+
+
+def _script_parabolic_eoc(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import parabolic_convergence_study as m
+    fname = "parabolic_convergence_study.txt"
+    return _held(fname, R.hold_studies(fname, [timed(m.main, device=dev)]))
+
+
+def _script_channels(R, torch, dev, timed):
+    """Row 9 at the reference's configuration (8x8, nt=100), its switch
+    sin(4 pi t) > 0 decided at its zeros t = j/4 as in the file's run (see
+    ``_results.CHANNELS_TIES_TPU``) and held; then as the port decides it
+    (printed, not held)."""
+    from pylrbms_tpu_torch.scripts import parabolic as m
+    keys = ("total", "nc", "r", "df", "rt", "tdnc")
+    with R.channels_switch_at_ties(R.CHANNELS_TIES_TPU):
+        out = timed(m.main, nt=100, subdomains=(8, 8), device=dev)
+    vals = {"parabolic.rom_error": out["reduction_error"]}
+    for tag in ("fom", "rom"):
+        for k in keys:
+            vals[f"parabolic.{tag}.{k}"] = out[tag.upper()][k]
+    bad = _tpu(R, vals)
+    own = timed(m.main, nt=100, subdomains=(8, 8), device=dev)["FOM"]
+    log("  the port's own decisions at the ties (on at 1/4 and 3/4): FOM "
+        + ", ".join(f"{k} {own[k]:.6e}" for k in keys) + " (not held)")
+    return bad
+
+
+def _script_academic3d(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import academic3d_convergence_study as m
+    fname = "academic3d_convergence_study.txt"
+    return _held(fname, R.hold_rows(fname, [timed(m.main, device=dev)]))
+
+
+def _script_q2_3d(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import q2_3d_convergence_study as m
+    return _held("q2_3d_convergence_study.txt", R.hold_q2_3d(timed(m.main, device=dev)))
+
+
+def _script_spe10_efficiency(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import spe10_efficiency_study as m
+    out = timed(m.main, device=dev)
+    fname = "spe10_efficiency_study.txt"
+    return _held(fname, R.hold_studies(fname, [out[1.0], out[0.3]]))
+
+
+def _script_spe10_greedy(R, torch, dev, timed):
+    """Row 13, the north-star pipeline at full width (K=256, N=384)."""
+    from pylrbms_tpu_torch.scripts import spe10_greedy as m
+    out = timed(m.cli, "--subdomains 16 16 --half 2 --nref 2 --training 8 --target 1e-2 "
+                "--online-mus 3".split() + ["--device", str(dev)])
+    vals = {f"spe10_greedy.max_eta{i}": v for i, v in enumerate(out["max_etas"])}
+    vals.update({f"spe10_greedy.online_eta{i}": e for i, (e, _) in enumerate(out["online"])})
+    bad = _equal("greedy iterations", len(out["max_etas"]), 3)
+    _counts(R, {"spe10_greedy.rb_size": out["rb_size"]})
+    log(f"  online RB sizes {[n for _, n in out['online']]}, FOM solves {out['fom_solves']}")
+    return bad + _tpu(R, vals)
+
+
+def _script_spe10_scale(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import spe10_scale as m
+    out = timed(m.cli, "--matrix-free --dtype float64 --maxiter 1500".split()
+                + ["--device", str(dev)])
+    bad = [] if out["finite"] else ["spe10_scale: indicators not finite"]
+    return bad + _tpu(R, {"spe10_scale.relres": out["relres"]})
+
+
+def _script_spe10_parabolic(R, torch, dev, timed):
+    from pylrbms_tpu_torch.scripts import spe10_parabolic as m
+    out = timed(m.main, ["--rom", "--rom-snapshots", "4"], device=dev)
+    return _tpu(R, {f"spe10_parabolic.{k}": out[k]
+                    for k in ("euler_residual", "eta", "host_agreement", "rom_eta",
+                              "rom_error")})
+
+
+SPE10_3D_RUNS = (
+    ("scale", "--subdomains 8 8 4 --half 1 --nref 2 --lean --mf"),
+    ("mor", "--nref 2"),
+    ("greedy", "--nref 2 --greedy 5 --training 6 --online-mus 3"),
+    ("target", "--nref 2 --greedy 2 --training 6 --online-mus 3 --online-target-rel 1.05"),
+    ("parabolic", "--subdomains 8 8 4 --half 2 --nref 1 --lean --mf --skip-estimate "
+                  "--parabolic 20 --parabolic-batch 4"),
+)
+
+
+def _script_spe10_3d(R, torch, dev, timed):
+    """Row 16 at the five commands the 3D TPU files record."""
+    from pylrbms_tpu_torch.scripts import spe10_3d as m
+    out = {name: timed(m.main, argv.split(), device=dev) for name, argv in SPE10_3D_RUNS}
+    s, f, g, t, p = (out[k] for k, _ in SPE10_3D_RUNS)
+    log(f"  scale solve: max-norm residual ratio {s['relres']:.2e} (the file's measure: "
+        f"1.4e-09 after the TPU's f64 polish); held: ||b - A U|| / ||b|| {s['relres2']:.2e}")
+    vals = {"spe10_3d.scale.relres": s["relres2"], "spe10_3d.scale.eta": s["eta"],
+            "spe10_3d.relres": f["relres"], "spe10_3d.eta": f["eta"],
+            "spe10_3d.eta_rom": f["eta_rom"], "spe10_3d.rom_fom_gap": f["rom_fom_gap"],
+            "spe10_3d_greedy.eta_rom": g["eta_rom"], "spe10_3d_greedy.eta_rec": g["eta_rec"],
+            "spe10_3d_greedy.rom_fom_gap": g["rom_fom_gap"],
+            "spe10_3d_parabolic.euler_residual": p["euler_residual"],
+            "spe10_3d_parabolic.lane": p["lane"]}
+    vals.update({f"spe10_3d_greedy.surrogate{i}": v for i, v in enumerate(g["max_etas"])})
+    vals.update({f"spe10_3d_greedy.online_eta{i}": o["eta"] for i, o in enumerate(g["online"])})
+    for i, o in enumerate(t["online"]):
+        vals[f"spe10_3d_target.eta_fom{i}"] = o["eta_fom"]
+        vals[f"spe10_3d_target.eta{i}"] = o["eta"]
+    _counts(R, {"spe10_3d.scale.its": s["fom_its"], "spe10_3d.its": f["fom_its"],
+                "spe10_3d_greedy.iterations": len(g["max_etas"]),
+                "spe10_3d_greedy.rb_size": g["rb_size"]})
+    log(f"  target run: enrichment rounds per mu {[o['rounds'] for o in t['online']]}, "
+        f"RB sizes {[o['rb_size'] for o in t['online']]}")
+    return _tpu(R, vals)
+
+
+def _script_efficiency3d_smoke(R, torch, dev, timed):
+    """Row 17, ``--smoke``: the card against the port on the CPU (1e-8)."""
+    from pylrbms_tpu_torch.scripts import spe10_3d_efficiency_study as m
+    cpu = m.main(smoke=True, device="cpu")
+    out = timed(m.main, smoke=True, device=dev)
+    bad = []
+    for mu, rows in cpu.items():
+        for i, (row, row_c) in enumerate(zip(out[mu], rows)):
+            for k in ("|e|_ell", "eta", "eta_nc", "eta_df", "|e|_DG+pen"):
+                bad += _close(f"mu {mu} level {i} {k} vs the port on the CPU", row[k], row_c[k],
+                              1e-8)
+            scale = max(row["eta_nc"], row["eta_df"])
+            ok = row["eta_r"] <= R.ROUNDING_REL * scale
+            log(f"  mu {mu} level {i} eta_r {row['eta_r']:.3e} at rounding level "
+                f"(<= {R.ROUNDING_REL:.0e} x {scale:.3e}) {'ok' if ok else 'FAIL'}")
+            bad += [] if ok else [f"efficiency 3D smoke level {i}: eta_r {row['eta_r']!r}"]
+    return bad
+
+
+def _script_concurrency(R, torch, dev, timed):
+    """Row 18: W threads on their own streams = the sequential applies
+    exactly; the batched apply = the per-vector applies."""
+    from pylrbms_tpu_torch.scripts import batched_matvec_test, threadpool_test
+    tp = timed(threadpool_test.main, device=dev)
+    bm = timed(batched_matvec_test.main, device=dev)
+    bad = _equal("threadpool results identical to the sequential ones", tp["identical"], True)
+    bad += _equal("CUDA streams in the pool", tp["streams"] > 1, True)
+    ok = bm["max_lane_err"] < 1e-10
+    log(f"  batched apply vs per-vector: max rel {bm['max_lane_err']:.2e} (tol 1e-10) "
+        f"{'ok' if ok else 'FAIL'}")
+    return bad + ([] if ok else [f"batched apply lane error {bm['max_lane_err']!r}"])
+
+
+XL_RUNS = (("1", "nccl"), ("2", "gloo"))
+
+
+def _script_xl_sharded(R, torch, dev, timed):
+    """Row 19: the 1M-dof K-sharded solve over world 1 (NCCL) and world 2
+    (gloo) on the card; sharded U = rank 0's unsharded U (1e-8)."""
+    from pylrbms_tpu_torch.scripts import mf_sharded_xl_demo as m
+    bad, sigs, peaks = [], {"block_matvec": {}, "precond_dot": {}}, []
+    for world, backend in XL_RUNS:
+        res = timed(m.main, ["--world", world, "--backend", backend], device=dev)
+        bad += _tpu(R, {"xl_sharded.relres": res["relres"]})
+        ok = res["u_vs_unsharded"] <= 1e-8
+        log(f"  world {world} ({backend}): sharded U vs unsharded max rel "
+            f"{res['u_vs_unsharded']:.2e} (tol 1e-8) {'ok' if ok else 'FAIL'}; iterations "
+            f"sharded {res['its']}, unsharded {res['its_unsharded']}; solve "
+            f"{res['t_solve']:.2f} s, assembly {res['t_assembly']:.2f} s, preconditioner "
+            f"{res['t_precond']:.2f} s")
+        bad += [] if ok else [f"world {world}: sharded U off the unsharded one"]
+        _counts(R, {"xl_sharded.its": res["its"]}, f" at world {world}")
+        for launches in res["launches"]:
+            for kind, counts in launches.items():
+                for sig, n in counts.items():
+                    sigs.setdefault(kind, {})[sig] = sigs.get(kind, {}).get(sig, 0) + n
+        peaks += res["peak_bytes"]
+    return bad, sigs, peaks
+
+
+SCRIPT_CASES = (
+    ("online_adaptive_lrbms", _script_demo),
+    ("linearelliptic_block_swipdg_decomp", _script_decomp),
+    ("golden_gap_study", _script_golden_gap),
+    ("mpi_elliptic", _script_mpi_elliptic),
+    ("OS2015_convergence_study", _script_os2015),
+    ("OS2015_convergence_study_as_reduced", _script_os2015_reduced),
+    ("p2_convergence_study", _script_p2),
+    ("parabolic_convergence_study", _script_parabolic_eoc),
+    ("parabolic", _script_channels),
+    ("academic3d_convergence_study", _script_academic3d),
+    ("q2_3d_convergence_study", _script_q2_3d),
+    ("spe10_efficiency_study", _script_spe10_efficiency),
+    ("spe10_greedy", _script_spe10_greedy),
+    ("spe10_scale", _script_spe10_scale),
+    ("spe10_parabolic", _script_spe10_parabolic),
+    ("spe10_3d", _script_spe10_3d),
+    ("spe10_3d_efficiency_study", _script_efficiency3d_smoke),
+    ("threadpool_test + batched_matvec_test", _script_concurrency),
+    ("mf_sharded_xl_demo", _script_xl_sharded),
+)
+
+
+def scripts_phase(hk, torch, dev, smi, paths, only=None):
+    """Phase 27: every script of ``SCRIPT_CASES`` (or those named in
+    ``only``) on the card, with the kernel launch counts cleared just before
+    it and read just after (the xl demo's from its ranks) into ``paths`` as
+    'script <name>'; prints the card seconds (the script's own runs, not
+    the CPU references) and peak device memory of each.  Every mismatch is
+    logged; the phase raises after the last script if any script was off
+    its file or raised."""
+    import contextlib
+    import io
+    import os
+    from pylrbms_tpu_torch.scripts import _results as R
+    os.makedirs(SCRIPT_LOGS, exist_ok=True)
+    failed = {}
+    _LOG_TO[0] = sys.stdout
+    for name, case in SCRIPT_CASES:
+        if only is not None and name not in only:
+            continue
+        card_s = []
+
+        def timed(fn, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            card_s.append(time.perf_counter() - t0)
+            return out
+
+        log(f"script {name}:")
+        hk.reset_launch_counts()
+        reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                got = case(R, torch, dev, timed)
+        except Exception:                                # noqa: BLE001 — logged, then raised
+            got = [f"{name} raised:\n{traceback.format_exc()}"]
+            log(got[0])
+        finally:
+            with open(os.path.join(SCRIPT_LOGS, name.split()[0] + ".log"), "w") as f:
+                f.write(buf.getvalue())
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if isinstance(got, tuple):                        # ranks: their launches and peaks
+            bad, shapes, peaks = got
+            launches = {k: sum(v.values()) for k, v in shapes.items()}
+            peak = f"per rank {[round(p / 2**20, 1) for p in peaks]} MiB"
+        else:
+            bad = got
+            launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+            peak = f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB"
+        paths[f"script {name}"] = (launches, shapes)
+        log(f"script {name}: card {sum(card_s):.2f} s in {len(card_s)} run(s) "
+            f"({', '.join(f'{t:.2f}' for t in card_s)}), {total:.2f} s with the CPU "
+            f"references; peak device memory {peak}; kernel launches {launches}; "
+            f"{'ok' if not bad else f'{len(bad)} FAILED'} [{smi}]")
+        if bad:
+            failed[name] = bad
+    _LOG_TO[0] = None
+    total = {k: sum(p[0].get(k, 0) for n, p in paths.items() if n.startswith("script "))
+             for k in ("block_matvec", "precond_dot")}
+    log(f"scripts' kernel launches: {total}")
+    if failed:
+        raise AssertionError(f"scripts off their result files: {sorted(failed)}: "
+                             + "; ".join(b for v in failed.values() for b in v[:3]))
+    for k, n in total.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the scripts")
+
+
 def main() -> int:
     try:
         import torch
@@ -1986,6 +2385,7 @@ def main() -> int:
         paths["Q2 3D"] = ph("24 Q2 3D", q2_3d_phase, hk, torch, dev, smi)
         paths["truth 442k"] = ph("25b truth 442k", truth_full_phase, hk, torch, dev, smi)
         ph("26 distributed", distributed_phase, hk, torch, dev, smi, paths)
+        ph("27 scripts", scripts_phase, hk, torch, dev, smi, paths)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)

@@ -89,6 +89,9 @@ class EocStudy:
             accs = {a: float(self.accuracy(level, a)) for a in acc}
             row += [f"{accs[a]:.2e}" for a in acc]
 
+            lv = self.data[level]
+            lv["accuracy"] = accs
+
             def eoc(key, value):
                 cells = []
                 for a in acc:
@@ -96,8 +99,9 @@ class EocStudy:
                         cells.append("----")
                     else:
                         den = math.log(accs[a] / prev_acc[a])
-                        cells.append(f"{math.log(value / prev[key]) / den:.2f}"
-                                     if den != 0 else "inf")
+                        e = math.log(value / prev[key]) / den if den != 0 else math.inf
+                        lv.setdefault("eoc", {}).setdefault(key, e)
+                        cells.append(f"{e:.2f}" if den != 0 else "inf")
                 return cells
 
             new_prev = {}
@@ -115,6 +119,7 @@ class EocStudy:
                 v = float(self.compute_estimate(level, eid))
                 nv = float(self.compute_norm(level, nid))
                 self.data[level].setdefault("estimate", {})[eid] = v
+                lv.setdefault("eff", {})[eid] = nv / v
                 row += [f"{nv / v:.2f}"] + eoc(eid, v)
                 new_prev[eid] = v
             prev = new_prev

@@ -128,7 +128,10 @@ class EllipticEstimator:
         self.alpha_first_component_only = alpha_first_component_only
 
     def _ratios(self, mu, mu_ref):
-        th = evaluate_coefficients(self.data.lambda_coeffs, mu)
+        # a mu of plain numbers (or none, {}) names no device: take the model's
+        bare = not any(isinstance(v, torch.Tensor) for v in (mu or {}).values())
+        th = evaluate_coefficients(self.data.lambda_coeffs, mu,
+                                   device=self.data.diam.device if bare else None)
         th_ref = evaluate_coefficients(self.data.lambda_coeffs, mu_ref,
                                        device=th.device)
         return th / th_ref

@@ -293,18 +293,19 @@ class SubdomainMesh:
 
     def mf_solve(self, bsop, theta, b, block_factors=None, coarse_basis=None,
                  coarse_inv=None, tol: float = 1e-10, maxiter: int = 2000,
-                 coarse_f32: bool = False):
+                 coarse_f32: bool = False, x0=None):
         """K-sharded matrix-free PCG (<-> ``jit_mf_solve``): ``bsop`` from
         :meth:`shard_stencil`, ``b`` and ``block_factors`` this rank's bands
         ([Kb, N], [Kb, N, N]), and optionally the coarse level:
         ``coarse_basis`` banded [Kb, N, m] with ``coarse_inv`` replicated
         [K*m, K*m].  The coarse step is ``C^T r`` all-reduced, the coarse
         solve replicated and ``C e`` local.  Pass no block factors for the
-        cell-block Jacobi.  Returns ``(U band, iterations)``."""
+        cell-block Jacobi; ``x0`` (this rank's band) warm-starts it.
+        Returns ``(U band, iterations)``."""
         return bsop.assemble(theta).solve_pcg(
             b, tol=tol, maxiter=maxiter, block_factors=block_factors,
             coarse_basis=coarse_basis, coarse_inv=coarse_inv, coarse_f32=coarse_f32,
-            return_iters=True)
+            return_iters=True, x0=x0)
 
     def online_step(self, d, tol: float = 1e-8, maxiter: int = 500,
                     positive_form: bool = False):

@@ -462,3 +462,36 @@ def test_distributed_dryrun_two_gloo_ranks_on_the_card(cuda):
         assert p["peak_bytes"] > 0
     for leg in payloads[0]["result"]:
         assert all(err <= 1e-8 for err in leg["errors"].values()), leg
+
+
+def test_demo_script_on_cuda_matches_cpu(cuda):
+    """The README demo (``scripts/online_adaptive_lrbms``, its own config)
+    on the card against the same run on the CPU: detailed and reduced eta
+    and each online mu's final eta to 1e-8, the RB sizes equal; both
+    kernels launched on the card."""
+    from pylrbms_tpu_torch.scripts import online_adaptive_lrbms as demo
+    cpu = demo.main(2, 3, device="cpu")
+    hk.reset_launch_counts()
+    card = demo.main(2, 3, device="cuda")
+    assert all(hk.launch_counts().values()), hk.launch_counts()
+    for k in ("eta", "eta_red"):
+        assert abs(card[k] - cpu[k]) <= 1e-8 * abs(cpu[k]), k
+    assert [n for _, n in card["online"]] == [n for _, n in cpu["online"]]
+    for (e, _), (e_c, _) in zip(card["online"], cpu["online"]):
+        assert abs(e - e_c) <= 1e-8 * abs(e_c)
+
+
+def test_os2015_study_script_on_cuda_matches_cpu(cuda):
+    """``scripts/OS2015_convergence_study`` (Tables 1-3, two levels) on the
+    card against the same run on the CPU: every norm, indicator and
+    estimate of the four tables to 1e-8, the level infos equal."""
+    from pylrbms_tpu_torch.scripts import OS2015_convergence_study as os2015
+    cpu = os2015.main(1, device="cpu")
+    card = os2015.main(1, device="cuda")
+    for t, t_c in zip(card, cpu):
+        assert t["levels"] == t_c["levels"]
+        for lvl, data in t_c["data"].items():
+            for group in ("norm", "indicator", "estimate"):
+                assert t["data"][lvl].get(group, {}).keys() == data.get(group, {}).keys()
+                for k, v in data.get(group, {}).items():
+                    assert abs(t["data"][lvl][group][k] - v) <= 1e-8 * abs(v), (lvl, k)
