@@ -19,8 +19,9 @@ phase passes:
    plain version's and one library call's time (flushed), the bound and
    the kernel's share of it (CUDA events, median of 20), and the 442k
    truth blocks stored in bf16 (K=256, N=1728, one lane);
-4. entry config (2x2 subdomains, half 1, nref 1), one query on the card in
-   f64 and in f32, against the port's own CPU f64 run;
+4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
+   tol 1e-8), one query on the card in f64 and in f32, against its own
+   CPU f64 run;
 5. serving config (8x8 subdomains, half 2, nref 2: 24 576 dofs; affine
    apply, harvested coarse space with 12 modes, tol 1e-6, f32, default
    bf16 Jacobi storage), B=256 queries mu = linspace(0.1, 1, 256) in one
@@ -175,10 +176,24 @@ phase passes:
    their own streams and the batched apply equal to the sequential applies.
    Per script: card seconds, peak device memory and kernel launches; the
    scripts' output goes to ``results_out/chip_smoke_scripts/``.
+28. the JAX-call-compatible surface: (a) ``scripts/spe10_3d --nref 2``
+   (SPE10 3D 4x4x2, half 1, K=32, N=512, 16 384 dofs, f64), whose FOM
+   solve is ``solve_pcg(two_level=True)``: 129 iterations (the count of
+   the script's earlier hand-built ones-basis route), relres <= 1e-8, and
+   on the same system U of ``two_level`` = U of the ones-basis route
+   (1e-12) in equal iterations; (b) the same solve with ``coarse_f32=True`` (its iterations
+   printed beside the f64 coarse level's, not held); (c) right after phase
+   8, on its model: ``solve_ir`` through ``ops/ir.make_precond_f32``, the
+   model's ``mixed=True`` solve and a direct call, with phase 8's mixed
+   iterations and equal rounds, relres <= 1e-10; (d)
+   ``graft_entry.entry()`` in f32 on the card against its CPU f64 run
+   (1e-3), its PCG iterations printed; (e) ``utils/timers.trace`` around
+   that step: a non-empty Chrome trace that names both kernels (their
+   counts there printed beside the wrappers').
 
-Phases run in the order 1-8, 10-21, 23, 25a, 22, 24, 25b, 26, 27, 9, each
-timed with its peak device memory, and the total is printed.  Each main
-path (phases 5, 7, 8, 10-13, 15, 16, 18a, 20-27) runs with the kernel
+Phases run in the order 1-8, 28c, 10-21, 23, 25a, 22, 24, 25b, 26, 27, 28,
+9, each timed with its peak device memory, and the total is printed.  Each
+main path (phases 5, 7, 8, 10-13, 15, 16, 18a, 20-28) runs with the kernel
 launch counts and signatures cleared just before it and read just after
 (phase 26's and the sharded script's in their ranks); the summary's
 ``launches`` is the sum of the counts.
@@ -440,24 +455,18 @@ def path_shape_phase(hk, torch, dev, paths, checked):
 
 
 def entry_phase(torch, dev):
-    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
-    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
-    from pylrbms_tpu_torch.model import make_online_step
+    """``graft_entry.entry()`` (OS2015 2x2, half 1, nref 1, tol 1e-8) on the
+    card in f64 and f32 against its CPU f64 run."""
+    from pylrbms_tpu_torch.graft_entry import entry
 
-    mu = 0.5
-    args = (np.array([1.0, mu]), np.array([1.0]))
-
-    def run(device, dtype, tol):
-        d, _ = discretize(init_grid_and_problem(ENTRY), device=device, dtype=dtype)
-        step = make_online_step(d, tol=tol, maxiter=500)
-        U, ind = step(*args, {"diffusion": torch.tensor([mu])})
+    def run(device, dtype):
+        fn, args = entry(device=device, dtype=dtype)
+        U, ind = fn(*args)
         return U.cpu().double().numpy(), ind.cpu().double().numpy()
 
-    U_ref, ind_ref = run("cpu", torch.float64, 1e-10)
-    U64, ind64 = run(dev, torch.float64, 1e-10)
-    # f32 at the bench tolerance (1e-6): a tighter tol is below f32
-    # resolution and only runs the solve to maxiter
-    U32, ind32 = run(dev, torch.float32, 1e-6)
+    U_ref, ind_ref = run("cpu", torch.float64)
+    U64, ind64 = run(dev, torch.float64)
+    U32, ind32 = run(dev, torch.float32)
     checks = [("f64 U", rel(U64, U_ref), 1e-8), ("f64 indicators", rel(ind64, ind_ref), 1e-8),
               ("f32 U", rel(U32, U_ref), 1e-3), ("f32 indicators", rel(ind32, ind_ref), 1e-3)]
     for name, err, tol in checks:
@@ -652,9 +661,11 @@ def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=T
     return launches, shapes
 
 
-def scale_solve_phase(hk, torch, dev, smi, cfg=None, label="scale"):
+def scale_solve_phase(hk, torch, dev, smi, cfg=None, label="scale", keep=None):
     """``StationaryBlockModel.solve`` above 32 768 dofs: 'auto' takes the
-    matrix-free two-level PCG; then the same solve with ``mixed=True``."""
+    matrix-free two-level PCG; then the same solve with ``mixed=True``.
+    ``keep`` (a dict) receives the model, mu and the mixed runs' iterations
+    for phase 28c."""
     import scipy.sparse.linalg as spla
     from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
@@ -692,6 +703,8 @@ def scale_solve_phase(hk, torch, dev, smi, cfg=None, label="scale"):
         err = rel(U.double().cpu().numpy().reshape(-1), u_ref)
         results[mixed].append((t_solve, int(d.last_solve_iters), err))
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
+    if keep is not None:
+        keep.update(d=d, mu=mu, mixed_iters=[r[1] for r in results[True]])
     log(f"{label} solve main path (prepare_solver + 4 solves): kernel launches {launches}")
     for mixed, runs in results.items():
         kind = "mixed=True" if mixed else "mf_pcg f64"
@@ -2308,6 +2321,207 @@ def scripts_phase(hk, torch, dev, smi, paths, only=None):
             raise AssertionError(f"kernel {k} was not launched by the scripts")
 
 
+# ------------------------------------------------------------- phase 28
+
+API_SPE10 = {"num_subdomains": [4, 4, 2],  # scripts/spe10_3d --nref 2 (K=32, N=512), f64
+             "half_num_fine_elements_per_subdomain_and_dim": 1, "num_refinements": 2}
+API_SPE10_ITS = 129                # its FOM solve's iterations on the ones-basis route
+API_ROUTE_TOL = 1e-12              # two_level's U against the ones-basis route's
+
+
+def _api_path(hk, paths, name):
+    paths[name] = (hk.launch_counts(), hk.launch_signature_counts())
+    log(f"{name}: kernel launches {paths[name][0]}")
+
+
+def api_ir_phase(hk, torch, dev, smi, keep, paths):
+    """Phase 28c: ``solve_ir`` on phase 8's model (98 304 dofs, its frozen
+    preconditioner) through ``ops/ir.make_precond_f32``: the model's
+    ``mixed=True`` solve and a direct ``solve_ir`` call, each with phase 8's
+    mixed iterations, the same rounds, and the f64 residual <= 1e-10."""
+    from pylrbms_tpu_torch import model as model_mod
+    from pylrbms_tpu_torch.ops import ir
+    d, mu = keep["d"], keep["mu"]
+    made, infos = [], []
+    make, model_solve_ir = ir.make_precond_f32, model_mod.solve_ir
+
+    def counted_make(*a, **kw):
+        made.append(1)
+        return make(*a, **kw)
+
+    def recorded_solve_ir(*a, **kw):
+        out = model_solve_ir(*a, **kw)
+        infos.append(tuple(int(v) for v in out[1:]))
+        return out
+
+    hk.reset_launch_counts()
+    ir.make_precond_f32, model_mod.solve_ir = counted_make, recorded_solve_ir
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U = d.solve(mu, inverse_options={"precision": 1e-10, "mixed": True})
+        torch.cuda.synchronize()
+        t_model = time.perf_counter() - t0
+        bf, C, ci = next(v for k, v in d._mf_cache.items()
+                         if isinstance(k, tuple) and k[0] == "precond")
+        theta, b = d.theta(mu), d.rhs(mu)
+        A = d.mf_operator().assemble(theta)
+        A32 = d._mf_cache["sop32"].assemble(theta.to(torch.float32))
+        dvec = torch.einsum("q,qkn->kn", theta, d._mf_cache["diag_q"])
+        t0 = time.perf_counter()
+        x, it32, rounds, it64 = ir.solve_ir(A, A32, b, dvec, tol=1e-10, maxiter=2000,
+                                            block_factors=bf, coarse_inv=ci, coarse_basis=C,
+                                            return_info=True)
+        torch.cuda.synchronize()
+        t_direct = time.perf_counter() - t0
+    finally:
+        ir.make_precond_f32, model_mod.solve_ir = make, model_solve_ir
+    _api_path(hk, paths, "API solve_ir (make_precond_f32)")
+    direct = (int(it32), int(rounds), int(it64))
+    relres = float(torch.linalg.norm(b - A.apply(x)) / torch.linalg.norm(b))
+    log(f"API solve_ir at {d.space.K * d.space.N} dofs: model mixed=True {t_model:.3f} s "
+        f"(f32 iterations, rounds, f64 iterations) {infos}, direct solve_ir {t_direct:.3f} s "
+        f"{direct}; phase 8 mixed iterations {keep['mixed_iters']}; make_precond_f32 "
+        f"built {len(made)} times; relres {relres:.2e}; U direct vs model rel "
+        f"{rel(x.cpu(), U.cpu()):.2e} [{smi}]")
+    if len(made) != 2 or infos != [direct]:
+        raise AssertionError(f"solve_ir routes differ: model {infos}, direct {direct}, "
+                             f"make_precond_f32 built {len(made)} times")
+    for its in (int(d.last_solve_iters), direct[0] + direct[2]):
+        if its not in keep["mixed_iters"]:
+            raise AssertionError(f"solve_ir took {its} iterations, phase 8 {keep['mixed_iters']}")
+    if not relres <= 1e-10:
+        raise AssertionError(f"solve_ir relres {relres:.2e} > 1e-10")
+
+
+def _trace_kernels(path):
+    """{kernel: device launches} of a Chrome trace of ``timers.trace``, by
+    the __global__ functions of csrc/block_kernels.cu (named in the trace
+    as ``void (anonymous namespace)::stream_kernel<TS, TA, VECL, LB, PD>(...)``;
+    stream_kernel's last template argument is its precond_dot flag)."""
+    import re
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"block_matvec": 0, "precond_dot": 0}
+    for e in events:
+        m = re.match(r"(?:void )?(?:\(anonymous namespace\)::)?(\w+)(?:<([^>]*)>)?",
+                     e.get("name", "")) if e.get("cat") == "kernel" else None
+        if m is None:
+            continue
+        fn, targs = m.group(1), m.group(2) or ""
+        if fn.startswith("block_matvec_") or fn == "stream_ring":
+            out["block_matvec"] += 1
+        elif fn.startswith("precond_dot_"):
+            out["precond_dot"] += 1
+        elif fn == "stream_kernel":
+            out["precond_dot" if targs.split(",")[-1].strip() == "true" else "block_matvec"] += 1
+    return out
+
+
+def api_phase(hk, torch, dev, smi, paths):
+    """Phase 28 (a, b, d, e): the JAX-call-compatible surface on the card —
+    ``scripts/spe10_3d`` with ``solve_pcg(two_level=True)`` at 16 384 dofs,
+    the same solve against the ones-basis route and with ``coarse_f32``,
+    ``graft_entry.entry()``, and ``timers.trace`` around its step."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+    from pylrbms_tpu_torch.scripts import spe10_3d
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    from pylrbms_tpu_torch.problems.spe10 import init_grid_and_problem_3d
+    from pylrbms_tpu_torch.graft_entry import entry
+    from pylrbms_tpu_torch.utils.timers import trace
+
+    # (a) the script's FOM solve now calls two_level=True
+    argv = (["--subdomains", *map(str, API_SPE10["num_subdomains"]), "--half",
+             str(API_SPE10["half_num_fine_elements_per_subdomain_and_dim"]),
+             "--nref", str(API_SPE10["num_refinements"])])
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = spe10_3d.main(argv, device=dev)
+    torch.cuda.synchronize()
+    log(f"API spe10_3d {' '.join(argv)}: {time.perf_counter() - t0:.2f} s, FOM "
+        f"solve {out['t_solve'] * 1e3:.1f} ms, {out['fom_its']} iterations (ones-basis "
+        f"route: {API_SPE10_ITS}), relres {out['relres2']:.2e} [{smi}]")
+    _api_path(hk, paths, "API spe10_3d two-level")
+    if out["fom_its"] != API_SPE10_ITS or not out["relres2"] <= 1e-8:
+        raise AssertionError(f"spe10_3d two-level: {out['fom_its']} iterations, relres "
+                             f"{out['relres2']:.2e}")
+
+    # (a, b) the same system: two_level, the ones-basis route, coarse_f32
+    gpd = init_grid_and_problem_3d(API_SPE10, layers=(40, 44), max_contrast=1e4)
+    d, _ = discretize(gpd, dtype=torch.float64, device=dev)
+    mup = d.parse_parameter({"switch": 1.0})
+    A, b = d.op.assemble(d.theta(mup)), d.rhs(mup)
+    ci = torch.linalg.inv(A.coarse_matrix().double())
+    ones = torch.ones((d.space.K, d.space.N, 1), dtype=torch.float64, device=dev)
+    hk.reset_launch_counts()
+    runs = {}
+    for name, kw in (("two_level", {"two_level": True}),
+                     ("ones basis", {"coarse_inv": ci, "coarse_basis": ones}),
+                     ("coarse_f32", {"two_level": True, "coarse_f32": True})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, it = A.solve_pcg(b, tol=1e-8, maxiter=4000, return_iters=True, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (U, int(it), time.perf_counter() - t0,
+                      float(torch.linalg.norm(A.apply(U) - b) / torch.linalg.norm(b)))
+    _api_path(hk, paths, "API solve_pcg coarse routes")
+    err = rel(runs["two_level"][0].cpu(), runs["ones basis"][0].cpu())
+    for name, (_, it, t, rr) in runs.items():
+        log(f"API solve_pcg {name}: {it} iterations, {t * 1e3:.1f} ms, relres {rr:.2e}")
+    f64_its, f32_its = runs["two_level"][1], runs["coarse_f32"][1]
+    log(f"API solve_pcg: two_level vs ones-basis U rel {err:.2e} (tol {API_ROUTE_TOL:.0e}); "
+        f"coarse_f32 {f32_its} iterations against f64 coarse {f64_its} "
+        f"({100.0 * (f32_its - f64_its) / f64_its:+.1f}%) [{smi}]")
+    if not (runs["two_level"][1] == runs["ones basis"][1] == API_SPE10_ITS
+            and runs["two_level"][3] <= 1e-8 and err <= API_ROUTE_TOL):
+        raise AssertionError(f"two_level against the ones-basis route: iterations "
+                             f"{runs['two_level'][1]} / {runs['ones basis'][1]}, U rel {err:.2e}")
+    if not runs["coarse_f32"][3] <= 1e-8:
+        raise AssertionError(f"coarse_f32 relres {runs['coarse_f32'][3]:.2e} > 1e-8")
+    del d, A, b, runs
+
+    # (d) graft_entry.entry() on the card, against its CPU f64 run
+    fn_ref, args_ref = entry(device="cpu", dtype=torch.float64)
+    U_ref, ind_ref = (t.numpy() for t in fn_ref(*args_ref))
+    fn, args = entry()
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U32, ind32 = fn(*args)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    _api_path(hk, paths, "API graft_entry")
+    its = fn.iters_probe(*args)
+    errs = (rel(U32.cpu(), U_ref), rel(ind32.cpu(), ind_ref))
+    log(f"API graft_entry.entry(): f32 step {t_step * 1e3:.1f} ms, {its} PCG iterations "
+        f"(maxiter 500), U / indicators vs CPU f64 rel {errs[0]:.2e} / {errs[1]:.2e} "
+        f"(tol 1e-03) [{smi}]")
+    if not max(errs) <= 1e-3:
+        raise AssertionError(f"graft_entry step off the CPU f64 run: {errs}")
+
+    # (e) timers.trace around one online step
+    with tempfile.TemporaryDirectory() as tmp:
+        hk.reset_launch_counts()
+        with trace(tmp):
+            fn(*args)
+        launched = hk.launch_counts()
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        size = os.path.getsize(files[0]) if len(files) == 1 else 0
+        seen = _trace_kernels(files[0]) if size else {}
+    log(f"API timers.trace: {len(files)} file(s), {size} bytes; kernels in the trace "
+        f"{seen}, wrapper launches {launched}")
+    # the trace names both kernels; its counts may fall a few launches short
+    # of the wrappers' (CUPTI can drop kernel records)
+    if not size or not all(launched.values()) or not all(seen.get(k) for k in launched):
+        raise AssertionError(f"timers.trace: no trace, or a kernel missing from it: "
+                             f"{seen} (wrapper launches {launched})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2344,7 +2558,11 @@ def main() -> int:
         ph("6 stencil apply", stencil_apply_phase, torch, dev, ref["d"])
         paths["stencil step"] = ph("7 stencil step", stencil_step_phase, hk, torch, dev, smi, ref)
         del ref
-        paths["scale solve"] = ph("8 scale solve", scale_solve_phase, hk, torch, dev, smi)
+        keep = {}
+        paths["scale solve"] = ph("8 scale solve", scale_solve_phase, hk, torch, dev, smi,
+                                  keep=keep)
+        ph("28c API solve_ir", api_ir_phase, hk, torch, dev, smi, keep, paths)
+        del keep
         paths["MOR serving"] = ph("10 MOR serving", mor_serving_phase, hk, torch, dev, smi)
         paths["MOR scale"] = ph("11 MOR scale", mor_scale_phase, hk, torch, dev, smi)
         paths["parabolic scale"] = ph("12 parabolic scale", parabolic_scale_phase, hk, torch,
@@ -2386,6 +2604,7 @@ def main() -> int:
         paths["truth 442k"] = ph("25b truth 442k", truth_full_phase, hk, torch, dev, smi)
         ph("26 distributed", distributed_phase, hk, torch, dev, smi, paths)
         ph("27 scripts", scripts_phase, hk, torch, dev, smi, paths)
+        ph("28 API", api_phase, hk, torch, dev, smi, paths)
         launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)

@@ -29,7 +29,8 @@ from ..ops.hopper_kernels import block_matvec, precond_dot
 from ..ops.swipdg import edge_lists, fold_diag
 from ..ops.swipdg3d import edge_lists3, fold_diag3, SIDES as SIDES3
 from ..ops.assembly import add_at
-from .krylov import pcg_chunked
+from ..ops.matrixfree import coarse_level
+from .krylov import lane_dot, pcg_chunked
 
 
 @dataclass(eq=False)
@@ -63,15 +64,7 @@ class BlockOpStatic:
     @staticmethod
     def from_space(space) -> "BlockOpStatic":
         if getattr(space, "dim", 2) == 3:
-            F = space.s * space.s
-            side_rows = {side: space.side_dofs(side).reshape(F, space.nb)
-                         for side in SIDES3}
-            xlo, xhi, ylo, yhi, zlo, zhi = edge_lists3(space.grid)
-            return BlockOpStatic(K=space.K, N=space.N, s=space.s, nb=space.nb,
-                                 kx=space.grid.kx, ky=space.grid.ky,
-                                 kz=space.grid.kz, side_rows=side_rows,
-                                 left_k=xlo, right_k=xhi, low_k=ylo, up_k=yhi,
-                                 near_k=zlo, far_k=zhi)
+            return BlockOpStatic.from_space3(space)
         side_rows = {side: space.side_dofs(side).reshape(space.s, space.nb)
                      for side in ("left", "right", "bottom", "top")}
         left_k, right_k, low_k, up_k = edge_lists(space.grid)
@@ -79,6 +72,18 @@ class BlockOpStatic:
                              kx=space.grid.kx, ky=space.grid.ky,
                              side_rows=side_rows, left_k=left_k, right_k=right_k,
                              low_k=low_k, up_k=up_k)
+
+    @staticmethod
+    def from_space3(space) -> "BlockOpStatic":
+        F = space.s * space.s
+        side_rows = {side: space.side_dofs(side).reshape(F, space.nb)
+                     for side in SIDES3}
+        xlo, xhi, ylo, yhi, zlo, zhi = edge_lists3(space.grid)
+        return BlockOpStatic(K=space.K, N=space.N, s=space.s, nb=space.nb,
+                             kx=space.grid.kx, ky=space.grid.ky,
+                             kz=space.grid.kz, side_rows=side_rows,
+                             left_k=xlo, right_k=xhi, low_k=ylo, up_k=yhi,
+                             near_k=zlo, far_k=zhi)
 
     def families(self):
         """(name, rows_out side, rows_in side, k_out, k_in) per coupling
@@ -136,8 +141,15 @@ class AffineBlockOp:
     C_W_io: torch.Tensor = None  # [Q, E_W, F, nb, nb] (3D z-pairs; None in 2D)
     C_W_oi: torch.Tensor = None
 
+    @property
+    def Q(self) -> int:
+        return self.A_diag.shape[0]
+
     @staticmethod
-    def from_components(space, comps) -> "AffineBlockOp":
+    def from_components(space, comps, dtype=torch.float64) -> "AffineBlockOp":
+        """The affine family of ``comps``.  ``dtype`` is accepted as the
+        reference's is and, like it, unused: the stacks keep the
+        components' dtype."""
         st = BlockOpStatic.from_space(space)
         stack = lambda f: torch.stack([f(c) for c in comps])   # noqa: E731
         if st.dim3:
@@ -282,12 +294,18 @@ class AssembledBlockOp:
                 0, torch.as_tensor(k_out * K + k_in, device=C.device), blk)
         return Ac.permute(0, 2, 1, 3).reshape(K * m, K * m)
 
+    def geneo_basis(self, M_diag, modes: int = 6) -> np.ndarray:
+        """Spectral (GenEO-style) coarse basis of this assembled operator;
+        see :func:`geneo_coarse_basis`."""
+        return geneo_coarse_basis(self.A_diag, M_diag, modes)
+
     def solve_pcg(self, b, tol: float = 1e-12, maxiter: int = 2000, factors=None,
-                  coarse_inv=None, coarse_basis=None, return_iters: bool = False):
+                  two_level: bool = False, coarse_inv=None, coarse_basis=None,
+                  return_iters: bool = False, coarse_f32: bool = False):
         """Block-Jacobi preconditioned CG, optionally with an additive coarse
         level; see :func:`solve_pcg`."""
-        return solve_pcg(self, b, tol, maxiter, factors, coarse_inv,
-                         coarse_basis, return_iters)
+        return solve_pcg(self, b, tol, maxiter, factors, two_level, coarse_inv,
+                         coarse_basis, return_iters, coarse_f32)
 
     def solve(self, b, options: dict | None = None):
         options = options or {}
@@ -309,18 +327,24 @@ def block_jacobi_factors(A_diag: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv(A_diag * S) * S
 
 
-def solve_pcg(op, b, tol=1e-12, maxiter=2000, factors=None, coarse_inv=None,
-              coarse_basis=None, return_iters=False):
+def solve_pcg(op, b, tol=1e-12, maxiter=2000, factors=None, two_level=False,
+              coarse_inv=None, coarse_basis=None, return_iters=False,
+              coarse_f32=False):
     """Block-Jacobi preconditioned CG on ``op`` (an :class:`AssembledBlockOp`
     or :class:`AffineBlockApply`) for b [K, N] or lanes [B, K, N].
 
     ``factors`` (default: the operator's own block-Jacobi factors) may be
     stored in bfloat16; the fused ``precond_dot`` kernel then widens each
-    element and accumulates in the vector's type.  With a coarse level
-    (``coarse_inv`` [K*m, K*m] and ``coarse_basis`` [K, N, m], applied in
-    the operator dtype) the CG scalar is ``rz.sum(-1) + r . z_c`` — JAX's
-    ``vdot(r, M(r))`` up to summation order.  Returns x (and the per-lane
-    iteration counts with ``return_iters``)."""
+    element and accumulates in the vector's type.  An additive coarse level:
+    ``two_level`` builds the subdomain-constant one from ``op``
+    (``coarse_matrix()`` inverted in f64); ``coarse_inv`` passes a prebuilt
+    inverse, [K, K] for subdomain constants (applied as the basis of ones)
+    or [K*m, K*m] together with ``coarse_basis`` [K, N, m].  The coarse
+    level is applied in f32 when the operator is f32 or ``coarse_f32`` is
+    set, else in the operator dtype.  The CG scalar is
+    ``rz.sum(-1) + r . z_c`` — the reference's ``vdot(r, M(r))`` up to
+    summation order.  Returns x (and the per-lane iteration counts with
+    ``return_iters``)."""
     st = op.static
     dt = op.A_diag.dtype
     b = b.to(dt)
@@ -330,20 +354,23 @@ def solve_pcg(op, b, tol=1e-12, maxiter=2000, factors=None, coarse_inv=None,
     Ainv = Ainv.contiguous()
     single, bb = _lanes(b, st)
 
-    if coarse_inv is None:
-        def M(r):
-            z, rz = precond_dot(Ainv, r)
-            return z, rz.sum(-1)
-    else:
-        Cinv, Cb = coarse_inv.to(dt), coarse_basis.to(dt)
-        m = Cb.shape[-1]
+    if two_level and coarse_inv is None:
+        coarse_inv = torch.linalg.inv(op.coarse_matrix().to(torch.float64))
+    coarse = None
+    if coarse_inv is not None:
+        cdt = torch.float32 if (dt == torch.float32 or coarse_f32) else dt
+        if coarse_basis is None:
+            # subdomain constants as the one-column basis of ones: the same
+            # arithmetic as a caller's ones basis, not a second route
+            coarse_basis = torch.ones((st.K, st.N, 1), dtype=cdt, device=bb.device)
+        coarse = coarse_level(coarse_inv, coarse_basis, cdt)
 
-        def M(r):
-            z, rz = precond_dot(Ainv, r)
-            rc = torch.einsum("knm,bkn->bkm", Cb, r).reshape(r.shape[0], -1)
-            xc = torch.einsum("ij,bj->bi", Cinv, rc).reshape(r.shape[0], st.K, m)
-            zc = torch.einsum("knm,bkm->bkn", Cb, xc)
-            return z + zc, rz.sum(-1) + (r * zc).sum(dim=(-2, -1))
+    def M(r):
+        z, rz = precond_dot(Ainv, r)
+        if coarse is None:
+            return z, rz.sum(-1)
+        zc = coarse(r)
+        return z + zc, rz.sum(-1) + lane_dot(r, zc)
 
     x, it = pcg_chunked(op.apply, M, bb, tol, maxiter)
     if single:

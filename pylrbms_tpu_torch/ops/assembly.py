@@ -68,6 +68,11 @@ def scatter_blocks(A, blocks, rows, cols):
     return add_at(A, (rows[:, :, None], cols[:, None, :]), blocks)
 
 
+def scatter_vec(b, vals, rows):
+    """b [..., N] += vals [..., F, nr] at rows [F, nr]."""
+    return add_at(b, (np.asarray(rows),), vals)
+
+
 def vol_ein(space, expr: str) -> str:
     """Rewrite a volume einsum for per-cell tables ('crisscross'): every
     operand subscript that starts with 't' gains the 'yx' cell prefix (the

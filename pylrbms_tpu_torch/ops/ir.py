@@ -32,6 +32,23 @@ def pcg(matvec, M, b, tol, maxiter, x0=None, comm=None):
     return pcg_chunked(matvec, Mz, b, tol, maxiter, x0=x0, comm=comm)
 
 
+def make_precond_f32(block_factors=None, factors=None, cell_shape=None,
+                     coarse_inv=None, coarse_basis=None, comm=None, band=None):
+    """f32 preconditioner closure ``r [..., K, N] -> z`` of the inner IR
+    solve: :func:`~pylrbms_tpu_torch.ops.matrixfree.make_precond` for f32
+    vectors (subdomain block-Jacobi through ``precond_dot`` with the factors
+    in f32, or bf16 as stored; per-cell ``factors`` reshaped by
+    ``cell_shape``; the constant or basis coarse level in f32) with its
+    ``rz`` dropped.  ``comm`` and ``band`` shard it over K as there."""
+    P = make_precond(torch.float32, block_factors=block_factors, factors=factors,
+                     cell_shape=cell_shape, coarse_inv=coarse_inv,
+                     coarse_basis=coarse_basis, comm=comm, band=band)
+
+    def M(r):
+        return P(r)[0]
+    return M
+
+
 def solve_ir(A64, A32, b, diag, *, tol=1e-10, maxiter=2000,
              block_factors=None, factors=None, cell_shape=None,
              coarse_inv=None, coarse_basis=None, x0=None,
@@ -64,12 +81,9 @@ def solve_ir(A64, A32, b, diag, *, tol=1e-10, maxiter=2000,
     s64 = 1.0 / torch.sqrt(torch.clamp(torch.abs(diag), min=1e-300))
     s32 = s64.to(f32)
     si32 = (1.0 / s64).to(f32)
-    P32 = make_precond(f32, block_factors=block_factors, factors=factors,
-                       cell_shape=cell_shape, coarse_inv=coarse_inv,
-                       coarse_basis=coarse_basis, comm=comm, band=band)
-
-    def Mf(r):
-        return P32(r)[0]
+    Mf = make_precond_f32(block_factors=block_factors, factors=factors,
+                          cell_shape=cell_shape, coarse_inv=coarse_inv,
+                          coarse_basis=coarse_basis, comm=comm, band=band)
 
     def matvec32(v):
         return s32 * A32.apply(s32 * v)

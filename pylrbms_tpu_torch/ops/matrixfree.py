@@ -332,7 +332,20 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
 
     if coarse_inv is None:
         return M_fine
-    cdt = coarse_dtype or dtype
+    coarse = coarse_level(coarse_inv, coarse_basis, coarse_dtype or dtype, comm, band)
+
+    def M(r):
+        z, rz = M_fine(r)
+        zc = coarse(r)
+        return z + zc, (None if rz is None else rz + lane_dot(r, zc))
+    return M
+
+
+def coarse_level(coarse_inv, coarse_basis, cdt, comm=None, band=None):
+    """The additive coarse correction ``r [..., K, N] -> zc`` (in r's
+    dtype), applied in ``cdt``: on the per-subdomain basis ``coarse_basis``
+    [K, N, m] with the [K*m, K*m] inverse, or on subdomain constants without
+    a basis ([K, K]).  ``comm`` and ``band`` as in :func:`make_precond`."""
     Ci = coarse_inv.to(cdt)
     mc = 1 if coarse_basis is None else coarse_basis.shape[-1]
     if band is None:
@@ -361,12 +374,7 @@ def make_precond(dtype, *, block_factors=None, factors=None, cell_shape=None,
             rc = total(r.sum(-1, keepdim=True).to(cdt))[..., 0]
             xc = torch.einsum("ij,...j->...i", Ci[:r.shape[-2]], rc)
             return xc.to(r.dtype)[..., None]
-
-    def M(r):
-        z, rz = M_fine(r)
-        zc = coarse(r)
-        return z + zc, (None if rz is None else rz + lane_dot(r, zc))
-    return M
+    return coarse
 
 
 @dataclass(eq=False)

@@ -116,9 +116,11 @@ def edge_lists(grid) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     return left_k, right_k, low_k, up_k
 
 
-def fold_diag(space, comp: SwipdgComponent) -> torch.Tensor:
+def fold_diag(space, comp: SwipdgComponent, dtype=torch.float64) -> torch.Tensor:
     """Fold boundary + interface in_in/out_out contributions into the
-    diagonal blocks -> A_diag [K, N, N] (a new tensor; ``comp`` is kept)."""
+    diagonal blocks -> A_diag [K, N, N] (a new tensor; ``comp`` is kept).
+    ``dtype`` is accepted as the reference's is and, like it, unused: the
+    result keeps the component's dtype."""
     grid = space.grid
     s, nb = space.s, space.nb
     kx, ky = grid.kx, grid.ky

@@ -119,9 +119,10 @@ def assemble_swipdg_component3(space, lam_fn, kappa_fn=None,
         Z_in_in=Zq[0], Z_in_out=Zq[1], Z_out_in=Zq[2], Z_out_out=Zq[3])
 
 
-def fold_diag3(space, comp: SwipdgComponent3) -> torch.Tensor:
+def fold_diag3(space, comp: SwipdgComponent3, dtype=torch.float64) -> torch.Tensor:
     """Fold boundary + interface in_in/out_out contributions into the
-    diagonal blocks -> A_diag [K, N, N] (a new tensor; ``comp`` is kept)."""
+    diagonal blocks -> A_diag [K, N, N] (a new tensor; ``comp`` is kept).
+    ``dtype`` is accepted as the reference's is and, like it, unused."""
     grid = space.grid
     kx, ky, kz = grid.kx, grid.ky, grid.kz
     A = comp.A_loc.clone()

@@ -206,6 +206,16 @@ def evaluate_coefficients(coeffs: Sequence, mu: Mu, dtype=torch.float64,
     return torch.stack(torch.broadcast_tensors(*vals), dim=-1)
 
 
+def merge_parameter_types(*pts: ParameterType) -> ParameterType:
+    """Union of parameter types (a later type's shape wins); None if empty."""
+    out: Dict[str, Tuple[int, ...]] = {}
+    for pt in pts:
+        if pt:
+            for k, v in pt.items():
+                out[k] = _normalize_shape(v)
+    return out or None
+
+
 class CubicParameterSpace:
     """Hypercube parameter space with uniform/random sampling."""
 

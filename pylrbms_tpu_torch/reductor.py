@@ -320,8 +320,9 @@ class LRBMSReductor:
     UPD_CHUNK = 512
 
     def __init__(self, d: StationaryBlockModel, bases: Optional[List[np.ndarray]] = None,
-                 products=None, order: Optional[int] = None, solver_options=None,
-                 mesh=None):
+                 products=None, order: Optional[int] = None, num_cpus: int = 1,
+                 solver_options=None, mesh=None):
+        # num_cpus: the reference's pyMOR parameter, accepted and unused there too
         if not (order is None or 0 <= order <= 1):
             raise ValueError(f"order must be None, 0 or 1, got {order}")
         self.d = d

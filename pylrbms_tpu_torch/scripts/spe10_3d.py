@@ -126,10 +126,7 @@ def main(argv=None, device=None):
         mup = d.parse_parameter(mu)
         A = d.op.assemble(d.theta(mup))
         b = d.rhs(mup)
-        # the subdomain-constant coarse level (a basis of ones), inverted in f64
-        ci = torch.linalg.inv(A.coarse_matrix().double()).to(dtype)
-        ones = torch.ones((sp.K, sp.N, 1), dtype=dtype, device=dev)
-        U, it = A.solve_pcg(b, tol=1e-8, maxiter=4000, coarse_inv=ci, coarse_basis=ones,
+        U, it = A.solve_pcg(b, tol=1e-8, maxiter=4000, two_level=True,
                             return_iters=True)
         sync()
         t_solve = time.perf_counter() - t0

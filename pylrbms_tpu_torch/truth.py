@@ -222,9 +222,11 @@ class SolveOnlyModel:
     """Minimal model for truth solves at >= 400k dofs: space, rhs and one
     stencil assembled per (mu, dtype) — none of the dense [K, N, N]
     per-subdomain tensors of ``discretize``.  Runs on ``device`` (default:
-    the current CUDA device)."""
+    the current CUDA device).  ``dtype`` is accepted as the reference's is
+    and, like it, unused: the rhs is assembled in f64 and each stencil in
+    the dtype :meth:`stencil_at` is given."""
 
-    def __init__(self, gpd, order: int = 1, device=None):
+    def __init__(self, gpd, order: int = 1, dtype=torch.float64, device=None):
         from .ops import assembly3d as asm3
         from .ops.spaces3d import BlockDGSpace3D
         pin_precision()

@@ -60,3 +60,19 @@ class Timings:
 
 
 GLOBAL_TIMINGS = Timings()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace of the block — host ops, and the card's kernels
+    and copies where CUDA is available — written as a Chrome trace
+    ``<host>_<pid>.<ns>.pt.trace.json`` under ``log_dir`` (open it in
+    Perfetto or chrome://tracing); the counterpart of the reference's XLA
+    trace."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+        if cuda:
+            torch.cuda.synchronize()
