@@ -18,7 +18,12 @@ phase passes:
    flushed between repetitions (and warm, as earlier runs timed it), the
    plain version's and one library call's time (flushed), the bound and
    the kernel's share of it (CUDA events, median of 20), and the 442k
-   truth blocks stored in bf16 (K=256, N=1728, one lane);
+   truth blocks stored in bf16 (K=256, N=1728, one lane); the dmma route at
+   every f64 shape the paths launch above the stream (``DMMA_SHAPES``: the
+   Gramians, the reductors, the estimator, ``spe10_3d``; G=2 with coef,
+   bf16 x f64, N=216 at 32 and 17 lanes), none of them on the SIMT tiles,
+   with the first port's SIMT tiles (route 2 of the C entry) timed beside
+   the first six;
 4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
    tol 1e-8), one query on the card in f64 and in f32, against its own
    CPU f64 run;
@@ -47,7 +52,8 @@ phase passes:
 9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
-   the card at phase 3's tolerances, timed as in phase 3;
+   the card at phase 3's tolerances, timed as in phase 3; fails if an
+   f64-vector shape would take the SIMT tiles;
 10. model order reduction at the serving config in f64 (K=64, N=384):
    ``LRBMSReductor`` with one snapshot and ``reduce()``: the ROM estimate
    against the FOM estimate of the reconstruction (1e-8), ``residual_norm``
@@ -232,6 +238,24 @@ B_SERVE = 256
 # sides): the normwise form of the tests/test_pallas.py bounds (rtol 2e-5 on
 # the products, 2e-4 on the per-subdomain dots rz).
 TOL = {"f64": (1e-12, 1e-12), "f32": (2e-5, 2e-4)}
+# the dmma route's f64 shapes (every f64-vector launch above the stream), as
+# the paths launch them: (kind, G, K, N, B); the SIMT tiles (route 2) are
+# timed beside the first DMMA_TILES_AB in the same run
+DMMA_SHAPES = (
+    ("precond_dot", 1, 32, 512, 32),          # spe10_3d (phase 27)
+    ("block_matvec", 1, 256, 384, 128),       # parabolic reductor (phase 12)
+    ("block_matvec", 1, 32, 512, 128),        # 3D MOR Gramians (phase 22)
+    ("block_matvec", 1, 64, 384, 128),        # Gramians (phases 10, 13, 26a)
+    ("block_matvec", 1, 16, 384, 128),        # band Gramians of reduce(mesh=) (26b)
+    ("block_matvec", 1, 32, 512, 32),         # spe10_3d (phase 27)
+    ("block_matvec", 1, 256, 384, 20), ("block_matvec", 1, 256, 384, 21),  # parabolic
+    ("block_matvec", 1, 64, 384, 20), ("block_matvec", 1, 64, 384, 21),    # estimator, GS
+    ("block_matvec", 1, 64, 24, 100), ("block_matvec", 1, 64, 24, 128),    # scripts/parabolic
+    ("block_matvec", 2, 64, 384, 128),        # G=2 with coef
+    ("block_matvec", 1, 64, 216, 32), ("precond_dot", 1, 64, 216, 32),     # ragged N
+    ("block_matvec", 1, 64, 216, 17), ("precond_dot", 1, 64, 216, 17),     # lane tails
+)
+DMMA_TILES_AB = 6
 
 
 _LOG_TO = [None]          # where log() prints while a phase redirects stdout
@@ -389,6 +413,33 @@ def kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt):
             "path": path}
 
 
+def simt_tiles_ms(hk, torch, dev, randn, kind, G, K, N, B):
+    """The first port's SIMT tiles at one f64 shape: the C entry called with route
+    ``hk.TILES`` directly (no wrapper takes it for f64 vectors), held to the
+    plain version at the f64 tolerance and timed as ``kernel_case`` times
+    a kernel (L2 flushed, median of 20)."""
+    lib, stream = hk._lib(), torch.cuda.current_stream(dev).cuda_stream
+    A, x = randn((G, K, N, N)), randn((B, K, N))
+    coef = randn((B, G)) if G > 1 else None
+    y, rz = torch.empty_like(x), torch.empty((B, K), dtype=x.dtype, device=dev)
+    if kind == "block_matvec":
+        call = lambda: lib.pylrbms_block_matvec(                 # noqa: E731
+            hk.TILES, 0, 1, 0, 0, A.data_ptr(), x.data_ptr(),
+            None if coef is None else coef.data_ptr(), y.data_ptr(), G, K, N, B, stream)
+        ref = [hk.block_matvec_plain(A, x, coef)]
+    else:
+        call = lambda: lib.pylrbms_precond_dot(                  # noqa: E731
+            hk.TILES, 0, 1, 0, 0, A[0].data_ptr(), x.data_ptr(), y.data_ptr(), rz.data_ptr(),
+            None, None, K, N, B, stream)
+        ref = list(hk.precond_dot_plain(A[0], x))
+    rcs = [call()]
+    torch.cuda.synchronize()
+    errs = [rel(got.cpu(), want.cpu()) for got, want in zip((y, rz), ref)]
+    if any(rcs) or max(errs) > TOL["f64"][0]:
+        raise AssertionError(f"SIMT tiles {kind} K={K} N={N} B={B}: rc {rcs}, errors {errs}")
+    return cuda_ms(lambda: rcs.append(call()), flush=True)
+
+
 def kernel_phase(hk, torch, dev):
     """Kernel vs plain on the card; returns the summary of the serving-shape
     cases per kernel (f32 vectors, B=256: the main path's dtypes) and the
@@ -399,7 +450,10 @@ def kernel_phase(hk, torch, dev):
 
     def case(kind, G, K, N, B, mdt, vdt):
         checked.add((kind, G, K, N, B, mdt, vdt))
-        return kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
+        r = kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
+        if vdt == torch.float64 and r["path"] == "tiles":
+            raise AssertionError(f"{kind} K={K} N={N} B={B}: an f64 launch took the SIMT tiles")
+        return r
 
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     for B in (1, 256):
@@ -420,6 +474,16 @@ def kernel_phase(hk, torch, dev):
                 case("block_matvec", 1, 64, N, B, dt, dt)
                 case("precond_dot", 1, 64, N, B, dt, dt)
     case("block_matvec", 1, 256, 1728, 1, bf16, f32)     # 442k truth, jacobi_storage='bf16'
+    for n, (kind, G, K, N, B) in enumerate(DMMA_SHAPES):  # dmma: f64 vectors, many lanes
+        r = case(kind, G, K, N, B, f64, f64)
+        if n < DMMA_TILES_AB:
+            t = simt_tiles_ms(hk, torch, dev, randn, kind, G, K, N, B)
+            log(f"SIMT tiles (route 2) {kind} G={G} K={K} N={N} B={B} f64 x f64: {t:.4f} ms "
+                f"against dmma {r['ms']:.4f} ms ({t / r['ms']:.2f}x), plain {r['plain_ms']:.4f}, "
+                f"library {r['library_ms']:.4f}")
+        torch.cuda.empty_cache()
+    for kind in ("block_matvec", "precond_dot"):          # bf16 x f64 on the dmma route
+        case(kind, 1, 64, 384, 128, bf16, f64)
     for B in (1, 4, 13):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
@@ -445,6 +509,10 @@ def path_shape_phase(hk, torch, dev, paths, checked):
                 per_shape.setdefault((kind, *sig), {})[path] = n
     todo = sorted(set(per_shape) - checked, key=str)
     log(f"main-path kernel shapes: {len(per_shape)}, not in the kernel phase: {len(todo)}")
+    simt = [s for s in per_shape if hk.plan(*s).route == hk.TILES]
+    log(f"main-path shapes on the SIMT tiles: {simt}")
+    if any(s[-1] == torch.float64 for s in simt):
+        raise AssertionError(f"f64-vector launches took the SIMT tiles: {simt}")
     for shape in sorted(per_shape, key=str):
         kind, G, K, N, B, mdt, vdt = shape
         log(f"launches of {kind} G={G} K={K} N={N} B={B} {str(mdt)[6:]} x {str(vdt)[6:]}"

@@ -66,20 +66,33 @@
 //    through per-row-tile partials and a ticket, as on the stream route.
 //    mma.sync, not wgmma + TMA: a right kernel first; a warp-specialised
 //    pipeline is later work.
-//  * tiles (every other dtype pair at many lanes: f64 x f64, f32 x f32 in
-//    precond_dot, bf16 x f64).  The model order reduction launches them in
-//    f64 (the Gramians' operator applies at 128 lanes, correctors with more
-//    than 16 marked patches); kept unchanged from the first port, 3-4x behind
-//    cuBLAS there (PERF.md): SIMT FMA with shared-memory tiles, a
-//    block owns one subdomain k, TI rows and LB lanes, each thread an
-//    RPT x LPT register tile.
+//  * dmma (every f64-vector launch the stream does not take: f64 x f64 and
+//    bf16 x f64, any N, any B).  Tiled GEMMs per subdomain on the f64
+//    tensor cores: a block owns 64 or 32 rows x 64 or 32 lanes of one k
+//    (grid: lane tiles, row tiles, K), 4 warps; 16-column tiles of A (bf16
+//    as raw bytes, widened exactly when the fragment is built) and x reach
+//    shared memory by TMA (one thread issues two tensor-map box copies a
+//    stage, an mbarrier counts the bytes, the hardware zero-fills the tails)
+//    in a 4-stage ring, and the product runs as mma.sync m16n8k8 f64 (IEEE
+//    f64 multiply-adds) into f64 accumulators in registers.  The G-sum
+//    folds into a reduction of depth G N; precond_dot's rz goes through
+//    per-row-tile partials and a ticket per (k, lane tile).  Unaligned rows
+//    take scalar loads into the same layout.  It is bound by the copy into
+//    shared memory (HBM for A, L2 for the tiles read again), PERF.md.
+//  * tiles (the first port's SIMT kernels, unchanged: the f32-vector pairs with no
+//    tensor route at many lanes, f32 x f32 in precond_dot and bf16 x f32 in
+//    block_matvec, and the f32 launches the tensor route refuses, N % 32 != 0
+//    or misaligned; no main path launches them).  SIMT FMA with
+//    shared-memory tiles, a block owns one subdomain k, TI rows and LB
+//    lanes, each thread an RPT x LPT register tile.
 //
 // Accumulation is in the vector's type (f64 for f64 vectors, f32
 // otherwise); bf16 matrix elements widen exactly.  Any N (masked tails) on
-// the stream and tiles routes, any B >= 1 (at most 16 on the ring).
+// the stream, dmma and tiles routes, any B >= 1 (at most 16 on the ring).
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError() of the launch.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -89,7 +102,7 @@
 
 namespace {
 
-enum { kStream = 0, kTensor = 1, kTiles = 2, kRing = 3 };
+enum { kStream = 0, kTensor = 1, kTiles = 2, kRing = 3, kDmma = 4 };
 enum { kF64 = 0, kF32 = 1, kBF16 = 2 };
 
 constexpr int ROWS_PER_BLOCK = 32;   // stream route: rows of one k per block chunk
@@ -874,7 +887,342 @@ int launch_ring(const T* A, const T* x, const T* coef, T* y, int G, int K, int N
 }
 
 // ----------------------------------------------------------------------------
-// tiles route (unchanged from the first port)
+// dmma route (f64 vectors at many lanes: f64 x f64 and bf16 x f64)
+// ----------------------------------------------------------------------------
+
+// A block owns BM rows x LB lanes of one subdomain (grid: lane tiles, row
+// tiles, K; 64 or 32 rows x 64 or 32 lanes, plan() picks them by the block
+// count) with 4 warps of WM rows x WN lanes.  The depth (G N columns of [A_0 |
+// A_1 | ...] against [coef_0 x; coef_1 x; ...]) streams through a ring of S
+// stages of 16-column tiles of A and x, each filled by two TMA tensor copies
+// (a 3-D box of A [g k, rows, columns] and of x [lanes, k, columns]) that
+// one thread issues and an mbarrier counts; the hardware zero-fills rows,
+// columns and lanes past the ends.  f64 tiles are 128-byte rows with the
+// 128-byte swizzle (16-byte fragment reads on distinct banks), bf16 A
+// 32-byte rows widened exactly to f64 when the fragment is built.  The
+// product runs on the f64 tensor cores (mma.sync: wgmma has no f64 form)
+// into f64 accumulators in registers.  Misaligned operands, or rows whose
+// byte length is no multiple of 16, fill the same layout with scalar loads.
+// precond_dot's rz goes through per-row-tile partials and a ticket per (k,
+// lane tile), as on the tensor route.
+//
+// The f64 mma shape is m16n8k8 (PTX ISA 7.8 adds m16n8k4/k8/k16 on sm_90
+// beside the ring's m8n8k4; PERF.md has the A/B: m8n8k4 runs at half the
+// f64 tensor rate on the H100, m16n8k16 needs twice the fragment registers).
+// A thread's fragments take columns 4 tig .. 4 tig + 3 of the stage, two a
+// k8 step (one 16-byte shared-memory read a row).
+constexpr int DM_M = 16;                            // rows of one mma
+constexpr int DM_BK = 16;                           // columns a stage
+constexpr int DM_STAGES = 4, DM_WARPS = 4;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// waits for the phase of the given parity; traps (a launch error, not a
+// hang) if it never completes
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (long n = 0; !done; ++n) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (n > (1l << 22)) __trap();
+  }
+}
+// one box of a 3-D tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bytes of one stage row, and the byte offset of element (r, c) of a stage
+// tile: f64 rows with the 128-byte swizzle (16-byte chunk c / 2 of row r at
+// chunk c / 2 ^ r % 8, as TMA writes it), bf16 rows plain
+template <typename T>
+__host__ __device__ constexpr int dm_row() { return DM_BK * (int)sizeof(T); }
+template <typename T>
+__device__ __forceinline__ int dm_off(int r, int c) {
+  return sizeof(T) == 8 ? r * 128 + ((c * 8) ^ ((r & 7) << 4)) : r * dm_row<T>() + c * 2;
+}
+template <typename TS, int BM, int LB>
+__host__ __device__ constexpr int dm_stage() { return BM * dm_row<TS>() + LB * dm_row<double>(); }
+
+__device__ __forceinline__ void mma_f64_m16n8k8(double (&c)[4], const double (&a)[4],
+                                                double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// elements (r, c) and (r, c + 1) of a stage tile (c even), widened to f64
+__device__ __forceinline__ void load_pair(const unsigned char* t, int r, int c, double (&v)[2],
+                                          const double*) {
+  const double2 w = *reinterpret_cast<const double2*>(t + dm_off<double>(r, c));
+  v[0] = w.x, v[1] = w.y;
+}
+__device__ __forceinline__ void load_pair(const unsigned char* t, int r, int c, double (&v)[2],
+                                          const __nv_bfloat16*) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(t + dm_off<__nv_bfloat16>(r, c));
+  v[0] = __uint_as_float(w << 16), v[1] = __uint_as_float(w & 0xffff0000u);  // exact
+}
+
+template <typename TS, int BM, int LB, bool PD>
+__global__ void __launch_bounds__(32 * DM_WARPS)
+dmma_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmx,
+            const TS* __restrict__ A, const double* __restrict__ x,
+            const double* __restrict__ coef, double* __restrict__ y,
+            double* __restrict__ rz, double* __restrict__ partials,
+            unsigned* __restrict__ tickets, int G, int K, int N, int B, int vec) {
+  constexpr int S = DM_STAGES, W = DM_WARPS;
+  // warp tile: 32 x 32 at 64 x 64, else 16 rows x 32 or 16 lanes
+  constexpr int WN = (LB == 64 || BM == 64) ? 32 : 16;
+  constexpr int WC = LB / WN, WR = W / WC, WM = BM / WR;
+  constexpr int MT = WM / DM_M, NT = WN / 8;          // m tiles, n8 tiles of a warp
+  constexpr int ABYTES = BM * dm_row<TS>(), STAGE = dm_stage<TS, BM, LB>();
+  static_assert(WM % DM_M == 0 && WR * WC == W, "dmma warp tiling");
+  static_assert(ABYTES % 1024 == 0 && STAGE % 1024 == 0, "swizzled tiles on 1024-byte bounds");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t full[S];
+  const int n0 = blockIdx.x * LB, i0 = blockIdx.y * BM, k = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int wr = warp / WC, wc = warp % WC;
+  const int steps = (N + DM_BK - 1) / DM_BK, T_ALL = G * steps;
+
+  // stage t: A rows i0 .. of matrix g, then the LB lanes of x, columns j0 ..
+  // j0 + 15, zero past N, past the last row and past B.  TMA: one thread,
+  // counted on full[t % S]; scalar: every thread, seen after the next
+  // __syncthreads
+  auto load_stage = [&](int t) {
+    const int g = t / steps, j0 = (t - g * steps) * DM_BK;
+    unsigned char* As = smem + (t % S) * STAGE;
+    unsigned char* Xs = As + ABYTES;
+    if (vec) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&full[t % S], STAGE);
+        tma_3d(As, &tma, j0, i0, g * K + k, &full[t % S]);
+        tma_3d(Xs, &tmx, j0, k, n0, &full[t % S]);
+      }
+      return;
+    }
+    const TS* Ag = A + ((size_t)g * K + k) * N * N;
+    for (int e = threadIdx.x; e < BM * DM_BK; e += 32 * W) {
+      const int r = e / DM_BK, c = e % DM_BK, i = i0 + r, j = j0 + c;
+      *reinterpret_cast<TS*>(As + dm_off<TS>(r, c)) =
+          (i < N && j < N) ? Ag[(size_t)i * N + j] : TS{};
+    }
+    for (int e = threadIdx.x; e < LB * DM_BK; e += 32 * W) {
+      const int l = e / DM_BK, c = e % DM_BK, b = n0 + l, j = j0 + c;
+      *reinterpret_cast<double*>(Xs + dm_off<double>(l, c)) =
+          (b < B && j < N) ? x[((size_t)b * K + k) * N + j] : 0.0;
+    }
+  };
+
+  // acc[mt][nt][2 h + e]: row 8 h + grp of m tile mt, lane 2 tig + e of n8 tile nt
+  double acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
+
+  if (vec && threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) mbar_init(&full[q], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < S - 1 && s < T_ALL; ++s) load_stage(s);
+  for (int t = 0; t < T_ALL; ++t) {
+    if (vec) mbar_wait(&full[t % S], (t / S) & 1);
+    __syncthreads();                                   // stage t landed; t - 1 consumed
+    if (t + S - 1 < T_ALL) load_stage(t + S - 1);
+    const int g = t / steps;
+    const unsigned char* As = smem + (t % S) * STAGE;
+    const unsigned char* Xs = As + ABYTES;
+    double cg[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int b = n0 + wc * WN + nt * 8 + grp;
+      cg[nt] = (coef != nullptr && b < B) ? __ldg(coef + (size_t)b * G + g) : 1.0;
+    }
+    // k8 step f reads columns c0 = 4 tig + 2 f and c0 + 1 of its rows (A)
+    // and lanes (x): reduction slots tig and tig + 4 of the mma.  MT x NT
+    // independent mmas between two on one accumulator
+#pragma unroll
+    for (int f = 0; f < DM_BK / 8; ++f) {
+      const int col = 4 * tig + 2 * f;
+      double a[MT][2][2], bx[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          load_pair(As, wr * WM + mt * DM_M + 8 * h + grp, col, a[mt][h], (const TS*)nullptr);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        load_pair(Xs, wc * WN + nt * 8 + grp, col, bx[nt], (const double*)nullptr);
+        if (coef != nullptr) bx[nt][0] *= cg[nt], bx[nt][1] *= cg[nt];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const double af[4] = {a[mt][0][0], a[mt][1][0], a[mt][0][1], a[mt][1][1]};
+          mma_f64_m16n8k8(acc[mt][nt], af, bx[nt][0], bx[nt][1]);
+        }
+    }
+  }
+
+  double part[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) part[nt][0] = part[nt][1] = 0.0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + wr * WM + mt * DM_M + 8 * (q >> 1) + grp;
+        const int b = n0 + wc * WN + nt * 8 + 2 * tig + (q & 1);
+        if (i < N && b < B) {
+          const size_t o = ((size_t)b * K + k) * N + i;
+          y[o] = acc[mt][nt][q];
+          if constexpr (PD) part[nt][q & 1] = fma(x[o], acc[mt][nt][q], part[nt][q & 1]);
+        }
+      }
+  if constexpr (PD) {
+    // over the 8 row groups of a warp (lanes of equal tig), the row warps,
+    // then the row tiles
+    __shared__ double red[W][WN];
+    __shared__ bool last;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        double v = part[nt][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (grp == 0) red[warp][nt * 8 + 2 * tig + e] = v;
+      }
+    __syncthreads();
+    const int tiles = gridDim.y;
+    const unsigned ticket = blockIdx.x * K + k;
+    if (threadIdx.x < LB) {
+      const int l = threadIdx.x, b = n0 + l;
+      if (b < B) {
+        double s = 0.0;
+        for (int w = 0; w < WR; ++w) s += red[w * WC + l / WN][l % WN];
+        partials[((size_t)b * K + k) * tiles + blockIdx.y] = s;
+        __threadfence();
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&tickets[ticket], 1u) == (unsigned)(tiles - 1);
+    __syncthreads();
+    if (last) {
+      if (threadIdx.x < LB && n0 + (int)threadIdx.x < B) {
+        const int b = n0 + threadIdx.x;
+        const double* p = partials + ((size_t)b * K + k) * tiles;
+        double s = 0.0;
+        for (int c = 0; c < tiles; ++c) s += __ldcg(p + c);
+        rz[(size_t)b * K + k] = s;
+      }
+      if (threadIdx.x == 0) tickets[ticket] = 0u;       // ready for the next launch
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link to libcuda)
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+TmapEncode tmap_encode() {
+  static const TmapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<TmapEncode>(p);
+  }();
+  return fn;
+}
+
+// a 3-D tensor map: dims {d0 (contiguous), d1, d2}, byte strides of d1 and
+// d2, box {b0, b1, b2}; elements past the dims read as zero
+bool tmap_3d(CUtensorMap* m, const void* base, CUtensorMapDataType dt, cuuint64_t d0,
+             cuuint64_t d1, cuuint64_t d2, cuuint64_t s1, cuuint64_t s2, cuuint32_t b0,
+             cuuint32_t b1, cuuint32_t b2, bool swizzle) {
+  const TmapEncode enc = tmap_encode();
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, b2}, one[3] = {1, 1, 1};
+  return enc != nullptr &&
+         enc(m, dt, 3, const_cast<void*>(base), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TS, int BM, int LB, bool PD>
+int launch_dmma_cfg(const TS* A, const double* x, const double* coef, double* y, double* rz,
+                    double* partials, unsigned* tickets, int G, int K, int N, int B,
+                    cudaStream_t s) {
+  const int vec = aligned16(A) && aligned16(x) && ((size_t)N * sizeof(TS)) % 16 == 0 &&
+                  N % 2 == 0;
+  CUtensorMap ta{}, tx{};                             // A [G K, N, N], x [B, K, N]
+  constexpr bool F64 = sizeof(TS) == 8;
+  if (vec && !(tmap_3d(&ta, A, F64 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       N, N, (cuuint64_t)G * K, (cuuint64_t)N * sizeof(TS),
+                       (cuuint64_t)N * N * sizeof(TS), DM_BK, BM, 1, F64) &&
+               tmap_3d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, N, K, B, (cuuint64_t)N * 8,
+                       (cuuint64_t)K * N * 8, DM_BK, 1, LB, true)))
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = DM_STAGES * dm_stage<TS, BM, LB>() + 1024;  // + 1024-byte alignment
+  auto kernel = dmma_kernel<TS, BM, LB, PD>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dim3 grid((B + LB - 1) / LB, (N + BM - 1) / BM, K);
+  kernel<<<grid, 32 * DM_WARPS, bytes, s>>>(ta, tx, A, x, coef, y, rz, partials, tickets, G, K, N, B,
+                                     vec);
+  return (int)cudaGetLastError();
+}
+
+// lanes: 32 or 64 lanes a block; chunks: 1 or 2 32-row chunks a block
+// (plan() in ops/hopper_kernels.py picks them)
+template <typename TS, bool PD>
+int launch_dmma(int lanes, int chunks, const TS* A, const double* x, const double* coef,
+                double* y, double* rz, double* partials, unsigned* tickets, int G, int K, int N,
+                int B, cudaStream_t s) {
+  if (PD && (partials == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
+#define PYLRBMS_DMMA(BM, LB) \
+  return launch_dmma_cfg<TS, BM, LB, PD>(A, x, coef, y, rz, partials, tickets, G, K, N, B, s)
+  if (chunks == 2 && lanes == 64) PYLRBMS_DMMA(64, 64);
+  if (chunks == 2 && lanes == 32) PYLRBMS_DMMA(64, 32);
+  if (chunks == 1 && lanes == 64) PYLRBMS_DMMA(32, 64);
+  if (chunks == 1 && lanes == 32) PYLRBMS_DMMA(32, 32);
+#undef PYLRBMS_DMMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// ----------------------------------------------------------------------------
+// tiles route (unchanged from the first port; f32 vectors only on a path)
 // ----------------------------------------------------------------------------
 
 // out[q][l] = sum_g coef[b,g] sum_j A[g,k,i,j] x[b,k,j] for this thread's
@@ -1035,6 +1383,12 @@ int launch_block_matvec(int route, int lanes, int C, const void* A, const void* 
       return launch_ring<TA>(a, xv, c, yv, G, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (route == kDmma) {
+    if constexpr (std::is_same<TA, double>::value)
+      return launch_dmma<TS, false>(lanes, C, a, xv, c, yv, nullptr, nullptr, nullptr, G, K, N,
+                                    B, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (route == kTiles) {
     // 64 rows x 64 lanes per block, 4 x 4 (row, lane) accumulators a thread
     dim3 grid(K, (N + 63) / 64, (B + 63) / 64);
@@ -1071,6 +1425,13 @@ int launch_precond_dot(int route, int lanes, int C, const void* F, const void* r
           f, rv, zv, rzv, static_cast<float*>(partials), static_cast<unsigned*>(tickets), K, N, B);
       return (int)cudaGetLastError();
     }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kDmma) {
+    if constexpr (std::is_same<TA, double>::value)
+      return launch_dmma<TS, true>(lanes, C, f, rv, nullptr, zv, rzv,
+                                   static_cast<double*>(partials),
+                                   static_cast<unsigned*>(tickets), 1, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route == kTiles) {

@@ -1,23 +1,28 @@
-"""A/B of the kernel source against a variant of it on one GPU.
+"""A/B of the kernel source against variants of it on one GPU.
 
-    python3 -m pylrbms_tpu_torch.kernel_ab VARIANT.cu [--shape SHAPE ...]
+    python3 -m pylrbms_tpu_torch.kernel_ab VARIANT.cu [VARIANT.cu ...]
+        [--shape SHAPE ... | --dmma]
 
 Run from the repository root (it uses ``chip_smoke.kernel_case``).  Builds
-the package's ``csrc/block_kernels.cu`` and VARIANT.cu (a copy of it with
-one change, same C interface) each into its own library, then holds both
-to the plain versions and times them at each shape in turns "base,
-variant, variant, base" (L2 flushed, median of 20 CUDA-event times; each
-line gives the max error, kernel, plain, library and bound ms).  SHAPE is
-``kind,G,K,N,B,matrix dtype,vector dtype``, e.g.
+the package's ``csrc/block_kernels.cu`` and each VARIANT.cu (a copy of it
+with one change, same C interface) into libraries of their own, all
+``nvcc`` runs started together, then holds each to the plain versions and
+times them at each shape in turns "base, variants, variants reversed, base"
+(L2 flushed, median of 20 CUDA-event times; each line gives the max error,
+kernel, plain, library and bound ms).  A turn that disagrees with the plain
+version is reported and the run goes on; the exit code is then 1.  SHAPE
+is ``kind,G,K,N,B,matrix dtype,vector dtype``, e.g.
 ``block_matvec,2,64,384,256,f32,f32``; the default is every main-path
-shape of ``PERF.md`` section 6.  Every line carries the card's name and
-power limit.  Exits non-zero without CUDA.
+shape of ``PERF.md`` section 6, ``--dmma`` the f64 shapes of the dmma
+route's table there.  Every line carries the card's name and power limit.
+Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,7 +37,12 @@ MAIN_PATH_SHAPES = [
     "block_matvec,2,64,384,256,f32,f32", "block_matvec,2,64,384,1,f32,f32",
     "block_matvec,1,64,384,12,f32,f32", "block_matvec,1,64,384,1,f32,f32",
     "precond_dot,1,64,384,1,bf16,f32"]
-TURNS = ("base", "variant", "variant", "base")
+DMMA_SHAPES = [
+    "precond_dot,1,32,512,32,f64,f64", "block_matvec,1,256,384,128,f64,f64",
+    "block_matvec,1,32,512,128,f64,f64", "block_matvec,1,64,384,128,f64,f64",
+    "block_matvec,1,16,384,128,f64,f64", "block_matvec,1,32,512,32,f64,f64",
+    "block_matvec,1,256,384,21,f64,f64", "block_matvec,1,64,24,128,f64,f64",
+    "precond_dot,1,64,384,256,f64,f64"]
 
 
 def parse_shape(text):
@@ -40,24 +50,22 @@ def parse_shape(text):
     return kind, int(G), int(K), int(N), int(B), DTYPES[mdt], DTYPES[vdt]
 
 
-def load_library(source, library):
-    """Build ``source`` into ``library`` and load it, leaving the
-    package's own source and library in place for every later call."""
-    saved = hk.SOURCE, hk.LIBRARY
-    hk.SOURCE, hk.LIBRARY = source, library
-    hk._lib.cache_clear()
-    try:
-        hk.build()
-        return hk._lib()
-    finally:
-        hk.SOURCE, hk.LIBRARY = saved
-        hk._lib.cache_clear()
+def build_all(sources):
+    """``{name: library}`` for ``{name: source}``, the builds in parallel;
+    the package's own library is left in place."""
+    libraries = {name: (hk.LIBRARY if src == hk.SOURCE else
+                        os.path.join(hk.BUILD_DIR, f"libblock_kernels_{name}.so"))
+                 for name, src in sources.items()}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda n: hk.build(sources[n], libraries[n]), sources))
+    return {name: hk.open_library(lib) for name, lib in libraries.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variant", help="the variant's .cu source")
+    ap.add_argument("variants", nargs="+", help="the variants' .cu sources")
     ap.add_argument("--shape", action="append", help="kind,G,K,N,B,mdt,vdt (repeatable)")
+    ap.add_argument("--dmma", action="store_true", help="the dmma route's f64 shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available; this probe runs only on a GPU", file=sys.stderr)
@@ -66,23 +74,29 @@ def main(argv=None) -> int:
 
     smi = cs.smi_line()
     pin_precision()
-    libs = {"base": load_library(hk.SOURCE, hk.LIBRARY),
-            "variant": load_library(os.path.abspath(args.variant),
-                                    os.path.join(hk.BUILD_DIR, "libblock_kernels_variant.so"))}
+    names = [os.path.splitext(os.path.basename(v))[0] for v in args.variants]
+    libs = build_all({"base": hk.SOURCE,
+                      **{n: os.path.abspath(v) for n, v in zip(names, args.variants)}})
+    turns = ["base", *names, *names[::-1], "base"]
+    shapes = args.shape or (DMMA_SHAPES if args.dmma else MAIN_PATH_SHAPES)
     dev = torch.device("cuda", 0)
-    lib = hk._lib
+    lib, failed = hk._lib, 0
     try:
-        for shape in map(parse_shape, args.shape or MAIN_PATH_SHAPES):
-            for turn in TURNS:
+        for shape in map(parse_shape, shapes):
+            for turn in turns:
                 hk._lib = lambda t=turn: libs[t]             # noqa: E731
                 rng = np.random.default_rng(cs.SEED)
                 randn = lambda s: torch.as_tensor(rng.standard_normal(s), device=dev)  # noqa: E731
-                print(f"{turn:7s} [{smi}]", end=" ", flush=True)
-                cs.kernel_case(hk, torch, dev, randn, *shape)
+                print(f"{turn:9s} [{smi}]", end=" ", flush=True)
+                try:
+                    cs.kernel_case(hk, torch, dev, randn, *shape)
+                except AssertionError as err:
+                    failed += 1
+                    print(f"{turn:9s} FAILED: {err}", flush=True)
             torch.cuda.empty_cache()
     finally:
         hk._lib = lib
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -10,13 +10,15 @@ header for the design and what bounds them on the card):
 * :func:`precond_dot` <- ``precond_dot_pallas``:
   ``z[b,k] = F[k] @ r[b,k]`` and ``rz[b,k] = r[b,k] . z[b,k]``.
 
-Each launch takes one of three routes, which :func:`plan` picks from the
+Each launch takes one of four routes, which :func:`plan` picks from the
 shape and dtypes by arithmetic intensity (operations per byte against the
 card's ridge): ``stream`` (memory-bound, B <= 16 lanes; at 5-16 lanes
 block_matvec's f64 and f32 pairs take its ``ring`` form, a cp.async ring
-of A tiles with the product on the tensor cores), ``tensor`` (tensor cores
-on split operands: bf16 F x f32 r in precond_dot, f32 x f32 in
-block_matvec) and ``tiles`` (SIMT, every other pair at many lanes).
+of A tiles with the product on the tensor cores), ``dmma`` (every other
+f64-vector launch: tiled GEMMs on the f64 tensor cores), ``tensor``
+(tensor cores on split operands: bf16 F x f32 r in precond_dot, f32 x f32
+in block_matvec) and ``tiles`` (SIMT, the other f32-vector pairs at many
+lanes, which no main path launches).
 
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
@@ -56,8 +58,9 @@ _SUPPORTED = {(torch.float64, torch.float64), (torch.bfloat16, torch.float64),
 
 # routes (the ints the C entry points take) and what plan() knows of them;
 # RING is the stream route's form for 5-16 lanes of block_matvec
-STREAM, TENSOR, TILES, RING = 0, 1, 2, 3
-ROUTE_NAMES = {STREAM: "stream", TENSOR: "tensor", TILES: "tiles", RING: "ring"}
+STREAM, TENSOR, TILES, RING, DMMA = 0, 1, 2, 3, 4
+ROUTE_NAMES = {STREAM: "stream", TENSOR: "tensor", TILES: "tiles", RING: "ring",
+               DMMA: "dmma"}
 STREAM_LANES = (1, 4, 16)          # lane counts the stream kernels hold in registers
 ROWS_PER_BLOCK = 32                # stream route: rows of one subdomain per block chunk
 STREAM_CHUNKS = 8                  # stream route: most row chunks per block
@@ -65,6 +68,8 @@ SMEM_BYTES = 200 * 1024            # the kernels' largest dynamic shared memory
 MMA_ROWS, MMA_LANES = 128, 64     # tensor route: rows and lanes per block
 MMA_DEPTH = 32                     # tensor and ring routes: columns per pipeline stage
 RING_ROWS = 64                     # ring route: rows per block (16 lanes)
+# dmma route: (rows, lanes) a block
+DMMA_TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
 SMS = 132                          # streaming multiprocessors of the H100 SXM
 # (kernel, matrix dtype, vector dtype) pairs with a tensor-core route
 TENSOR_PAIRS = {("precond_dot", torch.bfloat16, torch.float32),
@@ -79,9 +84,9 @@ PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12, "f64 tensor": 67e12, "tf32": 495e1
 
 
 class Plan(NamedTuple):
-    route: int          # STREAM, RING, TENSOR or TILES
-    lanes: int          # stream, ring: lanes a block computes (STREAM_LANES); else 0
-    chunks: int         # stream: 32-row chunks per block; else 1
+    route: int          # STREAM, RING, DMMA, TENSOR or TILES
+    lanes: int          # stream, ring, dmma: lanes a block computes; else 0
+    chunks: int         # stream, dmma: 32-row chunks per block; else 1
     blocks: int         # thread blocks of the launch
 
     @property
@@ -105,9 +110,12 @@ def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
     the vector type's SIMT rate (operations/s over bytes/s: ~20 for f32, ~10
     for f64) the call is memory-bound and streams (B <= 16): in registers
     up to 4 lanes, through the ring at 5-16 lanes for the pairs in
-    :data:`RING_PAIRS`; above it the pairs in :data:`TENSOR_PAIRS` take the
-    tensor cores, every other pair the SIMT tiles.  The ring and tensor
-    routes need N % 32 == 0 and 16-byte aligned operands."""
+    :data:`RING_PAIRS`.  Every other f64-vector launch (f64 or bf16 matrix,
+    any N, aligned or not) takes the f64 tensor cores (``dmma``; block tile:
+    :func:`_dmma_tile`).  Above the ridge the f32-vector pairs in
+    :data:`TENSOR_PAIRS` take the tensor cores, the other f32-vector pairs
+    the SIMT tiles.  The ring and tensor routes need N % 32 == 0 and
+    16-byte aligned operands."""
     ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
     simt = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
     mma = N % MMA_DEPTH == 0 and aligned
@@ -117,11 +125,33 @@ def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
             return Plan(RING, lanes, 1, K * math.ceil(N / RING_ROWS))
         chunks = _stream_chunks(G, K, N, lanes, torch.finfo(vdt).bits // 8)
         return Plan(STREAM, lanes, chunks, K * math.ceil(N / (ROWS_PER_BLOCK * chunks)))
+    if vdt == torch.float64:
+        rows, lanes = _dmma_tile(K, N, B)
+        return Plan(DMMA, lanes, rows // ROWS_PER_BLOCK,
+                    K * math.ceil(N / rows) * math.ceil(B / lanes))
     if (kind, mdt, vdt) in TENSOR_PAIRS and mma:
         return Plan(TENSOR, 0, 1, K * math.ceil(B / MMA_LANES) * math.ceil(N / MMA_ROWS))
     if kind == "block_matvec":
         return Plan(TILES, 0, 1, K * math.ceil(N / 64) * math.ceil(B / 64))
     return Plan(TILES, 0, 1, K * math.ceil(B / 32))
+
+
+def _dmma_tile(K, N, B):
+    """(rows, lanes) of a dmma block (one of :data:`DMMA_TILES`): 64 x 64
+    where that gives four blocks an SM, else 32 lanes a block (B > 32 in
+    lane tiles; 64 x 32 is about as fast as 64 x 64 per element on the H100
+    and fills more SMs); 32 rows where N <= 32 or 64 rows would leave fewer
+    than two waves of blocks (PERF.md, the dmma tile probe)."""
+    lanes = 32 if B <= 32 else 64
+    rows = 64 if N > 32 else 32
+
+    def blocks(r, l):
+        return K * math.ceil(N / r) * math.ceil(B / l)
+    if lanes == 64 and blocks(rows, 64) < 4 * SMS:
+        lanes = 32
+    if rows == 64 and blocks(64, lanes) < 2 * SMS:
+        rows = 32
+    return rows, lanes
 
 
 def _stream_chunks(G, K, N, lanes, sv):
@@ -191,25 +221,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> str:
-    """Compile ``csrc/block_kernels.cu`` into :data:`LIBRARY`; returns the
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+def build(source=None, library=None) -> str:
+    """Compile ``source`` (default ``csrc/block_kernels.cu``) into ``library``
+    (default :data:`LIBRARY`); returns the compiler's output (``-Xptxas
+    -v``: registers, shared memory, spills)."""
+    source, library = source or SOURCE, library or LIBRARY
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return proc.stdout + proc.stderr
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    if (not os.path.exists(LIBRARY)
-            or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
-        build()
-    lib = ctypes.CDLL(LIBRARY)
+def open_library(library):
+    """Load a built kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(library)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.pylrbms_block_matvec.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp,
                                          ci, ci, ci, ci, vp]
@@ -218,6 +247,14 @@ def _lib():
                                         ci, ci, ci, vp]
     lib.pylrbms_precond_dot.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    if (not os.path.exists(LIBRARY)
+            or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
+        build()
+    return open_library(LIBRARY)
 
 
 def load() -> None:
@@ -256,7 +293,7 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-# precond_dot's rz scratch (stream and tensor routes), per (device, stream):
+# precond_dot's rz scratch (stream, dmma and tensor routes), per (device, stream):
 # integer tickets, one per subdomain (and lane tile), zero between launches
 # (the last block of each resets its own), and the rz partials [B, K, row
 # blocks] per vector dtype
@@ -264,9 +301,13 @@ _PD_WORKSPACE: dict = {}
 
 
 def _pd_scratch(p, K, N, B):
-    """(tickets, partials) element counts of one precond_dot launch."""
+    """(tickets, partials) element counts of one precond_dot launch: a
+    ticket per (k, lane tile), a partial per (lane, k, row tile)."""
     if p.route == STREAM:
         return K, B * K * (p.blocks // K)
+    if p.route == DMMA:
+        return (K * math.ceil(B / p.lanes),
+                B * K * math.ceil(N / (ROWS_PER_BLOCK * p.chunks)))
     return K * math.ceil(B / MMA_LANES), B * K * math.ceil(N / MMA_ROWS)
 
 

@@ -49,8 +49,9 @@ DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
                                      (1, 8, 216, 1), (1, 8, 216, 16), (2, 8, 512, 256)])
 def test_kernels_match_plain_versions(cuda, G, K, N, B):
     """Every route of each kernel (stream for B <= 16, in its ring form for
-    block_matvec's f64 and f32 pairs at 5-16 lanes, tensor cores for the
-    serving pairs at many lanes, SIMT tiles for the rest), the scale
+    block_matvec's f64 and f32 pairs at 5-16 lanes, the f64 tensor cores
+    for f64 vectors above that, tensor cores for the f32 serving pairs at
+    many lanes, SIMT tiles for the other f32 pairs), the scale
     solve's N=1536 blocks, the serving batch and harvest, a ring with a
     half-empty row tile and masked lanes, ragged N (scalar loads), and the
     order-2 blocks (Q2 quad N=576, P2 tri N=768; 96 KB of staged f64 x at
@@ -76,7 +77,9 @@ def test_kernels_match_plain_versions(cuda, G, K, N, B):
 @pytest.mark.parametrize("N,B,fdt,rdt", [(1536, 1, torch.float32, torch.float32),
                                          (384, 4, torch.bfloat16, torch.float32),
                                          (384, 256, torch.bfloat16, torch.float32),
-                                         (384, 64, torch.float64, torch.float64)])
+                                         (384, 64, torch.float64, torch.float64),
+                                         (512, 32, torch.float64, torch.float64),
+                                         (216, 17, torch.bfloat16, torch.float64)])
 def test_precond_dot_rz_is_bitwise_reproducible(cuda, N, B, fdt, rdt):
     """rz is summed in a fixed order on every route (the stream route's
     per-block partials by the last block of each subdomain): two launches
@@ -89,6 +92,59 @@ def test_precond_dot_rz_is_bitwise_reproducible(cuda, N, B, fdt, rdt):
     torch.cuda.synchronize()
     assert torch.equal(rz1, rz2) and torch.equal(z1, z2)
     assert _rel(rz1, hk.precond_dot_plain(F, r)[1]) <= (1e-12 if rdt == torch.float64 else 2e-4)
+
+
+@pytest.mark.parametrize("G,K,N,B", [(1, 32, 512, 32), (1, 256, 384, 128), (1, 32, 512, 128),
+                                     (1, 64, 384, 128), (1, 16, 384, 128), (1, 64, 384, 21),
+                                     (1, 64, 24, 100), (2, 64, 384, 128), (1, 64, 216, 32),
+                                     (1, 64, 216, 17), (1, 64, 384, 256), (2, 8, 130, 40),
+                                     (1, 8, 131, 33)])
+@pytest.mark.parametrize("mdt", [torch.float64, torch.bfloat16])
+def test_dmma_route_matches_plain_versions(cuda, G, K, N, B, mdt):
+    """The dmma route (f64 vectors above the stream) at the shapes the
+    paths launch, G=2 with coef, ragged N and lane tails, and rows that are
+    no 16-byte multiple (N=130 bf16, N=131: the scalar loads): 1e-12 of the
+    plain version; z and rz bitwise equal over two launches."""
+    rng = np.random.default_rng(29)
+    A = torch.tensor(rng.normal(size=(G, K, N, N)), device=cuda).to(mdt)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda)
+    coef = torch.tensor(rng.normal(size=(B, G)), device=cuda) if G > 1 else None
+    assert hk.plan("block_matvec", G, K, N, B, mdt, x.dtype).route == hk.DMMA
+    assert hk.plan("precond_dot", 1, K, N, B, mdt, x.dtype).route == hk.DMMA
+    y, yp = hk.block_matvec(A, x, coef), hk.block_matvec_plain(A, x, coef)
+    F = A[0].contiguous()
+    (z, rz), (z2, rz2) = hk.precond_dot(F, x), hk.precond_dot(F, x)
+    zp, rzp = hk.precond_dot_plain(F, x)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= 1e-12 and _rel(z, zp) <= 1e-12 and _rel(rz, rzp) <= 1e-12
+    assert torch.equal(rz, rz2) and torch.equal(z, z2)
+
+
+def test_dmma_route_takes_misaligned_operands(cuda):
+    """Operands 8 bytes off a 16-byte boundary stay on the dmma route (its
+    scalar loads), f64 and bf16 matrices."""
+    rng = np.random.default_rng(31)
+    K, N, B = 8, 96, 40
+    for mdt in (torch.float64, torch.bfloat16):
+        buf = torch.tensor(rng.normal(size=K * N * N + 8), device=cuda).to(mdt)
+        F = buf[1:1 + K * N * N].view(K, N, N)
+        xb = torch.tensor(rng.normal(size=B * K * N + 1), device=cuda)
+        x = xb[1:].view(B, K, N)
+        assert F.data_ptr() % 16 != 0 and x.data_ptr() % 16 != 0
+        y, yp = hk.block_matvec(F[None], x), hk.block_matvec_plain(F[None], x)
+        (z, rz), (zp, rzp) = hk.precond_dot(F, x), hk.precond_dot_plain(F, x)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= 1e-12 and _rel(z, zp) <= 1e-12 and _rel(rz, rzp) <= 1e-12
+
+
+def test_dmma_route_refuses_f32_vectors(cuda):
+    """Route 4 of the C entry takes f64 vectors only: an f32 pair is refused
+    (cudaErrorInvalidValue), never sent to another route."""
+    lib, stream = hk._lib(), torch.cuda.current_stream().cuda_stream
+    A = torch.ones((1, 2, 64, 64), device=cuda)
+    x, y = torch.ones((40, 2, 64), device=cuda), torch.empty((40, 2, 64), device=cuda)
+    assert lib.pylrbms_block_matvec(hk.DMMA, 64, 2, 1, 1, A.data_ptr(), x.data_ptr(), None,
+                                    y.data_ptr(), 1, 2, 64, 40, stream) != 0
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -164,8 +220,9 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
 @pytest.mark.parametrize("B", [2, 8, 32, 256])
 def test_corrector_shapes_match_plain_versions(cuda, B):
     """The batched corrector's launches at the north-star width: f64 x f64,
-    G=1, K=256, N=384, B marked patches (stream, ring and SIMT tiles
-    routes), after a K=64 launch so precond_dot's scratch has to grow."""
+    G=1, K=256, N=384, B marked patches (the stream at 2 and 8 lanes, in
+    its ring form for block_matvec at 8; dmma at 32 and 256), after a K=64 launch so precond_dot's scratch has
+    to grow."""
     rng = np.random.default_rng(5)
     f64 = torch.float64
     for K in (64, 256):

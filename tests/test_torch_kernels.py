@@ -7,6 +7,8 @@ way tests/test_pallas.py runs them) and to float64 numpy for the lane, coef
 and ragged-N cases.  The CUDA kernels themselves are checked against the
 plain versions in tests/test_torch_cuda.py (marked ``cuda``).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -197,10 +199,10 @@ MAIN_PATH_SHAPES = [
     ("block_matvec", 1, 64, 384, 12, f32, f32, hk.RING, 0.0118, "bytes"),    # serving harvest
     ("block_matvec", 1, 64, 384, 1, f32, f32, hk.STREAM, 0.0113, "bytes"),
     ("precond_dot", 1, 64, 384, 1, bf16, f32, hk.STREAM, 0.0057, "bytes"),   # single query M
-    # the SIMT tiles are charged at the card's f64 rate (67e12 on the tensor
-    # cores), not at the rate of the route they take
-    ("block_matvec", 1, 64, 384, 128, f64, f64, hk.TILES, 0.0376, "bytes"),  # Gramian applies
-    ("precond_dot", 1, 256, 384, 256, f64, f64, hk.TILES, 0.2885, "operations"),
+    # f64 vectors above the stream take the f64 tensor cores, charged at
+    # their rate (67e12)
+    ("block_matvec", 1, 64, 384, 128, f64, f64, hk.DMMA, 0.0376, "bytes"),  # Gramian applies
+    ("precond_dot", 1, 256, 384, 256, f64, f64, hk.DMMA, 0.2885, "operations"),
 ]
 
 
@@ -214,18 +216,74 @@ def test_plan_routes_main_path_shapes(kind, G, K, N, B, mdt, vdt, route, bound_m
     assert hk.bound(kind, G, K, N, B, mdt, vdt) == (pytest.approx(bound_ms, rel=0.02), limit)
 
 
-def test_plan_keeps_simt_tiles_for_other_pairs_at_many_lanes():
-    for kind, mdt, vdt in (("block_matvec", f64, f64), ("precond_dot", f64, f64),
-                           ("precond_dot", f32, f32), ("precond_dot", bf16, f64),
-                           ("block_matvec", bf16, f32)):
-        assert hk.plan(kind, 1, 64, 384, 256, mdt, vdt).route == hk.TILES
-    # the tensor route needs N % 32 == 0 and 16-byte aligned operands
-    assert hk.plan("precond_dot", 1, 64, 400, 256, bf16, f32).route == hk.TILES
-    assert hk.plan("block_matvec", 2, 64, 384, 256, f32, f32, aligned=False).route == hk.TILES
-    # every lane count up to 16 streams; the tail shapes of chip_smoke too
+F64_PAIRS = [("block_matvec", f64), ("block_matvec", bf16), ("precond_dot", f64),
+             ("precond_dot", bf16)]
+
+
+@pytest.mark.parametrize("N", [24, 96, 216, 384, 512])
+@pytest.mark.parametrize("kind,mdt", F64_PAIRS)
+def test_plan_sends_every_f64_vector_launch_above_16_lanes_to_dmma(kind, mdt, N):
+    """Every f64-vector pair above 16 lanes takes the f64 tensor cores, at
+    any N, lane tail and alignment; 64 x 64 blocks only with four blocks an
+    SM, 32-row blocks only where 64 rows leave fewer than two waves on the
+    132 SMs, so the grid has two waves wherever 32-row blocks give them."""
+    for K in (16, 32, 64, 256):
+        for B in (17, 20, 32, 101, 128, 256):
+            for aligned in (True, False):
+                p = hk.plan(kind, 1, K, N, B, mdt, f64, aligned)
+                assert p.route == hk.DMMA and p.name == "dmma", (K, B, aligned, p)
+                assert (32 * p.chunks, p.lanes) in hk.DMMA_TILES
+                if B <= 32:
+                    assert p.lanes == 32
+                lane_tiles = math.ceil(B / p.lanes)
+                assert p.blocks == K * lane_tiles * math.ceil(N / (32 * p.chunks))
+                if K * lane_tiles * math.ceil(N / 32) >= 2 * 132:
+                    assert p.blocks >= 2 * 132, (K, B, p)
+                if p.chunks == 1 and N > 32:                 # 32-row blocks only for waves
+                    assert K * lane_tiles * math.ceil(N / 64) < 2 * 132
+                if (32 * p.chunks, p.lanes) == (64, 64):     # 64 x 64 only with 4 an SM
+                    assert p.blocks >= 4 * 132
+    # at 1-16 lanes an f64 vector streams or, past the stream's ridge (a
+    # bf16 matrix at 11-16 lanes), takes the dmma route: never the SIMT tiles
     for B in range(1, 17):
-        p = hk.plan("block_matvec", 2, 4, 24, B, f32, f32)
-        assert p.route == hk.STREAM and p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
+        assert hk.plan(kind, 1, 64, N, B, mdt, f64).route in (hk.STREAM, hk.RING, hk.DMMA)
+
+
+@pytest.mark.parametrize("kind,G,N,B,mdt,vdt,aligned,route", [
+    ("precond_dot", 1, 384, 256, f32, f32, True, hk.TILES),    # no tensor route for the pair
+    ("block_matvec", 1, 384, 256, bf16, f32, True, hk.TILES),
+    ("precond_dot", 1, 400, 256, bf16, f32, True, hk.TILES),   # the tensor route needs N % 32
+    ("block_matvec", 2, 384, 256, f32, f32, False, hk.TILES),  # ... and aligned operands
+    ("precond_dot", 1, 384, 256, bf16, f32, True, hk.TENSOR),
+    ("block_matvec", 2, 384, 256, f32, f32, True, hk.TENSOR),
+])
+def test_plan_keeps_simt_tiles_for_other_pairs_at_many_lanes(kind, G, N, B, mdt, vdt, aligned,
+                                                              route):
+    """Only f32-vector pairs without a tensor route stay on the SIMT tiles."""
+    assert hk.plan(kind, G, 64, N, B, mdt, vdt, aligned).route == route
+
+
+@pytest.mark.parametrize("B", range(1, 17))
+def test_plan_streams_every_lane_count_up_to_16(B):
+    # the tail shapes of chip_smoke
+    p = hk.plan("block_matvec", 2, 4, 24, B, f32, f32)
+    assert p.route == hk.STREAM and p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
+
+
+@pytest.mark.parametrize("K,N,B,mdt", [(32, 512, 32, f64), (64, 384, 256, f64),
+                                       (256, 384, 256, f64), (64, 216, 17, bf16),
+                                       (64, 24, 128, f64), (16, 384, 101, bf16)])
+def test_pd_scratch_covers_the_dmma_tiles(K, N, B, mdt):
+    """precond_dot on the dmma route: a ticket per (k, lane tile) and an rz
+    partial per (lane, k, row tile), indexed as the kernel indexes them."""
+    p = hk.plan("precond_dot", 1, K, N, B, mdt, f64)
+    assert p.route == hk.DMMA
+    tickets, partials = hk._pd_scratch(p, K, N, B)
+    lane_tiles, row_tiles = math.ceil(B / p.lanes), math.ceil(N / (32 * p.chunks))
+    assert p.blocks == K * lane_tiles * row_tiles
+    assert (lane_tiles - 1) * K + (K - 1) < tickets              # blockIdx.x * K + k
+    assert ((B - 1) * K + K - 1) * row_tiles + row_tiles - 1 < partials
+    assert partials == B * K * row_tiles
 
 
 def test_plan_takes_the_ring_only_for_block_matvec_f64_and_f32_at_5_to_16_lanes():
