@@ -23,7 +23,12 @@ phase passes:
    Gramians, the reductors, the estimator, ``spe10_3d``; G=2 with coef,
    bf16 x f64, N=216 at 32 and 17 lanes), none of them on the SIMT tiles,
    with the first port's SIMT tiles (route 2 of the C entry) timed beside
-   the first six;
+   the first six; the ring (both kernels' f64 and f32 pairs at 5-16 lanes,
+   ragged N with 16-byte rows) at every shape of ``RING_SHAPES`` (the
+   paths' 16-lane launches: the parabolic ``solve_batch``, the MOR scale
+   corrector, the Q2 3D harvest, the order-2 blocks, the dense corrector),
+   with the first port's 16-lane register stream (route 0 of the C entry,
+   16 lanes) timed beside each;
 4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
    tol 1e-8), one query on the card in f64 and in f32, against its own
    CPU f64 run;
@@ -53,7 +58,8 @@ phase passes:
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
    the card at phase 3's tolerances, timed as in phase 3; fails if an
-   f64-vector shape would take the SIMT tiles;
+   f64-vector shape would take the SIMT tiles; logs the shapes that take
+   the ring and those still on the 16-lane register stream;
 10. model order reduction at the serving config in f64 (K=64, N=384):
    ``LRBMSReductor`` with one snapshot and ``reduce()``: the ROM estimate
    against the FOM estimate of the reconstruction (1e-8), ``residual_norm``
@@ -256,6 +262,18 @@ DMMA_SHAPES = (
     ("block_matvec", 1, 64, 216, 17), ("precond_dot", 1, 64, 216, 17),     # lane tails
 )
 DMMA_TILES_AB = 6
+# the ring's 5-16-lane shapes as the paths launch them: (kind, G, K, N, B,
+# dtype of matrix and vectors); the 16-lane register stream (route 0) is
+# timed beside each in the same run
+RING_SHAPES = (
+    ("precond_dot", 1, 256, 384, 16, "f32"),  # parabolic solve_batch (phase 12)
+    ("precond_dot", 1, 256, 384, 12, "f64"),  # MOR scale stencil corrector (phase 11)
+    ("block_matvec", 1, 64, 216, 16, "f64"),  # Q2 3D harvest (phase 24): ragged N
+    *(("precond_dot", 1, 64, N, B, dt) for N in (768, 576) for dt in ("f64", "f32")
+      for B in (12, 16)),                     # order-2 and Q2 quad blocks
+    ("precond_dot", 1, 64, 384, 5, "f64"),    # dense corrector (phase 10)
+    ("precond_dot", 1, 64, 216, 16, "f64"),   # ragged N
+)
 
 
 _LOG_TO = [None]          # where log() prints while a phase redirects stdout
@@ -413,30 +431,43 @@ def kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt):
             "path": path}
 
 
-def simt_tiles_ms(hk, torch, dev, randn, kind, G, K, N, B):
-    """The first port's SIMT tiles at one f64 shape: the C entry called with route
-    ``hk.TILES`` directly (no wrapper takes it for f64 vectors), held to the
-    plain version at the f64 tolerance and timed as ``kernel_case`` times
-    a kernel (L2 flushed, median of 20)."""
+def c_entry_ms(hk, torch, dev, randn, kind, G, K, N, B, route, mdt=None, vdt=None):
+    """One kernel at one shape through the C entry called with ``route``
+    directly, past ``hk.plan``: the first port's SIMT tiles (``hk.TILES``;
+    no wrapper takes them for f64 vectors) or its 16-lane register stream
+    (``hk.STREAM`` at 16 lanes, which the ring replaced at 5-16 lanes).  Held
+    to the plain version at ``TOL`` and timed as ``kernel_case`` times a
+    kernel (L2 flushed, median of 20)."""
+    mdt, vdt = mdt or torch.float64, vdt or torch.float64
     lib, stream = hk._lib(), torch.cuda.current_stream(dev).cuda_stream
-    A, x = randn((G, K, N, N)), randn((B, K, N))
-    coef = randn((B, G)) if G > 1 else None
-    y, rz = torch.empty_like(x), torch.empty((B, K), dtype=x.dtype, device=dev)
+    A, x = randn((G, K, N, N)).to(mdt), randn((B, K, N)).to(vdt)
+    coef = randn((B, G)).to(vdt) if G > 1 else None
+    y, rz = torch.empty_like(x), torch.empty((B, K), dtype=vdt, device=dev)
+    codes = (hk._DTYPE_CODE[mdt], hk._DTYPE_CODE[vdt])
+    lanes, chunks, scratch = 0, 1, []
+    if route == hk.STREAM:                         # rz scratch: tickets, partials
+        lanes = hk.STREAM_LANES[-1]
+        chunks = hk._stream_chunks(G, K, N, lanes, x.element_size())
+        scratch = [torch.zeros(K, dtype=torch.int32, device=dev),
+                   torch.empty(B * K * -(-N // (hk.ROWS_PER_BLOCK * chunks)), dtype=vdt,
+                               device=dev)]
+    tickets, partials = (t.data_ptr() for t in scratch) if scratch else (None, None)
     if kind == "block_matvec":
         call = lambda: lib.pylrbms_block_matvec(                 # noqa: E731
-            hk.TILES, 0, 1, 0, 0, A.data_ptr(), x.data_ptr(),
+            route, lanes, chunks, *codes, A.data_ptr(), x.data_ptr(),
             None if coef is None else coef.data_ptr(), y.data_ptr(), G, K, N, B, stream)
         ref = [hk.block_matvec_plain(A, x, coef)]
     else:
         call = lambda: lib.pylrbms_precond_dot(                  # noqa: E731
-            hk.TILES, 0, 1, 0, 0, A[0].data_ptr(), x.data_ptr(), y.data_ptr(), rz.data_ptr(),
-            None, None, K, N, B, stream)
+            route, lanes, chunks, *codes, A[0].data_ptr(), x.data_ptr(), y.data_ptr(),
+            rz.data_ptr(), partials, tickets, K, N, B, stream)
         ref = list(hk.precond_dot_plain(A[0], x))
     rcs = [call()]
     torch.cuda.synchronize()
     errs = [rel(got.cpu(), want.cpu()) for got, want in zip((y, rz), ref)]
-    if any(rcs) or max(errs) > TOL["f64"][0]:
-        raise AssertionError(f"SIMT tiles {kind} K={K} N={N} B={B}: rc {rcs}, errors {errs}")
+    tol = TOL["f64" if vdt == torch.float64 else "f32"]
+    if any(rcs) or any(e > t for e, t in zip(errs, tol)):
+        raise AssertionError(f"route {route} {kind} K={K} N={N} B={B}: rc {rcs}, errors {errs}")
     return cuda_ms(lambda: rcs.append(call()), flush=True)
 
 
@@ -472,12 +503,28 @@ def kernel_phase(hk, torch, dev):
         for dt in (f64, f32):
             for B in (1, 12, 16):
                 case("block_matvec", 1, 64, N, B, dt, dt)
-                case("precond_dot", 1, 64, N, B, dt, dt)
+            case("precond_dot", 1, 64, N, 1, dt, dt)     # B = 12, 16: RING_SHAPES
+    dts = {"f64": f64, "f32": f32}
+    ring_rows = []
+    for kind, G, K, N, B, dt in RING_SHAPES:            # ring against the 16-lane stream
+        r = case(kind, G, K, N, B, dts[dt], dts[dt])
+        if r["path"] != "ring":
+            raise AssertionError(f"{kind} K={K} N={N} B={B} {dt}: took {r['path']}, not the ring")
+        t = c_entry_ms(hk, torch, dev, randn, kind, G, K, N, B, hk.STREAM, dts[dt], dts[dt])
+        log(f"16-lane register stream (route 0) {kind} G={G} K={K} N={N} B={B} {dt}: "
+            f"{t:.4f} ms against ring {r['ms']:.4f} ms ({t / r['ms']:.2f}x; ring faster: "
+            f"{r['ms'] < t}), plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f}, share {r['bound_ms'] / r['ms']:.3f}")
+        ring_rows.append({"shape": f"{kind} G={G} K={K} N={N} B={B} {dt}", "stream_ms": t,
+                          **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "max_abs_err")}})
+        torch.cuda.empty_cache()
+    log(f"ring shapes: {json.dumps(ring_rows)}")
     case("block_matvec", 1, 256, 1728, 1, bf16, f32)     # 442k truth, jacobi_storage='bf16'
     for n, (kind, G, K, N, B) in enumerate(DMMA_SHAPES):  # dmma: f64 vectors, many lanes
         r = case(kind, G, K, N, B, f64, f64)
         if n < DMMA_TILES_AB:
-            t = simt_tiles_ms(hk, torch, dev, randn, kind, G, K, N, B)
+            t = c_entry_ms(hk, torch, dev, randn, kind, G, K, N, B, hk.TILES)
             log(f"SIMT tiles (route 2) {kind} G={G} K={K} N={N} B={B} f64 x f64: {t:.4f} ms "
                 f"against dmma {r['ms']:.4f} ms ({t / r['ms']:.2f}x), plain {r['plain_ms']:.4f}, "
                 f"library {r['library_ms']:.4f}")
@@ -513,6 +560,11 @@ def path_shape_phase(hk, torch, dev, paths, checked):
     log(f"main-path shapes on the SIMT tiles: {simt}")
     if any(s[-1] == torch.float64 for s in simt):
         raise AssertionError(f"f64-vector launches took the SIMT tiles: {simt}")
+    plans = {s: hk.plan(*s) for s in per_shape}
+    log(f"main-path shapes on the ring: "
+        f"{sorted((s for s, p in plans.items() if p.route == hk.RING), key=str)}")
+    log(f"main-path shapes on the 16-lane register stream: "
+        f"{sorted((s for s, p in plans.items() if p.route == hk.STREAM and p.lanes == 16), key=str)}")
     for shape in sorted(per_shape, key=str):
         kind, G, K, N, B, mdt, vdt = shape
         log(f"launches of {kind} G={G} K={K} N={N} B={B} {str(mdt)[6:]} x {str(vdt)[6:]}"

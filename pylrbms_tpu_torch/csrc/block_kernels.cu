@@ -35,15 +35,20 @@
 //    order.  Rows whose byte length is not a multiple of 16 (or a
 //    misaligned matrix) take scalar loads.  At 16 lanes the accumulators
 //    (128 registers in f64) leave 8 warps an SM and one load a row in
-//    flight (a third of the bound, PERF.md), so block_matvec's f64 and f32
-//    pairs take the ring form there:
-//  * ring (the stream route's form for 5-16 lanes of block_matvec, f64 x
-//    f64 and f32 x f32, N % 32 == 0).  A block owns 64 rows x 16 lanes;
-//    tiles of A and x stream through a 4-stage cp.async ring in shared
-//    memory (no register holds a row's lane accumulators, three stages in
-//    flight), and the product runs on the tensor cores: f64 as DMMA (IEEE
-//    f64 multiply-adds), f32 as 3xTF32 (below) with each stage's sums
-//    added to the running sum by an IEEE f32 add.
+//    flight (a third of the bound, PERF.md), so the f64 and f32 pairs of
+//    both kernels take the ring form there; at 16 lanes the register stream
+//    keeps bf16 matrices (bf16 x f64 up to its ridge, where dmma takes
+//    over), rows that are no 16-byte multiple and misaligned operands:
+//  * ring (the stream route's form for 5-16 lanes of block_matvec and
+//    precond_dot, f64 x f64 and f32 x f32, any N with 16-byte rows: the
+//    copy zero-fills the last stage's columns past N).  A block owns 64
+//    rows x 16 lanes; tiles of A and x stream through a 3- or 4-stage
+//    cp.async ring in shared memory (no register holds a row's lane
+//    accumulators), and the product runs on the tensor cores:
+//    f64 as DMMA (IEEE f64 multiply-adds), f32 as 3xTF32 (below) with each
+//    stage's sums added to the running sum by an IEEE f32 add.
+//    precond_dot's rz goes through per-row-tile partials and a ticket per
+//    k, as on the stream route.
 //  * tensor (many lanes, on the serving batch; N % 32 == 0).  The f32
 //    operand is split so the products stay f32-accurate (no product may
 //    lose the digits CG needs), with integer and f32 ops only (the cvt
@@ -88,7 +93,8 @@
 //
 // Accumulation is in the vector's type (f64 for f64 vectors, f32
 // otherwise); bf16 matrix elements widen exactly.  Any N (masked tails) on
-// the stream, dmma and tiles routes, any B >= 1 (at most 16 on the ring).
+// the stream, dmma and tiles routes, N with 16-byte rows on the ring, any
+// B >= 1 (at most 16 on the ring).
 //
 // Plain C interface (loaded with ctypes); each entry point launches on the
 // given stream and returns cudaGetLastError() of the launch.
@@ -712,17 +718,29 @@ precond_dot_mma(const __nv_bfloat16* __restrict__ F, const float* __restrict__ r
 }
 
 // ----------------------------------------------------------------------------
-// ring route (the stream route's form for 5-16 lanes of block_matvec)
+// ring route (the stream route's form for 5-16 lanes)
 // ----------------------------------------------------------------------------
 
 // A block owns 64 rows x 16 lanes of one subdomain (grid: row tiles, K), 4
 // warps of 16 rows x 16 lanes.  Tiles of 32 columns of A and x stream
-// through a 4-stage cp.async ring in shared memory (three stages in
-// flight), so no register holds a row's accumulators for 16 lanes; the
+// through a 3-stage (f64) or 4-stage (f32) cp.async ring in shared memory,
+// so no register holds a row's accumulators for 16 lanes; the
 // product runs on the tensor cores: f64 as DMMA (mma.m8n8k4.f64, IEEE f64
 // multiply-adds), f32 as 3xTF32 as on the tensor route.  The G-sum folds
 // into a reduction of depth G N, coef[b,g] x applied as x is read.
-constexpr int RG_BM = 64, RG_BN = 16, RG_BK = 32, RG_STAGES = 4, RG_WARPS = 4;
+//
+// Any N whose rows are 16-byte multiples (f64: N even; f32: N % 4 == 0):
+// the last stage's columns past N are zero-filled by the copy (A and x
+// alike, so their products are exact zeros), and rows past N are masked.
+//
+// PD: precond_dot (G = 1, no coef).  r is x; the epilogue reads r[b,k,i] for
+// its rows again from global memory (L2: the stages held r's columns, not
+// its rows).  Each thread sums r z over its two rows, a warp over its 8 row
+// groups (shuffles), the 4 warps through shared memory in warp order; the
+// block writes partials[b, k, row tile], and the last block of each k
+// (found with an integer ticket, which it resets) sums them in row-tile
+// order: no float atomics, the same bits every launch.
+constexpr int RG_BM = 64, RG_BN = 16, RG_BK = 32, RG_WARPS = 4;
 
 // padded row stride (bytes) of one stage: every quarter warp's 16-byte
 // reads (rows grp and grp + 1, columns 4 tig ..) fall on distinct banks
@@ -732,6 +750,11 @@ __host__ __device__ constexpr int ring_row() {
 }
 template <typename T>
 __host__ __device__ constexpr int ring_stage() { return (RG_BM + RG_BN) * ring_row<T>(); }
+// stages of the ring: resident blocks bound it more than stages in flight
+// (PERF.md, the stage A/B), so f64 takes 3 (64 KB, three blocks an SM; 4
+// stages leave two, 6 one) and f32 4 (60 KB, three blocks an SM)
+template <typename T>
+__host__ __device__ constexpr int ring_stages() { return sizeof(T) == 8 ? 3 : 4; }
 
 __device__ __forceinline__ void mma_f64(double& c0, double& c1, double a, double b) {
   asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
@@ -741,11 +764,12 @@ __device__ __forceinline__ void mma_f64(double& c0, double& c1, double a, double
 
 __device__ __forceinline__ double comp(const double2& v, int c) { return c == 0 ? v.x : v.y; }
 
-template <typename T>
+template <typename T, bool PD>
 __global__ void __launch_bounds__(32 * RG_WARPS)
 stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restrict__ coef,
-            T* __restrict__ y, int G, int K, int N, int B) {
-  constexpr int ROW = ring_row<T>(), STAGE = ring_stage<T>();
+            T* __restrict__ y, T* __restrict__ rz, T* __restrict__ partials,
+            unsigned* __restrict__ tickets, int G, int K, int N, int B) {
+  constexpr int ROW = ring_row<T>(), STAGE = ring_stage<T>(), STAGES = ring_stages<T>();
   constexpr int EV = 16 / (int)sizeof(T);            // elements per 16-byte copy
   constexpr bool F64 = std::is_same<T, double>::value;
   using V = typename std::conditional<F64, double2, float4>::type;
@@ -753,22 +777,26 @@ stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restric
   const int i0 = blockIdx.x * RG_BM, k = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, tig = lane & 3;
-  const int steps = N / RG_BK, T_ALL = G * steps;
+  const int steps = (N + RG_BK - 1) / RG_BK, T_ALL = G * steps;
 
-  // stage rows 0..63: A rows i0 ..; rows 64..79: the 16 lanes of x
+  // stage rows 0..63: A rows i0 ..; rows 64..79: the 16 lanes of x.  A copy
+  // past N (rows or columns) or past B reads a mapped address and fills zeros
   auto load_stage = [&](int t) {
     const int g = t / steps, j0 = (t - g * steps) * RG_BK;
-    unsigned char* S = smem + (t % RG_STAGES) * STAGE;
+    unsigned char* S = smem + (t % STAGES) * STAGE;
     const T* Ag = A + ((size_t)g * K + k) * N * N;
     for (int e = threadIdx.x; e < (RG_BM + RG_BN) * (RG_BK / EV); e += 32 * RG_WARPS) {
-      const int r = e / (RG_BK / EV), c = (e % (RG_BK / EV)) * EV;
+      const int r = e / (RG_BK / EV), c = (e % (RG_BK / EV)) * EV, j = j0 + c;
+      const bool in = j < N;
+      const int js = in ? j : N - EV;
       if (r < RG_BM) {
         const int i = i0 + r;
-        cp_async16(S + r * ROW + c * (int)sizeof(T), Ag + (size_t)min(i, N - 1) * N + j0 + c, i < N);
+        cp_async16(S + r * ROW + c * (int)sizeof(T), Ag + (size_t)min(i, N - 1) * N + js,
+                   in && i < N);
       } else {
         const int b = r - RG_BM;
         cp_async16(S + r * ROW + c * (int)sizeof(T),
-                   x + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
+                   x + ((size_t)min(b, B - 1) * K + k) * N + js, in && b < B);
       }
     }
   };
@@ -781,17 +809,17 @@ stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restric
     for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
 
 #pragma unroll
-  for (int s = 0; s < RG_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < T_ALL) load_stage(s);
     cp_async_commit();
   }
   for (int t = 0; t < T_ALL; ++t) {
-    cp_async_wait<RG_STAGES - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();                                   // stage t landed; t - 1 consumed
-    if (t + RG_STAGES - 1 < T_ALL) load_stage(t + RG_STAGES - 1);
+    if (t + STAGES - 1 < T_ALL) load_stage(t + STAGES - 1);
     cp_async_commit();
     const int g = t / steps;
-    const unsigned char* As = smem + (t % RG_STAGES) * STAGE;
+    const unsigned char* As = smem + (t % STAGES) * STAGE;
     const unsigned char* Xs = As + RG_BM * ROW;
     T cg[2];
 #pragma unroll
@@ -862,6 +890,7 @@ stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restric
 
   // f64: c[e] of (mi, ni) is (row 8 mi + grp, lane 8 ni + 2 tig + e);
   // f32: c[2 h + e] of ni is (row grp + 8 h, lane 8 ni + 2 tig + e)
+  T part[2][2] = {};                                   // PD: r z over this thread's rows
 #pragma unroll
   for (int p = 0; p < 2; ++p)
 #pragma unroll
@@ -870,19 +899,63 @@ stream_ring(const T* __restrict__ A, const T* __restrict__ x, const T* __restric
       for (int e = 0; e < 2; ++e) {
         const int i = i0 + warp * 16 + 8 * p + grp, b = ni * 8 + 2 * tig + e;
         const T v = F64 ? acc[p][2 * ni + e] : acc[ni][2 * p + e];
-        if (i < N && b < B) y[((size_t)b * K + k) * N + i] = v;
+        if (i < N && b < B) {
+          const size_t o = ((size_t)b * K + k) * N + i;
+          y[o] = v;
+          if constexpr (PD) part[ni][e] = madd(x[o], v, part[ni][e]);
+        }
       }
+  if constexpr (PD) {
+    __shared__ T red[RG_WARPS][RG_BN];
+    __shared__ bool last;
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        T v = part[ni][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (grp == 0) red[warp][ni * 8 + 2 * tig + e] = v;
+      }
+    __syncthreads();
+    const int tiles = gridDim.x;
+    if (threadIdx.x < RG_BN && (int)threadIdx.x < B) {
+      T s = T(0);
+#pragma unroll
+      for (int w = 0; w < RG_WARPS; ++w) s += red[w][threadIdx.x];
+      partials[((size_t)threadIdx.x * K + k) * tiles + blockIdx.x] = s;
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&tickets[k], 1u) == (unsigned)(tiles - 1);
+    __syncthreads();
+    if (last) {
+      if (threadIdx.x < RG_BN && (int)threadIdx.x < B) {
+        const T* p = partials + ((size_t)threadIdx.x * K + k) * tiles;
+        T s = T(0);
+        for (int c = 0; c < tiles; ++c) s += __ldcg(p + c);
+        rz[(size_t)threadIdx.x * K + k] = s;
+      }
+      if (threadIdx.x == 0) tickets[k] = 0u;           // ready for the next launch
+    }
+  }
 }
 
-template <typename T>
-int launch_ring(const T* A, const T* x, const T* coef, T* y, int G, int K, int N, int B,
-                cudaStream_t s) {
-  if (B > RG_BN || N % RG_BK != 0 || !aligned16(A) || !aligned16(x))
+// refuses (cudaErrorInvalidValue) what the ring does not take: more than 16
+// lanes, rows that are no 16-byte multiple, misaligned A or x, and
+// precond_dot without its scratch
+template <typename T, bool PD>
+int launch_ring(const T* A, const T* x, const T* coef, T* y, T* rz, T* partials,
+                unsigned* tickets, int G, int K, int N, int B, cudaStream_t s) {
+  if (B < 1 || B > RG_BN || ((size_t)N * sizeof(T)) % 16 != 0 || !aligned16(A) ||
+      !aligned16(x) || (PD && (partials == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int bytes = RG_STAGES * ring_stage<T>();
-  cudaFuncSetAttribute(stream_ring<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int bytes = ring_stages<T>() * ring_stage<T>();
+  auto kernel = stream_ring<T, PD>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   dim3 grid((N + RG_BM - 1) / RG_BM, K);
-  stream_ring<T><<<grid, 32 * RG_WARPS, bytes, s>>>(A, x, coef, y, G, K, N, B);
+  kernel<<<grid, 32 * RG_WARPS, bytes, s>>>(A, x, coef, y, rz, partials, tickets, G, K, N, B);
   return (int)cudaGetLastError();
 }
 
@@ -1380,7 +1453,7 @@ int launch_block_matvec(int route, int lanes, int C, const void* A, const void* 
   }
   if (route == kRing) {
     if constexpr (std::is_same<TS, TA>::value && !std::is_same<TS, __nv_bfloat16>::value)
-      return launch_ring<TA>(a, xv, c, yv, G, K, N, B, s);
+      return launch_ring<TA, false>(a, xv, c, yv, nullptr, nullptr, nullptr, G, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route == kDmma) {
@@ -1425,6 +1498,12 @@ int launch_precond_dot(int route, int lanes, int C, const void* F, const void* r
           f, rv, zv, rzv, static_cast<float*>(partials), static_cast<unsigned*>(tickets), K, N, B);
       return (int)cudaGetLastError();
     }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kRing) {
+    if constexpr (std::is_same<TS, TA>::value && !std::is_same<TS, __nv_bfloat16>::value)
+      return launch_ring<TA, true>(f, rv, nullptr, zv, rzv, static_cast<TA*>(partials),
+                                   static_cast<unsigned*>(tickets), 1, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route == kDmma) {

@@ -10,15 +10,17 @@ header for the design and what bounds them on the card):
 * :func:`precond_dot` <- ``precond_dot_pallas``:
   ``z[b,k] = F[k] @ r[b,k]`` and ``rz[b,k] = r[b,k] . z[b,k]``.
 
-Each launch takes one of four routes, which :func:`plan` picks from the
+Each launch takes one of five routes, which :func:`plan` picks from the
 shape and dtypes by arithmetic intensity (operations per byte against the
 card's ridge): ``stream`` (memory-bound, B <= 16 lanes; at 5-16 lanes
-block_matvec's f64 and f32 pairs take its ``ring`` form, a cp.async ring
-of A tiles with the product on the tensor cores), ``dmma`` (every other
-f64-vector launch: tiled GEMMs on the f64 tensor cores), ``tensor``
-(tensor cores on split operands: bf16 F x f32 r in precond_dot, f32 x f32
-in block_matvec) and ``tiles`` (SIMT, the other f32-vector pairs at many
-lanes, which no main path launches).
+the f64 and f32 pairs of both kernels take its ``ring`` form, a cp.async
+ring of A tiles with the product on the tensor cores, wherever rows are
+16-byte multiples and the operands aligned; bf16 matrices, other rows and
+misaligned operands keep the register stream at 16 lanes), ``dmma``
+(every other f64-vector launch: tiled GEMMs on the f64 tensor cores),
+``tensor`` (tensor cores on split operands: bf16 F x f32 r in
+precond_dot, f32 x f32 in block_matvec) and ``tiles`` (SIMT, the other
+f32-vector pairs at many lanes, which no main path launches).
 
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
@@ -57,7 +59,7 @@ _SUPPORTED = {(torch.float64, torch.float64), (torch.bfloat16, torch.float64),
 
 
 # routes (the ints the C entry points take) and what plan() knows of them;
-# RING is the stream route's form for 5-16 lanes of block_matvec
+# RING is the stream route's form for 5-16 lanes of both kernels
 STREAM, TENSOR, TILES, RING, DMMA = 0, 1, 2, 3, 4
 ROUTE_NAMES = {STREAM: "stream", TENSOR: "tensor", TILES: "tiles", RING: "ring",
                DMMA: "dmma"}
@@ -74,8 +76,8 @@ SMS = 132                          # streaming multiprocessors of the H100 SXM
 # (kernel, matrix dtype, vector dtype) pairs with a tensor-core route
 TENSOR_PAIRS = {("precond_dot", torch.bfloat16, torch.float32),
                 ("block_matvec", torch.float32, torch.float32)}
-RING_PAIRS = {("block_matvec", torch.float64, torch.float64),
-              ("block_matvec", torch.float32, torch.float32)}
+RING_PAIRS = {(kind, dt, dt) for kind in ("block_matvec", "precond_dot")
+              for dt in (torch.float64, torch.float32)}
 # H100 SXM at 700 W (NVIDIA's data sheet): bytes/s of HBM3, dense operations/s
 # (f64 and f32 outside the tensor cores; f64 on them; TF32; bf16)
 HBM_BYTES_PER_S = 3.35e12
@@ -110,18 +112,20 @@ def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
     the vector type's SIMT rate (operations/s over bytes/s: ~20 for f32, ~10
     for f64) the call is memory-bound and streams (B <= 16): in registers
     up to 4 lanes, through the ring at 5-16 lanes for the pairs in
-    :data:`RING_PAIRS`.  Every other f64-vector launch (f64 or bf16 matrix,
-    any N, aligned or not) takes the f64 tensor cores (``dmma``; block tile:
-    :func:`_dmma_tile`).  Above the ridge the f32-vector pairs in
-    :data:`TENSOR_PAIRS` take the tensor cores, the other f32-vector pairs
-    the SIMT tiles.  The ring and tensor routes need N % 32 == 0 and
-    16-byte aligned operands."""
+    :data:`RING_PAIRS` (rows of 16-byte multiples: the copy zero-fills the
+    columns past N), else in registers at 16 lanes.  Every other
+    f64-vector launch (f64 or bf16 matrix, any N, aligned or not) takes the
+    f64 tensor cores (``dmma``; block tile: :func:`_dmma_tile`).  Above the
+    ridge the f32-vector pairs in :data:`TENSOR_PAIRS` take the tensor
+    cores, the other f32-vector pairs the SIMT tiles.  The ring and tensor
+    routes need 16-byte aligned operands, the tensor route N % 32 == 0."""
     ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
     simt = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
     mma = N % MMA_DEPTH == 0 and aligned
+    ring = aligned and N * (torch.finfo(vdt).bits // 8) % 16 == 0
     if ops / nbytes < simt / HBM_BYTES_PER_S and B <= STREAM_LANES[-1]:
         lanes = min(n for n in STREAM_LANES if n >= B)
-        if lanes == STREAM_LANES[-1] and (kind, mdt, vdt) in RING_PAIRS and mma:
+        if lanes == STREAM_LANES[-1] and (kind, mdt, vdt) in RING_PAIRS and ring:
             return Plan(RING, lanes, 1, K * math.ceil(N / RING_ROWS))
         chunks = _stream_chunks(G, K, N, lanes, torch.finfo(vdt).bits // 8)
         return Plan(STREAM, lanes, chunks, K * math.ceil(N / (ROWS_PER_BLOCK * chunks)))
@@ -293,7 +297,7 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-# precond_dot's rz scratch (stream, dmma and tensor routes), per (device, stream):
+# precond_dot's rz scratch (every route but the tiles), per (device, stream):
 # integer tickets, one per subdomain (and lane tile), zero between launches
 # (the last block of each resets its own), and the rz partials [B, K, row
 # blocks] per vector dtype
@@ -303,7 +307,7 @@ _PD_WORKSPACE: dict = {}
 def _pd_scratch(p, K, N, B):
     """(tickets, partials) element counts of one precond_dot launch: a
     ticket per (k, lane tile), a partial per (lane, k, row tile)."""
-    if p.route == STREAM:
+    if p.route in (STREAM, RING):                 # a ticket per k, blocks of one k
         return K, B * K * (p.blocks // K)
     if p.route == DMMA:
         return (K * math.ceil(B / p.lanes),

@@ -49,11 +49,12 @@ DTYPES = [(torch.float64, torch.float64, 1e-12, 1e-12),
                                      (1, 8, 216, 1), (1, 8, 216, 16), (2, 8, 512, 256)])
 def test_kernels_match_plain_versions(cuda, G, K, N, B):
     """Every route of each kernel (stream for B <= 16, in its ring form for
-    block_matvec's f64 and f32 pairs at 5-16 lanes, the f64 tensor cores
+    both kernels' f64 and f32 pairs at 5-16 lanes, the f64 tensor cores
     for f64 vectors above that, tensor cores for the f32 serving pairs at
     many lanes, SIMT tiles for the other f32 pairs), the scale
     solve's N=1536 blocks, the serving batch and harvest, a ring with a
-    half-empty row tile and masked lanes, ragged N (scalar loads), and the
+    half-empty row tile and masked lanes, ragged N (the ring's zero-filled
+    columns where rows are 16-byte multiples, else scalar loads), and the
     order-2 blocks (Q2 quad N=576, P2 tri N=768; 96 KB of staged f64 x at
     16 lanes)."""
     rng = np.random.default_rng(3)
@@ -118,6 +119,72 @@ def test_dmma_route_matches_plain_versions(cuda, G, K, N, B, mdt):
     torch.cuda.synchronize()
     assert _rel(y, yp) <= 1e-12 and _rel(z, zp) <= 1e-12 and _rel(rz, rzp) <= 1e-12
     assert torch.equal(rz, rz2) and torch.equal(z, z2)
+
+
+@pytest.mark.parametrize("N", [96, 216, 384, 768])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", [5, 8, 12, 16])
+def test_ring_route_matches_plain_versions(cuda, B, dt, N):
+    """The ring at 5-16 lanes, both kernels: precond_dot's z and rz (f64
+    1e-12; f32 2e-5 / 2e-4) with z and rz bitwise equal over two launches,
+    and block_matvec with G=2 and coef; N=216 is ragged (the last stage's
+    columns zero-filled), N=96 and 216 end in a part-full row tile."""
+    rng = np.random.default_rng(37)
+    K = 8
+    tol, tol_rz = (1e-12, 1e-12) if dt == torch.float64 else (2e-5, 2e-4)
+    A = torch.tensor(rng.normal(size=(2, K, N, N)), device=cuda).to(dt)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda).to(dt)
+    coef = torch.tensor(rng.normal(size=(B, 2)), device=cuda).to(dt)
+    F = A[0].contiguous()
+    assert hk.plan("precond_dot", 1, K, N, B, dt, dt).route == hk.RING
+    assert hk.plan("block_matvec", 2, K, N, B, dt, dt).route == hk.RING
+    (z, rz), (z2, rz2) = hk.precond_dot(F, x), hk.precond_dot(F, x)
+    zp, rzp = hk.precond_dot_plain(F, x)
+    y, yp = hk.block_matvec(A, x, coef), hk.block_matvec_plain(A, x, coef)
+    torch.cuda.synchronize()
+    assert _rel(z, zp) <= tol and _rel(rz, rzp) <= tol_rz and _rel(y, yp) <= tol
+    assert torch.equal(rz, rz2) and torch.equal(z, z2)
+
+
+def test_ring_scratch_grows_after_a_smaller_launch(cuda):
+    """A ring launch with more lanes, subdomains and row tiles than the one
+    before it on the stream: precond_dot's partials have to grow."""
+    rng = np.random.default_rng(41)
+    for K, N, B in ((4, 96, 5), (64, 768, 16), (256, 384, 12)):
+        F = torch.tensor(rng.normal(size=(K, N, N)), device=cuda)
+        r = torch.tensor(rng.normal(size=(B, K, N)), device=cuda)
+        (z, rz), (z2, rz2) = hk.precond_dot(F, r), hk.precond_dot(F, r)
+        zp, rzp = hk.precond_dot_plain(F, r)
+        torch.cuda.synchronize()
+        assert _rel(z, zp) <= 1e-12 and _rel(rz, rzp) <= 1e-12
+        assert torch.equal(rz, rz2) and torch.equal(z, z2)
+    ws = hk._PD_WORKSPACE[(r.device, torch.cuda.current_stream().cuda_stream)]
+    assert ws[torch.float64].numel() >= 16 * 64 * 12
+
+
+def test_ring_route_refuses_what_it_does_not_take(cuda):
+    """Route 3 of the C entry refuses (cudaErrorInvalidValue) more than 16
+    lanes, rows that are no 16-byte multiple, misaligned operands and
+    precond_dot without its scratch: nothing is sent to another route."""
+    lib, stream = hk._lib(), torch.cuda.current_stream().cuda_stream
+    K, N = 2, 64
+    F = torch.ones((K, N + 1, N + 1), dtype=torch.float64, device=cuda)
+    r = torch.ones((17, K, N + 1), dtype=torch.float64, device=cuda)
+    z, rz = torch.empty_like(r), torch.empty((17, K), dtype=torch.float64, device=cuda)
+    t, p = torch.zeros(K, dtype=torch.int32, device=cuda), torch.empty(17 * K * 2, device=cuda,
+                                                                       dtype=torch.float64)
+
+    def pd(n, b, f=F, scratch=True):
+        return lib.pylrbms_precond_dot(hk.RING, 16, 1, 0, 0, f.data_ptr(), r.data_ptr(),
+                                       z.data_ptr(), rz.data_ptr(),
+                                       p.data_ptr() if scratch else None,
+                                       t.data_ptr() if scratch else None, K, n, b, stream)
+    assert pd(N, 16) == 0                                     # taken: N=64, 16 lanes
+    assert pd(N, 17) != 0                                     # lanes
+    assert pd(N + 1, 16) != 0                                 # 65 f64 = 520 bytes a row
+    assert pd(N, 16, f=F.view(-1)[1:]) != 0                  # misaligned F
+    assert pd(N, 16, scratch=False) != 0
+    torch.cuda.synchronize()
 
 
 def test_dmma_route_takes_misaligned_operands(cuda):
@@ -220,9 +287,9 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
 @pytest.mark.parametrize("B", [2, 8, 32, 256])
 def test_corrector_shapes_match_plain_versions(cuda, B):
     """The batched corrector's launches at the north-star width: f64 x f64,
-    G=1, K=256, N=384, B marked patches (the stream at 2 and 8 lanes, in
-    its ring form for block_matvec at 8; dmma at 32 and 256), after a K=64 launch so precond_dot's scratch has
-    to grow."""
+    G=1, K=256, N=384, B marked patches (the stream at 2 lanes, its ring
+    form at 8; dmma at 32 and 256), after a K=64 launch so precond_dot's
+    scratch has to grow."""
     rng = np.random.default_rng(5)
     f64 = torch.float64
     for K in (64, 256):
@@ -298,13 +365,16 @@ def test_reduce_and_greedy_on_cuda_match_cpu(cuda):
         assert _rel(getattr(r1.rd, name).cpu(), getattr(r0.rd, name)) <= 1e-10, name
 
 
-@pytest.mark.parametrize("N", [384, 768])
-def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, N):
-    """precond_dot f64 x f64 at 16 lanes, N=384 stages exactly 48 KB of x
-    beside its static reduction scratch (N=768, the P2 blocks: 96 KB): the
-    launch has to opt in to the larger shared memory.  The opt-in sticks to
-    the kernel for the life of a process, so this runs as the first launch
-    of a fresh one."""
+@pytest.mark.parametrize("N,fdt,route", [(384, "float64", hk.RING), (768, "float64", hk.RING),
+                                         (384, "bfloat16", hk.STREAM),
+                                         (768, "bfloat16", hk.STREAM)])
+def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, N, fdt, route):
+    """precond_dot at 8 lanes, f64 vectors, as the first launch of a fresh
+    process (a kernel's opt-in to more than 48 KB of shared memory sticks
+    for the life of a process): an f64 F takes the ring (64 KB of stages),
+    a bf16 F the register stream at 16 lanes, which stages 64 KB (N=384) or
+    96 KB (N=768, the P2 blocks) of x beside its static reduction
+    scratch; both have to opt in."""
     import os
     import subprocess
     import sys
@@ -313,9 +383,11 @@ def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, N):
         "import torch\n"
         "from pylrbms_tpu_torch.ops import hopper_kernels as hk\n"
         "g = torch.Generator(device='cuda').manual_seed(1)\n"
-        f"F = torch.randn((8, {N}, {N}), generator=g, device='cuda', dtype=torch.float64)\n"
+        f"F = torch.randn((8, {N}, {N}), generator=g, device='cuda', "
+        f"dtype=torch.float64).to(torch.{fdt})\n"
         f"r = torch.randn((8, 8, {N}), generator=g, device='cuda', dtype=torch.float64)\n"
-        f"assert hk.plan('precond_dot', 1, 8, {N}, 8, F.dtype, r.dtype).lanes == 16\n"
+        f"p = hk.plan('precond_dot', 1, 8, {N}, 8, F.dtype, r.dtype)\n"
+        f"assert p.lanes == 16 and p.route == {route}, p\n"
         "z, rz = hk.precond_dot(F, r)\n"
         "zp, rzp = hk.precond_dot_plain(F, r)\n"
         "torch.cuda.synchronize()\n"

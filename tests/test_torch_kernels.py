@@ -22,30 +22,45 @@ from pylrbms_tpu.ops.pallas_kernels import (block_matvec_pallas,  # noqa: E402
 from pylrbms_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 
 
-def test_block_matvec_matches_pallas_interpret():
-    # tolerances of tests/test_pallas.py: f32 products over N=128 terms
+# the Pallas kernels take one lane ([K, N] vectors): run them in interpret
+# mode lane by lane and stack the lanes; B = 12 and 16 are the ring's lane
+# counts, N = 216 its ragged N
+PALLAS_LANES = pytest.mark.parametrize("B", [1, 12, 16])
+PALLAS_N = pytest.mark.parametrize("N", [128, 216])
+
+
+@PALLAS_N
+@PALLAS_LANES
+def test_block_matvec_matches_pallas_interpret(B, N):
+    # tolerances of tests/test_pallas.py: the Pallas kernel accumulates in f32
     rng = np.random.default_rng(5)
-    K, N = 8, 128
+    K = 8
     A = rng.normal(size=(K, N, N)).astype(np.float32)
-    x = rng.normal(size=(K, N)).astype(np.float32)
-    y_pl = np.asarray(block_matvec_pallas(jnp.asarray(A), jnp.asarray(x), interpret=True))
-    y = hk.block_matvec(torch.tensor(A)[None], torch.tensor(x)[None])
-    assert y.shape == (1, K, N) and y.dtype == torch.float32
-    np.testing.assert_allclose(y[0].numpy(), y_pl, rtol=2e-5, atol=2e-4)
+    x = rng.normal(size=(B, K, N)).astype(np.float32)
+    y_pl = np.stack([np.asarray(block_matvec_pallas(jnp.asarray(A), jnp.asarray(x[b]),
+                                                    interpret=True)) for b in range(B)])
+    y = hk.block_matvec(torch.tensor(A)[None], torch.tensor(x))
+    assert y.shape == (B, K, N) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), y_pl, rtol=2e-5, atol=2e-4)
 
 
-def test_precond_dot_matches_pallas_interpret():
-    # rz is [B, K] in the port (the Pallas kernel writes a 1-D (K,) block);
-    # tolerances of tests/test_pallas.py (rz sums N products: looser)
+@PALLAS_N
+@PALLAS_LANES
+def test_precond_dot_matches_pallas_interpret(B, N):
+    # rz is [B, K] in the port (the Pallas kernel writes a 1-D (K,) block a
+    # lane); tolerances of tests/test_pallas.py (rz sums N products: looser)
     rng = np.random.default_rng(7)
-    K, N = 8, 128
+    K = 8
     F = rng.normal(size=(K, N, N)).astype(np.float32)
-    r = rng.normal(size=(K, N)).astype(np.float32)
-    z_pl, rz_pl = precond_dot_pallas(jnp.asarray(F), jnp.asarray(r), interpret=True)
-    z, rz = hk.precond_dot(torch.tensor(F), torch.tensor(r)[None])
-    assert z.shape == (1, K, N) and rz.shape == (1, K)
-    np.testing.assert_allclose(z[0].numpy(), np.asarray(z_pl), rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(rz[0].numpy(), np.asarray(rz_pl), rtol=2e-4, atol=2e-3)
+    r = rng.normal(size=(B, K, N)).astype(np.float32)
+    lanes = [precond_dot_pallas(jnp.asarray(F), jnp.asarray(r[b]), interpret=True)
+             for b in range(B)]
+    z_pl = np.stack([np.asarray(z) for z, _ in lanes])
+    rz_pl = np.stack([np.asarray(rz) for _, rz in lanes])
+    z, rz = hk.precond_dot(torch.tensor(F), torch.tensor(r))
+    assert z.shape == (B, K, N) and rz.shape == (B, K)
+    np.testing.assert_allclose(z.numpy(), z_pl, rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(rz.numpy(), rz_pl, rtol=2e-4, atol=2e-3)
 
 
 @pytest.mark.parametrize("G,K,N,B,with_coef", [
@@ -265,9 +280,11 @@ def test_plan_keeps_simt_tiles_for_other_pairs_at_many_lanes(kind, G, N, B, mdt,
 
 @pytest.mark.parametrize("B", range(1, 17))
 def test_plan_streams_every_lane_count_up_to_16(B):
-    # the tail shapes of chip_smoke
+    # the tail shapes of chip_smoke: the stream, in its ring form at 5-16
+    # lanes (N = 24 f32 rows are 96 bytes, a 16-byte multiple)
     p = hk.plan("block_matvec", 2, 4, 24, B, f32, f32)
-    assert p.route == hk.STREAM and p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
+    assert p.route == (hk.RING if B > 4 else hk.STREAM)
+    assert p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
 
 
 @pytest.mark.parametrize("K,N,B,mdt", [(32, 512, 32, f64), (64, 384, 256, f64),
@@ -286,19 +303,62 @@ def test_pd_scratch_covers_the_dmma_tiles(K, N, B, mdt):
     assert partials == B * K * row_tiles
 
 
-def test_plan_takes_the_ring_only_for_block_matvec_f64_and_f32_at_5_to_16_lanes():
-    for B in range(1, 17):
-        for mdt, vdt in ((f64, f64), (f32, f32)):
-            p = hk.plan("block_matvec", 2, 64, 96, B, mdt, vdt)
-            assert p.route == (hk.RING if B > 4 else hk.STREAM), (B, p)
-    ring = hk.plan("block_matvec", 1, 64, 96, 9, f64, f64)
-    assert (ring.lanes, ring.blocks) == (16, 64 * 2)     # 64-row blocks, the last half full
-    # other pairs, precond_dot, ragged N and misaligned operands keep the
-    # register stream at 16 lanes
-    assert hk.plan("block_matvec", 1, 64, 384, 12, bf16, f32).route == hk.STREAM
-    assert hk.plan("precond_dot", 1, 64, 384, 12, f32, f32).route == hk.STREAM
-    assert hk.plan("block_matvec", 1, 64, 400, 12, f32, f32).route == hk.STREAM
-    assert hk.plan("block_matvec", 1, 64, 384, 12, f32, f32, aligned=False).route == hk.STREAM
+KINDS = ("block_matvec", "precond_dot")
+RING_ROUTING = [
+    # (kind, N, matrix dtype, vector dtype, aligned, B, route)
+    # both kernels' f64 and f32 pairs at 5-16 lanes: the ring
+    *[(kind, 384, dt, dt, True, B, hk.RING) for kind in KINDS for dt in (f64, f32)
+      for B in (5, 12, 16)],
+    # ragged N with 16-byte rows (the copy zero-fills past N): the ring
+    *[(kind, N, dt, dt, True, B, hk.RING) for kind in KINDS for N in (216, 104)
+      for dt in (f64, f32) for B in (5, 16)],
+    # bf16 x f32 (no path launches it at 5-16 lanes), rows that are no
+    # 16-byte multiple, misaligned operands: the register stream, 16 lanes
+    *[(kind, 384, bf16, f32, True, B, hk.STREAM) for kind in KINDS for B in (5, 16)],
+    ("block_matvec", 130, f32, f32, True, 12, hk.STREAM),
+    ("precond_dot", 131, f64, f64, True, 12, hk.STREAM),
+    ("precond_dot", 102, f32, f32, True, 9, hk.STREAM),
+    *[(kind, N, dt, dt, False, 12, hk.STREAM) for kind in KINDS for N in (384, 216)
+      for dt in (f64, f32)],
+    # 1-4 lanes stay in registers
+    *[(kind, N, dt, dt, True, B, hk.STREAM) for kind in KINDS for N in (384, 216)
+      for dt in (f64, f32) for B in (1, 4)],
+    # f64 vectors above 16 lanes keep the dmma route
+    *[(kind, N, f64, f64, True, B, hk.DMMA) for kind in KINDS for N in (384, 216)
+      for B in (17, 32)],
+]
+
+
+@pytest.mark.parametrize("kind,N,mdt,vdt,aligned,B,route", RING_ROUTING)
+def test_plan_routes_the_ring_at_5_to_16_lanes(kind, N, mdt, vdt, aligned, B, route):
+    """The ring takes both kernels' f64 and f32 pairs at 5-16 lanes wherever
+    rows are 16-byte multiples and the operands aligned: 64-row blocks of
+    16 lanes, the last row tile part full at ragged N.  The register stream
+    keeps the rest at 1-16 lanes; dmma keeps f64 vectors above 16."""
+    K = 64
+    p = hk.plan(kind, 1, K, N, B, mdt, vdt, aligned)
+    assert p.route == route, p
+    if route == hk.RING:
+        assert (p.lanes, p.chunks, p.blocks) == (16, 1, K * math.ceil(N / 64))
+    elif route == hk.STREAM:
+        assert p.lanes == min(n for n in hk.STREAM_LANES if n >= B)
+
+
+@pytest.mark.parametrize("K,N,B,dt", [(256, 384, 16, f32), (256, 384, 12, f64),
+                                      (64, 216, 16, f64), (64, 384, 5, f64),
+                                      (8, 104, 9, f32), (64, 768, 12, f32)])
+def test_pd_scratch_covers_the_ring_tiles(K, N, B, dt):
+    """precond_dot on the ring: a ticket per k and an rz partial per (lane,
+    k, 64-row tile), indexed as the kernel indexes them (tickets[k],
+    partials[(b K + k) tiles + row tile])."""
+    p = hk.plan("precond_dot", 1, K, N, B, dt, dt)
+    assert p.route == hk.RING
+    tickets, partials = hk._pd_scratch(p, K, N, B)
+    tiles = math.ceil(N / 64)
+    assert p.blocks == K * tiles
+    assert K - 1 < tickets == K
+    assert ((B - 1) * K + K - 1) * tiles + tiles - 1 < partials
+    assert partials == B * K * tiles
 
 
 def test_launches_are_counted_per_signature():

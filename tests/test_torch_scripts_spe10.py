@@ -41,6 +41,12 @@ def test_spe10_greedy_matches_jax():
     from pylrbms_tpu.discretize_elliptic_block_swipdg import discretize
     from pylrbms_tpu.greedy import weak_greedy
     from pylrbms_tpu.online_enrichment import AdaptiveEnrichment
+    from pylrbms_tpu import reductor as jax_reductor
+    # the JAX package caches its jitted online step by array shapes alone,
+    # closed over the first reduced model's parameter type: an OS2015 model
+    # of equal shapes, reduced earlier in this worker process, would be
+    # reused here ("missing parameter component 'diffusion'"); start empty
+    jax_reductor._ONLINE_JIT_CACHE.clear()
     subs, half, nref, training, target = (3, 2), 1, 1, 4, 1e-2
     gpd = init_grid_and_problem({'num_subdomains': list(subs),
                                  'half_num_fine_elements_per_subdomain_and_dim': half,
