@@ -28,7 +28,11 @@ phase passes:
    paths' 16-lane launches: the parabolic ``solve_batch``, the MOR scale
    corrector, the Q2 3D harvest, the order-2 blocks, the dense corrector),
    with the first port's 16-lane register stream (route 0 of the C entry,
-   16 lanes) timed beside each;
+   16 lanes) timed beside each; the tensor route (wgmma fed by TMA) at every
+   shape of ``TENSOR_SHAPES`` (the paths' f32-vector launches above the
+   stream: the 2D and 3D serving apply and preconditioner at B=256, the
+   truth harvest filter at 32 lanes, N=512 and 1728); a row that takes
+   another route fails;
 4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
    tol 1e-8), one query on the card in f64 and in f32, against its own
    CPU f64 run;
@@ -59,7 +63,8 @@ phase passes:
    harvest's one-lane power iteration, ...), against its plain version on
    the card at phase 3's tolerances, timed as in phase 3; fails if an
    f64-vector shape would take the SIMT tiles; logs the shapes that take
-   the ring and those still on the 16-lane register stream;
+   the ring, those still on the 16-lane register stream and the tensor
+   route's shapes with their block tiles;
 10. model order reduction at the serving config in f64 (K=64, N=384):
    ``LRBMSReductor`` with one snapshot and ``reduce()``: the ROM estimate
    against the FOM estimate of the reconstruction (1e-8), ``residual_norm``
@@ -274,6 +279,16 @@ RING_SHAPES = (
     ("precond_dot", 1, 64, 384, 5, "f64"),    # dense corrector (phase 10)
     ("precond_dot", 1, 64, 216, 16, "f64"),   # ragged N
 )
+# the tensor route's shapes as the paths launch them: (kind, G, K, N, B,
+# matrix dtype, vector dtype)
+TENSOR_SHAPES = (
+    ("block_matvec", 2, 64, 384, 256, "f32", "f32"),    # 2D serving apply (5, 7, 15)
+    ("precond_dot", 1, 64, 384, 256, "bf16", "f32"),    # 2D serving preconditioner
+    ("block_matvec", 2, 64, 512, 256, "f32", "f32"),    # 3D serving apply (20)
+    ("precond_dot", 1, 64, 512, 256, "bf16", "f32"),    # 3D serving preconditioner
+    ("block_matvec", 1, 256, 512, 32, "f32", "f32"),    # 131k truth harvest filter (25a)
+    ("block_matvec", 1, 256, 1728, 32, "f32", "f32"),   # 442k truth harvest filter (25b)
+)
 
 
 _LOG_TO = [None]          # where log() prints while a phase redirects stdout
@@ -487,15 +502,39 @@ def kernel_phase(hk, torch, dev):
         return r
 
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    dts = {"f64": f64, "f32": f32, "bf16": bf16}
+    tensor_rows = []
+    # the tensor rows' inputs are drawn on the card: N=1728 takes 6 GB a draw
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    drandn = lambda shape: torch.randn(shape, generator=g, device=dev,  # noqa: E731
+                                       dtype=torch.float64)
+    for kind, G, K, N, B, mdt, vdt in TENSOR_SHAPES:
+        checked.add((kind, G, K, N, B, dts[mdt], dts[vdt]))
+        r = kernel_case(hk, torch, dev, drandn, kind, G, K, N, B, dts[mdt], dts[vdt])
+        if r["path"] != "tensor":
+            raise AssertionError(f"{kind} K={K} N={N} B={B}: took {r['path']}, "
+                                 f"not the tensor route")
+        if (G, K, N, B) in ((2, 64, 384, B_SERVE), (1, 64, 384, B_SERVE)):
+            summary[kind] = r                            # the serving batch's shapes
+        p = hk.plan(kind, G, K, N, B, dts[mdt], dts[vdt])
+        log(f"tensor route {kind} G={G} K={K} N={N} B={B} {mdt} x {vdt}: {r['ms']:.4f} ms "
+            f"({hk.TENSOR_ROWS} x {p.lanes} tile), plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"share {r['bound_ms'] / r['ms']:.3f}, x library {r['ms'] / r['library_ms']:.2f}")
+        tensor_rows.append({"shape": f"{kind} G={G} K={K} N={N} B={B} {mdt} x {vdt}",
+                            "tile": [hk.TENSOR_ROWS, p.lanes],
+                            **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "max_abs_err")}})
+        torch.cuda.empty_cache()
+    log(f"tensor shapes: {json.dumps(tensor_rows)}")
     for B in (1, 256):
         for mdt, vdt in ((f64, f64), (f32, f32)):
-            r = case("block_matvec", 2, 64, 384, B, mdt, vdt)
-            if B == B_SERVE and vdt == f32:
-                summary["block_matvec"] = r
+            if (B, vdt) != (B_SERVE, f32):               # B=256 f32: TENSOR_SHAPES
+                case("block_matvec", 2, 64, 384, B, mdt, vdt)
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32), (bf16, f64)):
-            r = case("precond_dot", 1, 64, 384, B, mdt, vdt)
-            if B == B_SERVE and mdt == bf16 and vdt == f32:
-                summary["precond_dot"] = r
+            if (B, mdt, vdt) != (B_SERVE, bf16, f32):
+                case("precond_dot", 1, 64, 384, B, mdt, vdt)
     case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape (ring)
     for dt in (f64, f32):                                # ring: G=2, a half-empty row tile
         case("block_matvec", 2, 4, 96, 13, dt, dt)
@@ -504,7 +543,6 @@ def kernel_phase(hk, torch, dev):
             for B in (1, 12, 16):
                 case("block_matvec", 1, 64, N, B, dt, dt)
             case("precond_dot", 1, 64, N, 1, dt, dt)     # B = 12, 16: RING_SHAPES
-    dts = {"f64": f64, "f32": f32}
     ring_rows = []
     for kind, G, K, N, B, dt in RING_SHAPES:            # ring against the 16-lane stream
         r = case(kind, G, K, N, B, dts[dt], dts[dt])
@@ -561,6 +599,9 @@ def path_shape_phase(hk, torch, dev, paths, checked):
     if any(s[-1] == torch.float64 for s in simt):
         raise AssertionError(f"f64-vector launches took the SIMT tiles: {simt}")
     plans = {s: hk.plan(*s) for s in per_shape}
+    tensor = sorted(((s, (hk.TENSOR_ROWS, p.lanes)) for s, p in plans.items()
+                     if p.route == hk.TENSOR), key=str)
+    log(f"main-path shapes on the tensor route (rows x lanes a block): {tensor}")
     log(f"main-path shapes on the ring: "
         f"{sorted((s for s, p in plans.items() if p.route == hk.RING), key=str)}")
     log(f"main-path shapes on the 16-lane register stream: "

@@ -49,28 +49,32 @@
 //    stage's sums added to the running sum by an IEEE f32 add.
 //    precond_dot's rz goes through per-row-tile partials and a ticket per
 //    k, as on the stream route.
-//  * tensor (many lanes, on the serving batch; N % 32 == 0).  The f32
-//    operand is split so the products stay f32-accurate (no product may
-//    lose the digits CG needs), with integer and f32 ops only (the cvt
-//    instructions issue at a quarter rate):
+//  * tensor (many lanes: the serving batch, 3D serving and the truth
+//    harvest filter; N % 32 == 0).  The f32 operand is split so the products
+//    stay f32-accurate (no product may lose the digits CG needs), with
+//    integer and f32 ops only (the cvt instructions issue at a quarter
+//    rate):
 //      - precond_dot, bf16 F x f32 r: r = r1 + r2 + r3, each the bf16
 //        truncation of what the terms before left (exact: 3 x 8 bits hold
-//        f32's 24), three mma.sync.m16n8k16 bf16 products with f32
-//        accumulation, small terms first; each F r_i is exact in f32;
-//      - block_matvec, f32 A x f32 x: 3xTF32 on mma.sync.m16n8k8 (big =
-//        round-to-nearest-away TF32 as cvt.rna, small = the remainder
-//        truncated to TF32, for A and coef*x; a_small x_big + a_big x_small
-//        + a_big x_big), the G-sum folded into a reduction of depth G N.
-//    Tiled GEMMs: a block owns 128 rows x 64 lanes of one subdomain, 8
-//    warps of 32 x 32; 32 columns of the depth per stage, copied to shared
-//    memory with cp.async three stages ahead.  One accumulation chain
-//    over the whole depth: the tensor cores' f32 sums drop low bits, so the
-//    error grows with N (PERF.md: ~8e-6 of the result at N=384, inside the
-//    f32 tolerance); per-stage IEEE sums, as on the ring, cut it ~10x but
-//    cost these kernels 28% and 9% of their time.  precond_dot's rz goes
-//    through per-row-tile partials and a ticket, as on the stream route.
-//    mma.sync, not wgmma + TMA: a right kernel first; a warp-specialised
-//    pipeline is later work.
+//        f32's 24), three bf16 products with f32 accumulation, small terms
+//        first; each F r_i is exact in f32;
+//      - block_matvec, f32 A x f32 x: 3xTF32 (big = round-to-nearest-away
+//        TF32 as cvt.rna, small = the remainder truncated to TF32, for A and
+//        coef*x; a_small x_big + a_big x_small + a_big x_big), the G-sum
+//        folded into a reduction of depth G N.
+//    Warp-specialised tiled GEMMs on wgmma: a block owns 128 rows x 32 or
+//    128 lanes of one subdomain (plan() picks the lanes: no empty lanes at
+//    32); one producer warp keeps a ring of TMA box copies in flight
+//    (mbarriers count the bytes, consumers release the stages), two
+//    consumer warpgroups split each vector stage
+//    once into shared-memory planes (A's fragments in registers) and issue
+//    m64 wgmmas on them, one stage in flight while the next is split; the
+//    epilogue writes 16-byte rows through shared memory.  One
+//    accumulation chain over the depth: the tensor cores' f32 sums drop low
+//    bits, so the error grows with N (PERF.md; within the f32 tolerance at
+//    the harvest's N=1728).  precond_dot's rz goes through per-row-tile
+//    partials and a ticket per (k, lane tile), r's rows kept in registers
+//    from the stages that hold them.
 //  * dmma (every f64-vector launch the stream does not take: f64 x f64 and
 //    bf16 x f64, any N, any B).  Tiled GEMMs per subdomain on the f64
 //    tensor cores: a block owns 64 or 32 rows x 64 or 32 lanes of one k
@@ -376,7 +380,7 @@ int launch_stream(int lanes, int C, const TS* A, const TA* x, const TA* coef, TA
 }
 
 // ----------------------------------------------------------------------------
-// tensor route
+// the split operands of the tensor and ring routes
 // ----------------------------------------------------------------------------
 
 // The splits use integer and f32 ops only: the conversion instructions
@@ -406,15 +410,6 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm(
@@ -433,18 +428,12 @@ __device__ __forceinline__ void add_stage(float (&acc)[4], const float (&part)[4
   for (int q = 0; q < 4; ++q) acc[q] += part[q];
 }
 
-// Fragment coordinates (PTX ISA, mma.m16n8k16 / m16n8k8): grp = lane / 4,
+// Fragment coordinates (PTX ISA, mma.m16n8k8): grp = lane / 4,
 // tig = lane % 4; accumulator c[2h + e] is (row grp + 8h, lane col 2 tig + e).
 // The reduction index of a fragment may map to any column, as long as the
 // matrix and the vector fragments map it alike: a thread takes its pairs
-// from adjacent columns (8 tig .. 8 tig + 7 for bf16, 4 tig .. 4 tig + 3 for
-// tf32), so each fragment row is one 16-byte shared-memory read.
-//
-// Both kernels are tiled GEMMs per subdomain: a block owns 128 rows x 64
-// lanes of one k (grid: lane tiles, row tiles, K), 8 warps of 32 rows x 32
-// lanes; the depth runs in stages of 32 columns, copied to shared memory
-// with cp.async three stages ahead.  Padded rows keep every quarter warp's
-// 16-byte reads on distinct banks.
+// from adjacent columns (4 tig .. 4 tig + 3 for tf32), so each fragment row
+// is one 16-byte shared-memory read.
 
 __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
@@ -460,261 +449,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
-}
-
-constexpr int GM_BM = 128, GM_BN = 64, GM_BK = 32, GM_STAGES = 3, GM_WARPS = 8;
-constexpr int GM_MI = 2, GM_NI = 4;                  // warp tile: 32 rows x 32 lanes
-// shared-memory row strides (bytes) of one stage
-constexpr int BM_AROW = GM_BK * 4 + 64;              // f32 A row: 192 (64 mod 128)
-constexpr int BM_XROW = GM_BK * 4 + 64;              // f32 x lane: 192
-constexpr int PD_FROW = GM_BK * 2;                   // bf16 F row: 64 (64 mod 128)
-constexpr int PD_RROW = GM_BK * 4 + 16;              // f32 r lane: 144 (16 mod 32)
-constexpr int BM_STAGE = GM_BM * BM_AROW + GM_BN * BM_XROW;
-constexpr int PD_STAGE = GM_BM * PD_FROW + GM_BN * PD_RROW;
-
-// block_matvec, f32 A x f32 x, 3xTF32; the depth is the G N columns of
-// [A_0 | A_1 | ...] against [coef_0 x; coef_1 x; ...]
-__global__ void __launch_bounds__(32 * GM_WARPS)
-block_matvec_mma(const float* __restrict__ A, const float* __restrict__ x,
-                 const float* __restrict__ coef, float* __restrict__ y,
-                 int G, int K, int N, int B) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * GM_BN, i0 = blockIdx.y * GM_BM, k = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int steps = N / GM_BK, T = G * steps;
-
-  auto load_stage = [&](int t) {
-    const int g = t / steps, j0 = (t - g * steps) * GM_BK;
-    unsigned char* As = smem + (t % GM_STAGES) * BM_STAGE;
-    unsigned char* Xs = As + GM_BM * BM_AROW;
-    const float* Ag = A + ((size_t)g * K + k) * N * N;
-    for (int e = threadIdx.x; e < GM_BM * (GM_BK / 4); e += 32 * GM_WARPS) {
-      const int r = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, i = i0 + r;
-      cp_async16(As + r * BM_AROW + c * 4, Ag + (size_t)min(i, N - 1) * N + j0 + c, i < N);
-    }
-    for (int e = threadIdx.x; e < GM_BN * (GM_BK / 4); e += 32 * GM_WARPS) {
-      const int l = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, b = n0 + l;
-      cp_async16(Xs + l * BM_XROW + c * 4, x + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
-    }
-  };
-
-  float acc[GM_MI][GM_NI][4];
-#pragma unroll
-  for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < GM_STAGES - 1; ++s) {
-    if (s < T) load_stage(s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<GM_STAGES - 2>();
-    __syncthreads();                                   // stage t landed; t - 1 consumed
-    if (t + GM_STAGES - 1 < T) load_stage(t + GM_STAGES - 1);
-    cp_async_commit();
-    const int g = t / steps;
-    const unsigned char* As = smem + (t % GM_STAGES) * BM_STAGE;
-    const unsigned char* Xs = As + GM_BM * BM_AROW;
-    float cg[GM_NI];
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni) {
-      const int b = n0 + wc * 32 + ni * 8 + grp;
-      cg[ni] = b < B ? (coef != nullptr ? __ldg(coef + (size_t)b * G + g) : 1.f) : 0.f;
-    }
-#pragma unroll
-    for (int d = 0; d < GM_BK / 16; ++d) {
-      float4 a[GM_MI][2], xv[GM_NI];
-#pragma unroll
-      for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          a[mi][h] = *reinterpret_cast<const float4*>(
-              As + (wr * 32 + mi * 16 + grp + 8 * h) * BM_AROW + (16 * d + 4 * tig) * 4);
-#pragma unroll
-      for (int ni = 0; ni < GM_NI; ++ni)
-        xv[ni] = *reinterpret_cast<const float4*>(
-            Xs + (wc * 32 + ni * 8 + grp) * BM_XROW + (16 * d + 4 * tig) * 4);
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {                    // two k8 steps
-        uint32_t ab[GM_MI][4], as[GM_MI][4];
-#pragma unroll
-        for (int mi = 0; mi < GM_MI; ++mi) {
-          split_tf32(comp(a[mi][0], 2 * s), ab[mi][0], as[mi][0]);
-          split_tf32(comp(a[mi][1], 2 * s), ab[mi][1], as[mi][1]);
-          split_tf32(comp(a[mi][0], 2 * s + 1), ab[mi][2], as[mi][2]);
-          split_tf32(comp(a[mi][1], 2 * s + 1), ab[mi][3], as[mi][3]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < GM_NI; ++ni) {
-          uint32_t xb0, xs0, xb1, xs1;
-          split_tf32(cg[ni] * comp(xv[ni], 2 * s), xb0, xs0);
-          split_tf32(cg[ni] * comp(xv[ni], 2 * s + 1), xb1, xs1);
-#pragma unroll
-          for (int mi = 0; mi < GM_MI; ++mi) {
-            mma_tf32(acc[mi][ni], as[mi], xb0, xb1);   // small terms first
-            mma_tf32(acc[mi][ni], ab[mi], xs0, xs1);
-            mma_tf32(acc[mi][ni], ab[mi], xb0, xb1);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + wr * 32 + mi * 16 + grp + 8 * (q >> 1);
-        const int b = n0 + wc * 32 + ni * 8 + 2 * tig + (q & 1);
-        if (i < N && b < B) y[((size_t)b * K + k) * N + i] = acc[mi][ni][q];
-      }
-}
-
-// precond_dot, bf16 F x f32 r (r split into three bf16 terms at use).  rz:
-// each block writes its 64 lanes' partial over its 128 rows to
-// partials[b, k, row tile]; the last block of each (k, lane tile), found
-// with an integer ticket that it resets, sums them in row-tile order.
-__global__ void __launch_bounds__(32 * GM_WARPS)
-precond_dot_mma(const __nv_bfloat16* __restrict__ F, const float* __restrict__ r,
-                float* __restrict__ z, float* __restrict__ rz, float* __restrict__ partials,
-                unsigned* __restrict__ tickets, int K, int N, int B) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * GM_BN, i0 = blockIdx.y * GM_BM, k = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int T = N / GM_BK;
-  const __nv_bfloat16* Fk = F + (size_t)k * N * N;
-
-  auto load_stage = [&](int t) {
-    const int j0 = t * GM_BK;
-    unsigned char* Fs = smem + (t % GM_STAGES) * PD_STAGE;
-    unsigned char* Rs = Fs + GM_BM * PD_FROW;
-    for (int e = threadIdx.x; e < GM_BM * (GM_BK / 8); e += 32 * GM_WARPS) {
-      const int rr = e / (GM_BK / 8), c = (e % (GM_BK / 8)) * 8, i = i0 + rr;
-      cp_async16(Fs + rr * PD_FROW + c * 2, Fk + (size_t)min(i, N - 1) * N + j0 + c, i < N);
-    }
-    for (int e = threadIdx.x; e < GM_BN * (GM_BK / 4); e += 32 * GM_WARPS) {
-      const int l = e / (GM_BK / 4), c = (e % (GM_BK / 4)) * 4, b = n0 + l;
-      cp_async16(Rs + l * PD_RROW + c * 4, r + ((size_t)min(b, B - 1) * K + k) * N + j0 + c, b < B);
-    }
-  };
-
-  float acc[GM_MI][GM_NI][4];
-#pragma unroll
-  for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < GM_STAGES - 1; ++s) {
-    if (s < T) load_stage(s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<GM_STAGES - 2>();
-    __syncthreads();
-    if (t + GM_STAGES - 1 < T) load_stage(t + GM_STAGES - 1);
-    cp_async_commit();
-    const unsigned char* Fs = smem + (t % GM_STAGES) * PD_STAGE;
-    const unsigned char* Rs = Fs + GM_BM * PD_FROW;
-    uint4 f[GM_MI][2];
-#pragma unroll
-    for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f[mi][h] = *reinterpret_cast<const uint4*>(
-            Fs + (wr * 32 + mi * 16 + grp + 8 * h) * PD_FROW + 16 * tig);
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni) {
-      const unsigned char* rl = Rs + (wc * 32 + ni * 8 + grp) * PD_RROW + 32 * tig;
-      const float4 v[2] = {*reinterpret_cast<const float4*>(rl),
-                           *reinterpret_cast<const float4*>(rl + 16)};
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {                    // two k16 steps
-        uint32_t h0, m0, l0, h1, m1, l1;
-        split_bf16x3(v[s].x, v[s].y, h0, m0, l0);
-        split_bf16x3(v[s].z, v[s].w, h1, m1, l1);
-#pragma unroll
-        for (int mi = 0; mi < GM_MI; ++mi) {
-          const uint32_t a[4] = {word(f[mi][0], 2 * s), word(f[mi][1], 2 * s),
-                                 word(f[mi][0], 2 * s + 1), word(f[mi][1], 2 * s + 1)};
-          mma_bf16(acc[mi][ni], a, l0, l1);            // small terms first
-          mma_bf16(acc[mi][ni], a, m0, m1);
-          mma_bf16(acc[mi][ni], a, h0, h1);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float part[GM_NI][2];
-#pragma unroll
-  for (int ni = 0; ni < GM_NI; ++ni) part[ni][0] = part[ni][1] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < GM_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < GM_NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + wr * 32 + mi * 16 + grp + 8 * (q >> 1);
-        const int b = n0 + wc * 32 + ni * 8 + 2 * tig + (q & 1);
-        if (i < N && b < B) {
-          const size_t o = ((size_t)b * K + k) * N + i;
-          z[o] = acc[mi][ni][q];
-          part[ni][q & 1] = fmaf(r[o], acc[mi][ni][q], part[ni][q & 1]);
-        }
-      }
-  // over the 8 row groups of a warp (lanes of equal tig), the 4 row warps,
-  // then the row tiles
-  __shared__ float red[GM_WARPS][32];
-  __shared__ bool last;
-#pragma unroll
-  for (int ni = 0; ni < GM_NI; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = part[ni][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (grp == 0) red[warp][ni * 8 + 2 * tig + e] = v;
-    }
-  __syncthreads();
-  const int tiles = gridDim.y;
-  const unsigned ticket = blockIdx.x * K + k;
-  if (threadIdx.x < GM_BN) {
-    const int l = threadIdx.x, b = n0 + l, wcl = l >> 5;
-    if (b < B) {
-      float s = 0.f;
-      for (int w = 0; w < GM_WARPS / 2; ++w) s += red[2 * w + wcl][l & 31];
-      partials[((size_t)b * K + k) * tiles + blockIdx.y] = s;
-      __threadfence();
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&tickets[ticket], 1u) == (unsigned)(tiles - 1);
-  __syncthreads();
-  if (last) {
-    if (threadIdx.x < GM_BN && n0 + threadIdx.x < B) {
-      const int b = n0 + threadIdx.x;
-      const float* p = partials + ((size_t)b * K + k) * tiles;
-      float s = 0.f;
-      for (int c = 0; c < tiles; ++c) s += __ldcg(p + c);
-      rz[(size_t)b * K + k] = s;
-    }
-    if (threadIdx.x == 0) tickets[ticket] = 0u;       // ready for the next launch
-  }
 }
 
 // ----------------------------------------------------------------------------
@@ -1295,6 +1029,457 @@ int launch_dmma(int lanes, int chunks, const TS* A, const double* x, const doubl
 }
 
 // ----------------------------------------------------------------------------
+// tensor route (f32 vectors at many lanes: bf16 x f32 precond_dot, f32 x f32
+// block_matvec; wgmma + TMA)
+// ----------------------------------------------------------------------------
+
+// A block owns BM = 128 rows x BN = 32 or 128 lanes of one subdomain
+// (grid: lane tiles, row tiles, K): two consumer warpgroups of 64 rows each
+// and one producer warp.  The producer's lane 0 keeps a ring of S stages in flight,
+// two TMA boxes a stage: 128-byte rows of the matrix (32 f32 columns of A
+// or 64 bf16 columns of F, rows i0 .., 128-byte swizzle) and the same
+// columns of the BN lanes of the vector (x swizzled alike; r plain,
+// 256-byte rows), counted on the stage's full barrier.  The hardware
+// zero-fills rows, columns and lanes past the ends, so every product with
+// them is an exact zero.  The consumers release a stage on its empty
+// barrier once the wgmmas that read it are done.  What bounds the route is
+// that ring (PERF.md): with no wgmma issued at all the serving
+// shapes take 0.55-0.8 of their time, and neither fewer bytes (a cluster
+// multicasting A, x loaded once for both G matrices), nor more in flight (a
+// ring of raw tiles released at the split, the planes beside it), nor a
+// persistent grid made them faster by more than a few percent.
+//
+// The consumers split each stage once, element by element, into
+// shared-memory planes in the 128-byte swizzled layout the descriptors read
+// (block_matvec: coef[b,g] x into big over its raw tile in place and small
+// beside it; precond_dot: r into three bf16 planes, hi and mid over r's raw
+// tile, lo beside it, after every raw value is read), fence them to the
+// async proxy and meet at a named barrier; then each warpgroup issues its
+// 64-row products and commits them as one group, and waits for the group
+// before it (one stage of wgmmas in flight while the next is split):
+//  * block_matvec: wgmma m64nBNk8 tf32, per k8 step a_small x_big, a_big
+//    x_small, a_big x_big (small terms first), A's fragment in registers
+//    (each thread reads and splits its own);
+//  * precond_dot: wgmma m64nBNk16 bf16 with F's tile as TMA left it, per
+//    k16 step F r_lo, F r_mid, F r_hi.
+// The async wgmma reads register operands after the code that follows has
+// run: the fragments of two stages are held and each is kept alive (an
+// empty asm that reads and writes it) until the wait that retires its
+// wgmmas; without that the next stage reused the registers first (PERF.md:
+// wrong rows from the second warp on).  Below TC_A_INFLIGHT_LANES lanes
+// each stage's wgmmas are waited for instead (faster there: the products
+// are short).  One accumulation chain over the depth (G N for
+// block_matvec): summing each stage apart with IEEE f32 adds was slower
+// and not needed for the tolerance (PERF.md).  The epilogue stages the
+// accumulators through shared memory (the ring is free by then) and writes
+// y or z as 16-byte rows, 16 threads a lane's 64 rows; precond_dot's rz takes r's rows of the
+// block from the registers each thread kept when it split the stages
+// holding them (the same chunks it writes), sums its chunks, then a lane's
+// 16 threads (shuffles), into a partial per (lane, k, row tile); the last
+// block of each (k, lane tile), found with an integer ticket that it
+// resets, sums them in row-tile order.
+constexpr int TC_SMEM = 227 * 1024 - 2048;   // dynamic shared memory a block may take
+constexpr int TC_MAX_STAGES = 4;             // most stages in the ring
+constexpr int TC_A_INFLIGHT_LANES = 128;     // block_matvec: a stage in flight from these lanes
+constexpr int TC_NWG = 2;                    // consumer warpgroups a block (64 rows each)
+// the consumers' named barrier: 0 is the block-wide one the producer meets
+constexpr int TC_CONSUMER_BAR = 1;
+
+template <int BN, bool PD>
+struct TcLayout {
+  static constexpr int NWG = TC_NWG;
+  static constexpr int BM = 64 * NWG;                   // rows a block
+  static constexpr int BK = PD ? 64 : 32;               // depth columns a stage (128-byte rows)
+  static constexpr int NC = 128 * NWG;                  // consumer threads
+  static constexpr int MAT = BM * 128;                  // matrix tile
+  static constexpr int VEC = BN * (PD ? 256 : 128);     // vector: x -> x_big | r -> hi, mid
+  static constexpr int LOW = BN * 128;                  // x_small | r lo
+  static constexpr int STAGE = MAT + VEC + LOW;
+  static constexpr int S0 = TC_SMEM / STAGE;
+  static constexpr int STAGES = S0 < TC_MAX_STAGES ? S0 : TC_MAX_STAGES;
+  static constexpr int OSTRIDE = BM + 4;                // staged outputs: [BN][BM + 4] f32
+  static constexpr int PER = BN * 16 / NC;              // 16-byte chunks a thread: [BN][64] f32
+  static constexpr int BYTES = STAGES * STAGE + 1024;   // + 1024-byte alignment
+  static_assert(STAGES >= 2, "tensor route: two stages must fit");
+  static_assert(BN * OSTRIDE * 4 <= STAGES * STAGE, "tensor route: outputs staged in the ring");
+  static_assert(STAGE % 1024 == 0 && MAT % 1024 == 0 && VEC % 1024 == 0,
+                "swizzled tiles on 1024-byte bounds");
+};
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte rows and
+// the 128-byte swizzle: 8-row groups 1024 bytes apart (stride byte offset
+// 64 x 16); the leading byte offset is unused for this layout.  A k step
+// inside the 128-byte row advances the start address (32 bytes a k8 tf32 or
+// k16 bf16 step); the swizzle is a function of the address, as TMA wrote it.
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+}
+// the accumulators are written by the async wgmmas: pin them across
+template <int R>
+__device__ __forceinline__ void wg_pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// generic-proxy writes of shared memory (the split planes) before the async
+// proxy (wgmma) reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// m64 x BN wgmma (BN = 32, 128): tf32 with A in registers, bf16 with
+// both operands by descriptor; d[4 j + q] is row grp + 8 (q >> 1) of the
+// warp's 16, lane 8 j + 2 tig + (q & 1)
+template <int BN>
+struct Wg;
+
+template <>
+struct Wg<32> {
+  static __device__ __forceinline__ void tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                              int scale) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[16], uint64_t a, uint64_t b, int scale) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale));
+  }
+};
+
+template <>
+struct Wg<128> {
+  static __device__ __forceinline__ void tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                              int scale) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63}"
+        ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[64], uint64_t a, uint64_t b, int scale) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63}"
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale));
+  }
+};
+
+// byte offset of element c of a 16-byte chunk row r in a tile of 128-byte
+// rows with the 128-byte swizzle (chunk c / (16 / size) at chunk ^ r % 8)
+template <int SIZE>
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c * SIZE) >> 4) ^ (r & 7)) << 4) + ((c * SIZE) & 15);
+}
+
+template <int BN, bool PD>
+__global__ void __launch_bounds__(128 * TC_NWG + 32)
+tensor_kernel(const __grid_constant__ CUtensorMap tmm, const __grid_constant__ CUtensorMap tmv,
+              const float* __restrict__ coef, float* __restrict__ out, float* __restrict__ rz,
+              float* __restrict__ partials, unsigned* __restrict__ tickets, int G, int K, int N,
+              int B) {
+  using L = TcLayout<BN, PD>;
+  constexpr int S = L::STAGES, NC = L::NC, BM = L::BM, BK = L::BK, R = BN / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t full[S], empty[S];
+  __shared__ bool last;
+  const int n0 = blockIdx.x * BN, i0 = blockIdx.y * BM, k = blockIdx.z;
+  const int steps = (N + BK - 1) / BK, T = G * steps;
+
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) mbar_init(&full[q], 1), mbar_init(&empty[q], NC);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) acc[q] = 0.f;
+  // precond_dot: r's rows of the block, kept from the stages whose columns
+  // they are (thread-owned chunks [lane q / 16][4 (q % 16) ..] of 64 rows)
+  float4 rr[PD ? BM / 64 : 1][PD ? L::PER : 1];
+  if (threadIdx.x >= NC) {                             // producer warp: lane 0 issues
+    if (threadIdx.x == NC) {
+      for (int t = 0; t < T; ++t) {
+        const int s = t % S, g = t / steps, j0 = (t - g * steps) * BK;
+        if (t >= S) mbar_wait(&empty[s], (t / S - 1) & 1);
+        unsigned char* st = smem + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::MAT + BN * BK * 4);
+        tma_3d(st, &tmm, j0, i0, g * K + k, &full[s]);
+        tma_3d(st + L::MAT, &tmv, j0, k, n0, &full[s]);
+      }
+    }
+  } else {                                             // consumer warpgroups
+    const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int grp = lane >> 2, tig = lane & 3;
+    // block_matvec: a stage in flight at BN >= TC_A_INFLIGHT_LANES (A's
+    // fragments of two stages held), else each stage's wgmmas waited for
+    constexpr bool INFLIGHT = PD || BN >= TC_A_INFLIGHT_LANES;
+    uint32_t abuf[2][4][4], asbuf[2][4][4];            // A's fragments, big / small
+    auto consume = [&](auto parity, int t) {
+      constexpr int u = decltype(parity)::value;
+      uint32_t (&ab)[4][4] = abuf[u];
+      uint32_t (&as)[4][4] = asbuf[u];
+      const int s = t % S, g = t / steps, j0 = (t - g * steps) * BK;
+      unsigned char* st = smem + s * L::STAGE;
+      constexpr int LOW = L::LOW;
+      unsigned char* V = st + L::MAT;                  // x_big | r raw, then hi and mid
+      unsigned char* W = V + L::VEC;                   // x_small | lo
+      mbar_wait(&full[s], (t / S) & 1);
+      if constexpr (PD) {
+        // r [BN][64] f32 -> three bf16 planes [BN][64] (swizzled); every raw
+        // value is read before the planes overwrite the tile
+        constexpr int PER = L::PER;
+        float4 v[PER];
+#pragma unroll
+        for (int p = 0; p < PER; ++p)
+          v[p] = reinterpret_cast<const float4*>(V)[threadIdx.x + p * NC];
+#pragma unroll
+        for (int h = 0; h < BM / 64; ++h)
+          if (j0 == i0 + 64 * h)                       // these columns are rows of the block
+#pragma unroll
+            for (int p = 0; p < PER; ++p) rr[h][p] = v[p];
+        named_bar(TC_CONSUMER_BAR, NC);
+#pragma unroll
+        for (int p = 0; p < PER; ++p) {
+          const int q = threadIdx.x + p * NC, l = q >> 4, c = (q & 15) * 4;
+          uint32_t h0, m0, l0, h1, m1, l1;
+          split_bf16x3(v[p].x, v[p].y, h0, m0, l0);
+          split_bf16x3(v[p].z, v[p].w, h1, m1, l1);
+          const int o = sw128<2>(l, c);
+          *reinterpret_cast<uint2*>(V + o) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(V + LOW + o) = make_uint2(m0, m1);
+          *reinterpret_cast<uint2*>(W + o) = make_uint2(l0, l1);
+        }
+      } else {
+        // coef[b, g] x -> big (in place) / small, element by element (the
+        // layout is TMA's swizzled one on both sides), and A's fragments
+        constexpr int PER = BN * 8 / NC;
+        const float4* X = reinterpret_cast<const float4*>(V);
+#pragma unroll
+        for (int p = 0; p < PER; ++p) {
+          const int q = threadIdx.x + p * NC, b = n0 + (q >> 3);
+          const float cg = coef == nullptr ? 1.f : b < B ? __ldg(coef + (size_t)b * G + g) : 0.f;
+          const float4 v = X[q];
+          uint4 big, small;
+          split_tf32(cg * v.x, big.x, small.x);
+          split_tf32(cg * v.y, big.y, small.y);
+          split_tf32(cg * v.z, big.z, small.z);
+          split_tf32(cg * v.w, big.w, small.w);
+          reinterpret_cast<uint4*>(V)[q] = big;
+          reinterpret_cast<uint4*>(W)[q] = small;
+        }
+        const unsigned char* At = st + wg * 64 * 128;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * w + grp + 8 * (e & 1), c = 8 * ks + tig + 4 * (e >> 1);
+            split_tf32(*reinterpret_cast<const float*>(At + sw128<4>(r, c)), ab[ks][e], as[ks][e]);
+          }
+      }
+      fence_proxy_async();
+      named_bar(TC_CONSUMER_BAR, NC);
+      // one stage of products: three per k step, small terms first
+      auto issue = [&](float (&d)[R]) {
+        wg_pin(d);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          if constexpr (PD) {
+            const uint64_t fa = wg_desc(st + wg * 64 * 128 + 32 * ks);
+            Wg<BN>::bf16(d, fa, wg_desc(W + 32 * ks), 1);
+            Wg<BN>::bf16(d, fa, wg_desc(V + LOW + 32 * ks), 1);
+            Wg<BN>::bf16(d, fa, wg_desc(V + 32 * ks), 1);
+          } else {
+            Wg<BN>::tf32(d, as[ks], wg_desc(V + 32 * ks), 1);
+            Wg<BN>::tf32(d, ab[ks], wg_desc(W + 32 * ks), 1);
+            Wg<BN>::tf32(d, ab[ks], wg_desc(V + 32 * ks), 1);
+          }
+        }
+        wg_commit();
+        wg_pin(d);
+      };
+      if constexpr (!INFLIGHT) {
+        issue(acc);                                    // A's fragments are registers: no
+        wg_wait<0>();                                  // product stays in flight past them
+        wg_pin(acc);
+        mbar_arrive(&empty[s]);
+      } else {
+        issue(acc);
+        wg_wait<1>();                                  // stage t - 1's products are done
+        wg_pin(acc);
+        if constexpr (!PD) {                           // its fragments were live until here
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            asm volatile("" : "+r"(abuf[1 - u][i / 4][i % 4]), "+r"(asbuf[1 - u][i / 4][i % 4])
+                         :: "memory");
+        }
+        if (t > 0) mbar_arrive(&empty[(t - 1) % S]);
+      }
+    };
+    for (int t = 0; t < T; t += 2) {
+      consume(std::integral_constant<int, 0>{}, t);
+      if (t + 1 < T) consume(std::integral_constant<int, 1>{}, t + 1);
+    }
+    wg_wait<0>();
+    wg_pin(acc);
+  }
+  __syncthreads();                                     // every stage consumed: the ring is free
+
+  // outputs [BN][BM] through shared memory, written as 16-byte rows
+  float* O = reinterpret_cast<float*>(smem);
+  if (threadIdx.x < NC) {
+    const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int row = 64 * wg + 16 * w + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        O[(8 * j + col + (q & 1)) * L::OSTRIDE + row + 8 * (q >> 1)] = acc[4 * j + q];
+  }
+  __syncthreads();
+  // each thread writes 16-byte chunks [lane q / 16][64 h + 4 (q % 16) ..]:
+  // 16 threads a lane's 64 rows (256 contiguous bytes); precond_dot sums r z
+  // over its chunks in h order, then over the lane's 16 threads (shuffles)
+  if (threadIdx.x < NC) {
+#pragma unroll
+    for (int p = 0; p < L::PER; ++p) {
+      const int q = threadIdx.x + p * NC, l = q >> 4, c = 4 * (q & 15), b = n0 + l;
+      float part = 0.f;
+#pragma unroll
+      for (int h = 0; h < BM / 64; ++h) {
+        const int i = i0 + 64 * h + c;
+        const float4 v = *reinterpret_cast<const float4*>(O + l * L::OSTRIDE + 64 * h + c);
+        if (b < B && i < N) {
+          *reinterpret_cast<float4*>(out + ((size_t)b * K + k) * N + i) = v;
+          if constexpr (PD) {
+            const float4 r = rr[h][p];
+            part = fmaf(r.w, v.w, fmaf(r.z, v.z, fmaf(r.y, v.y, fmaf(r.x, v.x, part))));
+          }
+        }
+      }
+      if constexpr (PD) {
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        if ((q & 15) == 0 && b < B) partials[((size_t)b * K + k) * gridDim.y + blockIdx.y] = part;
+      }
+    }
+  }
+  if constexpr (PD) {
+    __threadfence();
+    __syncthreads();
+    const int tiles = gridDim.y;
+    const unsigned ticket = blockIdx.x * K + k;
+    if (threadIdx.x == 0) last = atomicAdd(&tickets[ticket], 1u) == (unsigned)(tiles - 1);
+    __syncthreads();
+    if (last) {
+      if (threadIdx.x < BN && n0 + (int)threadIdx.x < B) {
+        const int b = n0 + threadIdx.x;
+        const float* p = partials + ((size_t)b * K + k) * tiles;
+        float s = 0.f;
+        for (int c = 0; c < tiles; ++c) s += __ldcg(p + c);
+        rz[(size_t)b * K + k] = s;
+      }
+      if (threadIdx.x == 0) tickets[ticket] = 0u;     // ready for the next launch
+    }
+  }
+}
+
+template <int BN, bool PD>
+int launch_tensor_cfg(const void* M, const float* v, const float* coef, float* out, float* rz,
+                      float* partials, unsigned* tickets, int G, int K, int N, int B,
+                      cudaStream_t s) {
+  using L = TcLayout<BN, PD>;
+  CUtensorMap tm{}, tv{};   // matrix [G K, N, N] (bf16 F: [K, N, N]), vector [B, K, N]
+  const cuuint64_t msz = PD ? 2 : 4;
+  if (!tmap_3d(&tm, M, PD ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, N,
+               N, (cuuint64_t)G * K, N * msz, (cuuint64_t)N * N * msz, L::BK, L::BM, 1, true) ||
+      !tmap_3d(&tv, v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, N, K, B, (cuuint64_t)N * 4,
+               (cuuint64_t)K * N * 4, L::BK, 1, BN, !PD))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = tensor_kernel<BN, PD>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  dim3 grid((B + BN - 1) / BN, (N + L::BM - 1) / L::BM, K);
+  kernel<<<grid, L::NC + 32, L::BYTES, s>>>(tm, tv, coef, out, rz, partials, tickets, G, K, N, B);
+  return (int)cudaGetLastError();
+}
+
+// lanes: 32 or 128 lanes a block (plan() in ops/hopper_kernels.py picks them)
+template <bool PD>
+int launch_tensor(int lanes, const void* M, const float* v, const float* coef, float* out,
+                  float* rz, float* partials, unsigned* tickets, int G, int K, int N, int B,
+                  cudaStream_t s) {
+  if (N % 32 != 0 || !aligned16(M) || !aligned16(v) || !aligned16(out) ||
+      (PD && (partials == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (lanes == 128)
+    return launch_tensor_cfg<128, PD>(M, v, coef, out, rz, partials, tickets, G, K, N, B, s);
+  if (lanes == 32)
+    return launch_tensor_cfg<32, PD>(M, v, coef, out, rz, partials, tickets, G, K, N, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ----------------------------------------------------------------------------
 // tiles route (unchanged from the first port; f32 vectors only on a path)
 // ----------------------------------------------------------------------------
 
@@ -1441,14 +1626,8 @@ int launch_block_matvec(int route, int lanes, int C, const void* A, const void* 
     return launch_stream<TS, TA, false>(lanes, C, a, xv, c, yv, nullptr, nullptr, nullptr,
                                         G, K, N, B, s);
   if (route == kTensor) {
-    if constexpr (std::is_same<TS, float>::value && std::is_same<TA, float>::value) {
-      if (N % GM_BK != 0 || !aligned16(A) || !aligned16(x)) return (int)cudaErrorInvalidValue;
-      const int bytes = GM_STAGES * BM_STAGE;
-      cudaFuncSetAttribute(block_matvec_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      dim3 grid((B + GM_BN - 1) / GM_BN, (N + GM_BM - 1) / GM_BM, K);
-      block_matvec_mma<<<grid, 32 * GM_WARPS, bytes, s>>>(a, xv, c, yv, G, K, N, B);
-      return (int)cudaGetLastError();
-    }
+    if constexpr (std::is_same<TS, float>::value && std::is_same<TA, float>::value)
+      return launch_tensor<false>(lanes, a, xv, c, yv, nullptr, nullptr, nullptr, G, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route == kRing) {
@@ -1486,18 +1665,9 @@ int launch_precond_dot(int route, int lanes, int C, const void* F, const void* r
                                        static_cast<unsigned*>(tickets), 1, K, N, B, s);
   }
   if (route == kTensor) {
-    if constexpr (std::is_same<TS, __nv_bfloat16>::value && std::is_same<TA, float>::value) {
-      if (N % GM_BK != 0 || !aligned16(F) || !aligned16(r) || partials == nullptr ||
-          tickets == nullptr)
-        return (int)cudaErrorInvalidValue;
-      const int bytes = GM_STAGES * PD_STAGE;
-      if (bytes > 48 * 1024)
-        cudaFuncSetAttribute(precond_dot_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      dim3 grid((B + GM_BN - 1) / GM_BN, (N + GM_BM - 1) / GM_BM, K);
-      precond_dot_mma<<<grid, 32 * GM_WARPS, bytes, s>>>(
-          f, rv, zv, rzv, static_cast<float*>(partials), static_cast<unsigned*>(tickets), K, N, B);
-      return (int)cudaGetLastError();
-    }
+    if constexpr (std::is_same<TS, __nv_bfloat16>::value && std::is_same<TA, float>::value)
+      return launch_tensor<true>(lanes, f, rv, nullptr, zv, rzv, static_cast<float*>(partials),
+                                 static_cast<unsigned*>(tickets), 1, K, N, B, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route == kRing) {

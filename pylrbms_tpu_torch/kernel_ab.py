@@ -1,7 +1,7 @@
 """A/B of the kernel source against variants of it on one GPU.
 
-    python3 -m pylrbms_tpu_torch.kernel_ab VARIANT.cu [VARIANT.cu ...]
-        [--shape SHAPE ... | --dmma]
+    python3 -m pylrbms_tpu_torch.kernel_ab [VARIANT.cu ...] [--define NAME=VALUE ...]
+        [--shape SHAPE ... | --dmma | --tensor]
 
 Run from the repository root (it uses ``chip_smoke.kernel_case``).  Builds
 the package's ``csrc/block_kernels.cu`` and each VARIANT.cu (a copy of it
@@ -14,13 +14,19 @@ version is reported and the run goes on; the exit code is then 1.  SHAPE
 is ``kind,G,K,N,B,matrix dtype,vector dtype``, e.g.
 ``block_matvec,2,64,384,256,f32,f32``; the default is every main-path
 shape of ``PERF.md`` section 6, ``--dmma`` the f64 shapes of the dmma
-route's table there.  Every line carries the card's name and power limit.
+route's table there, ``--tensor`` the tensor route's shapes
+(``chip_smoke.TENSOR_SHAPES``).  ``--define NAME=VALUE`` makes a variant
+of the package's source with the one ``constexpr`` line of that name set
+to VALUE (e.g. ``TC_A_INFLIGHT_LANES=32``, ``TC_MAX_STAGES=3``), written
+under ``_build/``; each ``--define`` is a variant of its own.  Every line
+carries the card's name and power limit.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -50,6 +56,22 @@ def parse_shape(text):
     return kind, int(G), int(K), int(N), int(B), DTYPES[mdt], DTYPES[vdt]
 
 
+def define_variant(name_value):
+    """A copy of the package's source with ``constexpr <type> NAME = ...;``
+    set to VALUE, under ``_build/``; returns its path."""
+    name, value = name_value.split("=", 1)
+    with open(hk.SOURCE) as f:
+        src = f.read()
+    pattern = re.compile(rf"^(constexpr \w+ {re.escape(name)} = )[^;]+;", re.M)
+    if len(pattern.findall(src)) != 1:
+        raise SystemExit(f"kernel_ab: no single constexpr line named {name} in {hk.SOURCE}")
+    os.makedirs(hk.BUILD_DIR, exist_ok=True)
+    path = os.path.join(hk.BUILD_DIR, f"{name}_{value}.cu".replace("/", "_"))
+    with open(path, "w") as f:
+        f.write(pattern.sub(lambda m: m.group(1) + value + ";", src))
+    return path
+
+
 def build_all(sources):
     """``{name: library}`` for ``{name: source}``, the builds in parallel;
     the package's own library is left in place."""
@@ -63,9 +85,12 @@ def build_all(sources):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variants", nargs="+", help="the variants' .cu sources")
+    ap.add_argument("variants", nargs="*", help="the variants' .cu sources")
+    ap.add_argument("--define", action="append", default=[],
+                    help="NAME=VALUE: a variant with that constexpr set (repeatable)")
     ap.add_argument("--shape", action="append", help="kind,G,K,N,B,mdt,vdt (repeatable)")
     ap.add_argument("--dmma", action="store_true", help="the dmma route's f64 shapes")
+    ap.add_argument("--tensor", action="store_true", help="the tensor route's shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available; this probe runs only on a GPU", file=sys.stderr)
@@ -74,11 +99,14 @@ def main(argv=None) -> int:
 
     smi = cs.smi_line()
     pin_precision()
-    names = [os.path.splitext(os.path.basename(v))[0] for v in args.variants]
+    variants = [*args.variants, *map(define_variant, args.define)]
+    names = [os.path.splitext(os.path.basename(v))[0] for v in variants]
     libs = build_all({"base": hk.SOURCE,
-                      **{n: os.path.abspath(v) for n, v in zip(names, args.variants)}})
-    turns = ["base", *names, *names[::-1], "base"]
-    shapes = args.shape or (DMMA_SHAPES if args.dmma else MAIN_PATH_SHAPES)
+                      **{n: os.path.abspath(v) for n, v in zip(names, variants)}})
+    turns = ["base", *names, *names[::-1], "base"] if names else ["base"]
+    tensor = [",".join(map(str, s)) for s in cs.TENSOR_SHAPES]
+    shapes = args.shape or (DMMA_SHAPES if args.dmma else tensor if args.tensor
+                            else MAIN_PATH_SHAPES)
     dev = torch.device("cuda", 0)
     lib, failed = hk._lib, 0
     try:

@@ -18,9 +18,10 @@ ring of A tiles with the product on the tensor cores, wherever rows are
 16-byte multiples and the operands aligned; bf16 matrices, other rows and
 misaligned operands keep the register stream at 16 lanes), ``dmma``
 (every other f64-vector launch: tiled GEMMs on the f64 tensor cores),
-``tensor`` (tensor cores on split operands: bf16 F x f32 r in
-precond_dot, f32 x f32 in block_matvec) and ``tiles`` (SIMT, the other
-f32-vector pairs at many lanes, which no main path launches).
+``tensor`` (wgmma on split operands, fed by TMA from a producer warp:
+bf16 F x f32 r in precond_dot, f32 x f32 in block_matvec) and ``tiles``
+(SIMT, the other f32-vector pairs at many lanes, which no main path
+launches).
 
 Dispatch rule: a wrapper runs its plain PyTorch version (``*_plain``) only
 when the tensors it is given lie on the CPU.  For CUDA tensors it launches
@@ -67,8 +68,9 @@ STREAM_LANES = (1, 4, 16)          # lane counts the stream kernels hold in regi
 ROWS_PER_BLOCK = 32                # stream route: rows of one subdomain per block chunk
 STREAM_CHUNKS = 8                  # stream route: most row chunks per block
 SMEM_BYTES = 200 * 1024            # the kernels' largest dynamic shared memory
-MMA_ROWS, MMA_LANES = 128, 64     # tensor route: rows and lanes per block
-MMA_DEPTH = 32                     # tensor and ring routes: columns per pipeline stage
+MMA_DEPTH = 32                     # tensor and ring routes: N a multiple of it; ring stage
+TENSOR_ROWS = 128                  # tensor route: rows per block (two 64-row warpgroups)
+TENSOR_LANES = (32, 128)           # tensor route: lanes per block
 RING_ROWS = 64                     # ring route: rows per block (16 lanes)
 # dmma route: (rows, lanes) a block
 DMMA_TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
@@ -87,7 +89,7 @@ PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12, "f64 tensor": 67e12, "tf32": 495e1
 
 class Plan(NamedTuple):
     route: int          # STREAM, RING, DMMA, TENSOR or TILES
-    lanes: int          # stream, ring, dmma: lanes a block computes; else 0
+    lanes: int          # stream, ring, dmma, tensor: lanes a block computes; else 0
     chunks: int         # stream, dmma: 32-row chunks per block; else 1
     blocks: int         # thread blocks of the launch
 
@@ -117,7 +119,9 @@ def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
     f64-vector launch (f64 or bf16 matrix, any N, aligned or not) takes the
     f64 tensor cores (``dmma``; block tile: :func:`_dmma_tile`).  Above the
     ridge the f32-vector pairs in :data:`TENSOR_PAIRS` take the tensor
-    cores, the other f32-vector pairs the SIMT tiles.  The ring and tensor
+    cores (``tensor``: wgmma fed by TMA, :data:`TENSOR_ROWS` rows x 32 lanes
+    a block at B <= 32, so the harvest filter computes no empty lanes, else
+    128), the other f32-vector pairs the SIMT tiles.  The ring and tensor
     routes need 16-byte aligned operands, the tensor route N % 32 == 0."""
     ops, nbytes = work(kind, G, K, N, B, mdt, vdt)
     simt = PEAK_OPS_PER_S["f64" if vdt == torch.float64 else "f32"]
@@ -134,7 +138,8 @@ def plan(kind, G, K, N, B, mdt, vdt, aligned=True) -> Plan:
         return Plan(DMMA, lanes, rows // ROWS_PER_BLOCK,
                     K * math.ceil(N / rows) * math.ceil(B / lanes))
     if (kind, mdt, vdt) in TENSOR_PAIRS and mma:
-        return Plan(TENSOR, 0, 1, K * math.ceil(B / MMA_LANES) * math.ceil(N / MMA_ROWS))
+        lanes = TENSOR_LANES[0] if B <= TENSOR_LANES[0] else TENSOR_LANES[1]
+        return Plan(TENSOR, lanes, 1, K * math.ceil(N / TENSOR_ROWS) * math.ceil(B / lanes))
     if kind == "block_matvec":
         return Plan(TILES, 0, 1, K * math.ceil(N / 64) * math.ceil(B / 64))
     return Plan(TILES, 0, 1, K * math.ceil(B / 32))
@@ -312,7 +317,7 @@ def _pd_scratch(p, K, N, B):
     if p.route == DMMA:
         return (K * math.ceil(B / p.lanes),
                 B * K * math.ceil(N / (ROWS_PER_BLOCK * p.chunks)))
-    return K * math.ceil(B / MMA_LANES), B * K * math.ceil(N / MMA_ROWS)
+    return K * math.ceil(B / p.lanes), B * K * math.ceil(N / TENSOR_ROWS)
 
 
 def _pd_workspace(r, stream, n_tickets, n_partials):

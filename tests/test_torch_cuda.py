@@ -222,6 +222,146 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
         hk.precond_dot(A[0].transpose(1, 2), torch.ones((1, 2, 3), device=cuda))
 
 
+
+def test_cuda_tensors_on_the_tensor_route_never_take_the_plain_path(cuda, monkeypatch):
+    """Serving-batch shapes on the tensor route launch the wgmma kernels:
+    the plain versions are never called for CUDA tensors, and a launch the
+    route refuses raises instead of falling back (here the C entry stands
+    in for a failed launch by returning an error)."""
+    def no_plain(*a, **kw):
+        raise AssertionError("a CUDA tensor took the plain path")
+    rng = np.random.default_rng(43)
+    K, N, B = 4, 96, 40
+    A = torch.tensor(rng.normal(size=(2, K, N, N)), device=cuda, dtype=torch.float32)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda, dtype=torch.float32)
+    coef = torch.tensor(rng.normal(size=(B, 2)), device=cuda, dtype=torch.float32)
+    F = A[0].to(torch.bfloat16)
+    yp, (zp, rzp) = hk.block_matvec_plain(A, x, coef), hk.precond_dot_plain(F, x)
+    monkeypatch.setattr(hk, "block_matvec_plain", no_plain)
+    monkeypatch.setattr(hk, "precond_dot_plain", no_plain)
+    assert hk.plan("block_matvec", 2, K, N, B, A.dtype, x.dtype).route == hk.TENSOR
+    assert hk.plan("precond_dot", 1, K, N, B, F.dtype, x.dtype).route == hk.TENSOR
+    hk.reset_launch_counts()
+    y, (z, rz) = hk.block_matvec(A, x, coef), hk.precond_dot(F, x)
+    torch.cuda.synchronize()
+    assert hk.launch_counts() == {"block_matvec": 1, "precond_dot": 1}
+    assert _rel(y, yp) <= 2e-5 and _rel(z, zp) <= 2e-5 and _rel(rz, rzp) <= 2e-4
+
+    class Refusing:
+        pylrbms_block_matvec = pylrbms_precond_dot = staticmethod(lambda *a: 1)
+    monkeypatch.setattr(hk, "_lib", lambda: Refusing)
+    with pytest.raises(RuntimeError):
+        hk.block_matvec(A, x, coef)
+    with pytest.raises(RuntimeError):
+        hk.precond_dot(F, x)
+
+
+def _tensor_entry(kind, A, x, coef, lanes):
+    """One launch through the C entry on the tensor route at ``lanes`` lanes
+    a block, with precond_dot's scratch sized for that tile."""
+    lib, stream = hk._lib(), torch.cuda.current_stream().cuda_stream
+    G, K, N, _ = A.shape
+    B = x.shape[0]
+    y = torch.empty_like(x)
+    if kind == "block_matvec":
+        rc = lib.pylrbms_block_matvec(hk.TENSOR, lanes, 1, 1, 1, A.data_ptr(),
+                                      x.data_ptr(), None if coef is None else coef.data_ptr(),
+                                      y.data_ptr(), G, K, N, B, stream)
+        assert rc == 0
+        return y, None
+    nt, npart = hk._pd_scratch(hk.Plan(hk.TENSOR, lanes, 1, 0), K, N, B)
+    t = torch.zeros(nt, dtype=torch.int32, device=x.device)
+    part = torch.empty(npart, dtype=torch.float32, device=x.device)
+    rz = torch.empty((B, K), dtype=torch.float32, device=x.device)
+    F = A[0].to(torch.bfloat16)
+    rc = lib.pylrbms_precond_dot(hk.TENSOR, lanes, 1, 2, 1, F.data_ptr(), x.data_ptr(),
+                                 y.data_ptr(), rz.data_ptr(), part.data_ptr(), t.data_ptr(),
+                                 K, N, B, stream)
+    assert rc == 0
+    return y, rz
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("N", [32, 96, 384])
+@pytest.mark.parametrize("K", [3, 64])
+@pytest.mark.parametrize("B", [13, 32, 33, 200])
+def test_tensor_route_matches_plain_versions(cuda, B, K, N, G):
+    """The wgmma tensor route (C entry, route 1) at the lanes plan() picks
+    for the shape, with tails: lanes past B in the last lane tile (13, 33,
+    200), rows past N in the last 128-row tile (N=32 and 96), G=2 with coef
+    (block_matvec), one stage (N=32) and many; f32 tolerance 2e-5 on the
+    products, 2e-4 on rz, and z and rz equal over two launches.  Where plan() takes the route (B > 16), the wrapper too."""
+    rng = np.random.default_rng(47)
+    A = torch.tensor(rng.normal(size=(G, K, N, N)), device=cuda, dtype=torch.float32)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda, dtype=torch.float32)
+    coef = torch.tensor(rng.normal(size=(B, G)), device=cuda, dtype=torch.float32) \
+        if G > 1 else None
+    tile = hk.TENSOR_LANES[0] if B <= hk.TENSOR_LANES[0] else hk.TENSOR_LANES[1]
+    y, _ = _tensor_entry("block_matvec", A, x, coef, tile)
+    assert _rel(y, hk.block_matvec_plain(A, x, coef)) <= 2e-5
+    if B > 16:
+        hk.reset_launch_counts()
+        assert hk.plan("block_matvec", G, K, N, B, A.dtype, x.dtype).route == hk.TENSOR
+        assert _rel(hk.block_matvec(A, x, coef), hk.block_matvec_plain(A, x, coef)) <= 2e-5
+        assert hk.launch_counts()["block_matvec"] == 1
+    if G == 1:
+        F = A[0].to(torch.bfloat16)
+        (z, rz), (z2, rz2) = (_tensor_entry("precond_dot", A, x, None, tile),
+                              _tensor_entry("precond_dot", A, x, None, tile))
+        zp, rzp = hk.precond_dot_plain(F, x)
+        torch.cuda.synchronize()
+        assert _rel(z, zp) <= 2e-5 and _rel(rz, rzp) <= 2e-4
+        assert torch.equal(z, z2) and torch.equal(rz, rz2)
+
+
+@pytest.mark.parametrize("lanes", hk.TENSOR_LANES)
+def test_tensor_route_every_tile_matches_plain_versions(cuda, lanes):
+    """Every block tile of the tensor route (32 lanes also at B > 32, where
+    plan() takes 128) at a shape with lane, row and stage tails: both
+    kernels at the f32 tolerances, rz equal over two launches."""
+    rng = np.random.default_rng(53)
+    G, K, N, B = 2, 5, 160, 70
+    A = torch.tensor(rng.normal(size=(G, K, N, N)), device=cuda, dtype=torch.float32)
+    x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda, dtype=torch.float32)
+    coef = torch.tensor(rng.normal(size=(B, G)), device=cuda, dtype=torch.float32)
+    y, _ = _tensor_entry("block_matvec", A, x, coef, lanes)
+    assert _rel(y, hk.block_matvec_plain(A, x, coef)) <= 2e-5
+    (z, rz), (z2, rz2) = (_tensor_entry("precond_dot", A, x, None, lanes),
+                          _tensor_entry("precond_dot", A, x, None, lanes))
+    zp, rzp = hk.precond_dot_plain(A[0].to(torch.bfloat16), x)
+    torch.cuda.synchronize()
+    assert _rel(z, zp) <= 2e-5 and _rel(rz, rzp) <= 2e-4
+    assert torch.equal(z, z2) and torch.equal(rz, rz2)
+
+
+def test_tensor_route_refuses_what_it_does_not_take(cuda):
+    """Route 1 of the C entry refuses (cudaErrorInvalidValue) N % 32 != 0,
+    misaligned operands, f64 vectors, a tile it has no kernel for and
+    precond_dot without its scratch: nothing is sent to another route."""
+    lib, stream = hk._lib(), torch.cuda.current_stream().cuda_stream
+    K, B = 2, 40
+    A = torch.ones((1, K, 65, 65), device=cuda)
+    x, y = torch.ones((B, K, 65), device=cuda), torch.empty((B, K, 65), device=cuda)
+    bm = lib.pylrbms_block_matvec
+    assert bm(hk.TENSOR, 128, 1, 1, 1, A.data_ptr(), x.data_ptr(), None, y.data_ptr(), 1, K, 64,
+              B, stream) == 0                                    # N = 64 over the first rows
+    assert bm(hk.TENSOR, 128, 1, 1, 1, A.data_ptr(), x.data_ptr(), None, y.data_ptr(), 1, K, 65,
+              B, stream) != 0                                    # N % 32
+    assert bm(hk.TENSOR, 128, 1, 1, 1, A.data_ptr() + 4, x.data_ptr(), None, y.data_ptr(), 1,
+              K, 64, B, stream) != 0                             # misaligned A
+    assert bm(hk.TENSOR, 64, 1, 1, 1, A.data_ptr(), x.data_ptr(), None, y.data_ptr(), 1, K, 64,
+              B, stream) != 0                                    # no 64-lane kernel
+    xd, yd = x.double(), y.double()
+    assert bm(hk.TENSOR, 128, 1, 1, 0, A.data_ptr(), xd.data_ptr(), None, yd.data_ptr(), 1, K,
+              64, B, stream) != 0                                # f64 vectors
+    F = torch.ones((K, 64, 64), device=cuda, dtype=torch.bfloat16)
+    rz = torch.empty((B, K), device=cuda)
+    assert lib.pylrbms_precond_dot(hk.TENSOR, 128, 1, 2, 1, F.data_ptr(), x.data_ptr(),
+                                   y.data_ptr(), rz.data_ptr(), None, None, K, 64, B,
+                                   stream) != 0                  # no scratch
+    torch.cuda.synchronize()
+
+
 def test_online_step_on_cuda_matches_cpu(cuda):
     """Entry config, f64: the CUDA step (bf16 Jacobi factors by default)
     against the CPU f64 step at tol=1e-10, to 1e-8 relative."""
@@ -365,34 +505,49 @@ def test_reduce_and_greedy_on_cuda_match_cpu(cuda):
         assert _rel(getattr(r1.rd, name).cpu(), getattr(r0.rd, name)) <= 1e-10, name
 
 
-@pytest.mark.parametrize("N,fdt,route", [(384, "float64", hk.RING), (768, "float64", hk.RING),
-                                         (384, "bfloat16", hk.STREAM),
-                                         (768, "bfloat16", hk.STREAM)])
-def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, N, fdt, route):
-    """precond_dot at 8 lanes, f64 vectors, as the first launch of a fresh
-    process (a kernel's opt-in to more than 48 KB of shared memory sticks
-    for the life of a process): an f64 F takes the ring (64 KB of stages),
-    a bf16 F the register stream at 16 lanes, which stages 64 KB (N=384) or
-    96 KB (N=768, the P2 blocks) of x beside its static reduction
-    scratch; both have to opt in."""
+@pytest.mark.parametrize("kind,N,B,fdt,rdt,route", [
+    ("precond_dot", 384, 8, "float64", "float64", hk.RING),
+    ("precond_dot", 768, 8, "float64", "float64", hk.RING),
+    ("precond_dot", 384, 8, "bfloat16", "float64", hk.STREAM),
+    ("precond_dot", 768, 8, "bfloat16", "float64", hk.STREAM),
+    ("precond_dot", 384, 256, "bfloat16", "float32", hk.TENSOR),
+    ("precond_dot", 1728, 32, "bfloat16", "float32", hk.TENSOR),
+    ("block_matvec", 384, 256, "float32", "float32", hk.TENSOR),
+    ("block_matvec", 512, 32, "float32", "float32", hk.TENSOR)])
+def test_first_launch_of_a_process_may_need_48_kb_of_shared_memory(cuda, kind, N, B, fdt, rdt,
+                                                                    route):
+    """A kernel as the first launch of a fresh process (a kernel's opt-in to
+    more than 48 KB of shared memory sticks for the life of a process):
+    precond_dot at 8 lanes, f64 vectors, takes the ring with an f64 F (64
+    KB of stages) and the register stream at 16 lanes with a bf16 F, which
+    stages 64 KB (N=384) or 96 KB (N=768, the P2 blocks) of x beside its
+    static reduction scratch; the tensor route (f32 vectors, 32 and 256
+    lanes) takes 96-193 KB of TMA stages.  All have to opt in."""
     import os
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tol = (1e-12, 1e-12) if rdt == "float64" else (2e-5, 2e-4)
     code = (
         "import torch\n"
         "from pylrbms_tpu_torch.ops import hopper_kernels as hk\n"
         "g = torch.Generator(device='cuda').manual_seed(1)\n"
-        f"F = torch.randn((8, {N}, {N}), generator=g, device='cuda', "
+        f"F = torch.randn((1, 8, {N}, {N}), generator=g, device='cuda', "
         f"dtype=torch.float64).to(torch.{fdt})\n"
-        f"r = torch.randn((8, 8, {N}), generator=g, device='cuda', dtype=torch.float64)\n"
-        f"p = hk.plan('precond_dot', 1, 8, {N}, 8, F.dtype, r.dtype)\n"
-        f"assert p.lanes == 16 and p.route == {route}, p\n"
-        "z, rz = hk.precond_dot(F, r)\n"
-        "zp, rzp = hk.precond_dot_plain(F, r)\n"
+        f"r = torch.randn(({B}, 8, {N}), generator=g, device='cuda', "
+        f"dtype=torch.float64).to(torch.{rdt})\n"
+        f"p = hk.plan('{kind}', 1, 8, {N}, {B}, F.dtype, r.dtype)\n"
+        f"assert p.route == {route} and (p.route == hk.TENSOR or p.lanes == 16), p\n"
+        f"if '{kind}' == 'precond_dot':\n"
+        "    z, rz = hk.precond_dot(F[0], r)\n"
+        "    zp, rzp = hk.precond_dot_plain(F[0], r)\n"
+        "else:\n"
+        "    z, rz = hk.block_matvec(F, r), None\n"
+        "    zp, rzp = hk.block_matvec_plain(F, r), None\n"
         "torch.cuda.synchronize()\n"
-        "assert float((z - zp).abs().max() / zp.abs().max()) <= 1e-12\n"
-        "assert float((rz - rzp).abs().max() / rzp.abs().max()) <= 1e-12\n"
+        f"assert float((z - zp).abs().max() / zp.abs().max()) <= {tol[0]}\n"
+        "if rz is not None:\n"
+        f"    assert float((rz - rzp).abs().max() / rzp.abs().max()) <= {tol[1]}\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                          env=dict(os.environ, PYTHONPATH=repo), text=True, timeout=600)
@@ -537,12 +692,16 @@ def test_hex3d_stencil_solve_and_estimate_on_cuda_match_cpu(cuda, order):
 def test_block_matvec_at_the_truth_shapes(cuda, N, B, mdt):
     """The truth solver's block-factor applies at K=256 (the 442k Q2 blocks
     N=1728 and the 131k Q1 blocks N=512): one lane in the PCG, 32 in the
-    harvest filter, f32 or bf16-stored factors with f32 vectors, against
-    the plain version (f32 tolerance 2e-5, normwise)."""
+    harvest filter (the tensor route, 32-lane blocks: one chain of the
+    full depth), f32 or bf16-stored factors with f32 vectors, against the
+    plain version (f32 tolerance 2e-5, normwise)."""
     rng = np.random.default_rng(11)
     K = 256
     A = torch.tensor(rng.normal(size=(1, K, N, N)), device=cuda, dtype=torch.float32).to(mdt)
     x = torch.tensor(rng.normal(size=(B, K, N)), device=cuda, dtype=torch.float32)
+    p = hk.plan("block_matvec", 1, K, N, B, mdt, torch.float32)
+    if B == 32:                               # the harvest filter: wgmma, 32-lane blocks
+        assert p.route == hk.TENSOR and p.lanes == 32, p
     hk.reset_launch_counts()
     y, yp = hk.block_matvec(A, x), hk.block_matvec_plain(A, x)
     torch.cuda.synchronize()

@@ -201,6 +201,56 @@ def test_3xtf32_products_match_f64():
     assert _normwise(y1, y_ref) > 1e-4
 
 
+def _f32_toward_zero(v):
+    """f64 -> f32 rounded toward zero: the tensor cores' f32 sums drop low
+    bits rather than round to nearest, the worse case for a long chain."""
+    r = v.float()
+    over = r.double().abs() > v.abs()
+    r[over] = torch.nextafter(r[over], torch.zeros_like(r[over]))
+    return r
+
+
+def _chain(products, N, depth):
+    """y = sum of ``products`` ((matrix [K, N, N], vector [B, K, N]) pairs,
+    f32 values exact in their split type) accumulated as one f32 chain in
+    steps of ``depth`` columns (the wgmma k step), each product of a step
+    added in order and the sum rounded toward zero after every add."""
+    a0, v0 = products[0]
+    acc = torch.zeros((v0.shape[0], a0.shape[0], N), dtype=torch.float64)
+    for j0 in range(0, N, depth):
+        for a, v in products:
+            part = torch.einsum("kij,bkj->bki", a[:, :, j0:j0 + depth].double(),
+                                v[:, :, j0:j0 + depth].double())
+            acc = _f32_toward_zero(acc + part).double()
+    return acc.float()
+
+
+@pytest.mark.parametrize("kind", ["block_matvec", "precond_dot"])
+def test_split_products_keep_the_harvest_chain_depth_within_tol(kind):
+    """The tensor route's products at the 442k harvest filter's depth
+    (N=1728, one chain of 216 wgmma k8 steps for 3xTF32, 108 k16 steps for
+    the bf16 terms), f32 sums rounded toward zero after every product of a
+    step: within phase 3's f32 tolerance (2e-5 normwise) of f64.  One TF32
+    product alone is not (the reason for the split)."""
+    rng = np.random.default_rng(23)
+    K, N, B = 2, 1728, 6
+    x = torch.tensor(rng.normal(size=(B, K, N)), dtype=torch.float32)
+    if kind == "block_matvec":
+        A = torch.tensor(rng.normal(size=(K, N, N)), dtype=torch.float32)
+        a_big, x_big = tf32_rna(A), tf32_rna(x)
+        a_small, x_small = tf32_trunc(A - a_big), tf32_trunc(x - x_big)
+        y = _chain([(a_small, x_big), (a_big, x_small), (a_big, x_big)], N, 8)
+        ref = torch.einsum("kij,bkj->bki", A.double(), x.double())
+        assert _normwise(_chain([(a_big, x_big)], N, 8), ref) > 1e-4
+    else:
+        F = torch.tensor(rng.normal(size=(K, N, N)), dtype=torch.float32).to(torch.bfloat16)
+        r1, r2, r3 = split_bf16x3(x)
+        y = _chain([(F.float(), r3), (F.float(), r2), (F.float(), r1)], N, 16)
+        ref = torch.einsum("kij,bkj->bki", F.double(), x.double())
+    err = _normwise(y, ref)
+    assert err <= 2e-5, err
+
+
 f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
 MAIN_PATH_SHAPES = [
     # (kernel, G, K, N, B, matrix dtype, vector dtype, route, bound ms, limit)
@@ -210,6 +260,11 @@ MAIN_PATH_SHAPES = [
     ("precond_dot", 1, 64, 384, 256, bf16, f32, hk.TENSOR, 0.0207, "bytes"),  # serving M
     ("block_matvec", 2, 64, 384, 256, f32, f32, hk.TENSOR, 0.0586,          # serving apply
      "operations"),
+    ("precond_dot", 1, 64, 512, 256, bf16, f32, hk.TENSOR, 0.0301, "bytes"),  # 3D serving M
+    ("block_matvec", 2, 64, 512, 256, f32, f32, hk.TENSOR, 0.1041,          # 3D serving apply
+     "operations"),
+    ("block_matvec", 1, 256, 512, 32, f32, f32, hk.TENSOR, 0.0901, "bytes"),  # truth harvest
+    ("block_matvec", 1, 256, 1728, 32, f32, f32, hk.TENSOR, 0.9465, "bytes"),
     ("block_matvec", 2, 64, 384, 1, f32, f32, hk.STREAM, 0.0225, "bytes"),
     ("block_matvec", 1, 64, 384, 12, f32, f32, hk.RING, 0.0118, "bytes"),    # serving harvest
     ("block_matvec", 1, 64, 384, 1, f32, f32, hk.STREAM, 0.0113, "bytes"),
@@ -228,6 +283,10 @@ def test_plan_routes_main_path_shapes(kind, G, K, N, B, mdt, vdt, route, bound_m
     if route in (hk.STREAM, hk.RING):                    # the stream route, both forms
         assert p.lanes >= B and p.lanes in hk.STREAM_LANES
         assert p.blocks >= 2 * 132                       # >= 2 waves on the H100
+    if route == hk.TENSOR:                               # wgmma tiles: no empty 32-lane tile
+        assert p.lanes == (32 if B <= 32 else 128) and p.lanes in hk.TENSOR_LANES
+        assert p.blocks == K * math.ceil(N / hk.TENSOR_ROWS) * math.ceil(B / p.lanes)
+        assert p.blocks >= 2 * 132
     assert hk.bound(kind, G, K, N, B, mdt, vdt) == (pytest.approx(bound_ms, rel=0.02), limit)
 
 
@@ -301,6 +360,43 @@ def test_pd_scratch_covers_the_dmma_tiles(K, N, B, mdt):
     assert (lane_tiles - 1) * K + (K - 1) < tickets              # blockIdx.x * K + k
     assert ((B - 1) * K + K - 1) * row_tiles + row_tiles - 1 < partials
     assert partials == B * K * row_tiles
+
+
+@pytest.mark.parametrize("N", [32, 384, 512, 1728])
+@pytest.mark.parametrize("B", [1, 13, 32, 33, 200, 256])
+def test_pd_scratch_covers_the_tensor_tiles(B, N):
+    """precond_dot on the tensor route: a ticket per (k, lane tile) and an rz
+    partial per (lane, k, 128-row tile), indexed as the kernel indexes them
+    (tickets[blockIdx.x K + k], partials[(b K + k) tiles + row tile]), at
+    both lane tiles of :data:`TENSOR_LANES`; plan() picks 32 lanes up to
+    B = 32, else 128 (the route's own choice where B > 16; below, the
+    stream takes the launch)."""
+    for K in (3, 64, 256):
+        p = hk.plan("precond_dot", 1, K, N, B, bf16, f32)
+        if B > 16:
+            assert p.route == hk.TENSOR and p.lanes == (32 if B <= 32 else 128)
+        for lanes in hk.TENSOR_LANES:
+            p = hk.Plan(hk.TENSOR, lanes, 1, 0)
+            tickets, partials = hk._pd_scratch(p, K, N, B)
+            lane_tiles, row_tiles = math.ceil(B / lanes), math.ceil(N / hk.TENSOR_ROWS)
+            assert tickets == K * lane_tiles
+            assert (lane_tiles - 1) * K + (K - 1) < tickets
+            assert ((B - 1) * K + K - 1) * row_tiles + row_tiles - 1 < partials
+            assert partials == B * K * row_tiles
+
+
+@pytest.mark.parametrize("kind,mdt", [("block_matvec", f32), ("precond_dot", bf16)])
+def test_plan_sends_every_tensor_pair_launch_to_wgmma(kind, mdt):
+    """Every launch the tensor route takes (its pairs, N % 32 == 0, aligned,
+    above the stream) goes to the wgmma kernels (route 1) at a lane tile
+    that holds B, or 128 lanes a tile above that."""
+    for K in (3, 16, 64, 256):
+        for N in (32, 96, 384, 512, 1728):
+            for B in (17, 32, 33, 64, 65, 100, 200, 256):
+                p = hk.plan(kind, 1, K, N, B, mdt, f32)
+                assert p.route == hk.TENSOR == 1 and p.name == "tensor", (K, N, B, p)
+                assert p.lanes in hk.TENSOR_LANES and p.lanes >= min(B, 128)
+                assert p.chunks == 1
 
 
 KINDS = ("block_matvec", "precond_dot")

@@ -40,6 +40,16 @@ RED_TENSORS = ("A_red", "b_red", "G_nc", "AA", "ABT", "BBT", "DV", "RD")
 FIELDS = JaxReducedModel._ARRAY_FIELDS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_online_step_cache():
+    """The JAX package caches its jitted reduced online step by array shapes
+    alone, closed over the first reduced model (its parameter type): a model
+    of equal shapes from another file run earlier in this worker process
+    would be reused here.  Start this file with an empty cache."""
+    from pylrbms_tpu import reductor as jax_reductor
+    jax_reductor._ONLINE_JIT_CACHE.clear()
+
+
 def rel(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)

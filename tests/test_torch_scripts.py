@@ -47,6 +47,16 @@ SCRIPTS = ("online_adaptive_lrbms", "linearelliptic_block_swipdg_decomp", "golde
 GOLDEN_CC = (1.656117e-01, 1.446952e-01, 3.548075e-01)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_online_step_cache():
+    """The JAX package caches its jitted reduced online step by array shapes
+    alone, closed over the first reduced model (its parameter type): a model
+    of equal shapes from another file run earlier in this worker process
+    would be reused here.  Start this file with an empty cache."""
+    from pylrbms_tpu import reductor as jax_reductor
+    jax_reductor._ONLINE_JIT_CACHE.clear()
+
+
 def rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)

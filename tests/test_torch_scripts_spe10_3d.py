@@ -16,6 +16,16 @@ from pylrbms_tpu_torch.scripts import spe10_3d  # noqa: E402
 TOL = 1e-8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_online_step_cache():
+    """The JAX package caches its jitted reduced online step by array shapes
+    alone, closed over the first reduced model (its parameter type): a model
+    of equal shapes from another file run earlier in this worker process
+    would be reused here.  Start this file with an empty cache."""
+    from pylrbms_tpu import reductor as jax_reductor
+    jax_reductor._ONLINE_JIT_CACHE.clear()
+
+
 def rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)
