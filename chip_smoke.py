@@ -899,6 +899,7 @@ def _greedy(torch, d, smi, label, extensions=4):
     from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS as T
 
     T.clear()
+    T.enable()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = weak_greedy(d, d.parameter_space.sample_uniformly(6), target_error=1e-12,
@@ -914,6 +915,7 @@ def _greedy(torch, d, smi, label, extensions=4):
         f"snapshot Krylov iterations (last) "
         f"{'n/a' if d.last_solve_iters is None else int(d.last_solve_iters)} [{smi}]")
     log(f"{label} greedy spans, median (max) [{smi}]: {_spans(T, 'greedy:')}")
+    T.disable()
     return res
 
 
@@ -926,6 +928,7 @@ def _enrich(torch, gpd, d, red, rd, mus, steps, smi, label, target=1e-2):
     loop = AdaptiveEnrichment(gpd, d, d.space, red, rd, target_error=target,
                               marking_doerfler_theta=0.33, marking_max_age=4)
     T.clear()
+    T.enable()
     all_etas, pcg_its, marks = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -951,6 +954,7 @@ def _enrich(torch, gpd, d, red, rd, mus, steps, smi, label, target=1e-2):
         f"apply); RB size {loop.rd.solution_dim} (local max {int(loop.rd.sizes.max())}, "
         f"r_max {loop.rd.r_max}) [{smi}]")
     log(f"{label} enrichment spans, median (max) [{smi}]: {_spans(T, 'enrich:')}")
+    T.disable()
     return loop, all_etas
 
 
@@ -1298,6 +1302,7 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
 
     # ---- parabolic adaptive enrichment from the order-0 basis
     T.clear()
+    T.enable()
     red = ParabolicLRBMSReductor(st, order=0)
     loop = ParabolicAdaptiveEnrichment(im, red, red.reduce().attach_instationary(im),
                                        target_error=0.0, marking_doerfler_theta=0.33)
@@ -1318,6 +1323,7 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
         f"{[(float(f'{e:.4e}'), float(f'{r:.4e}'), m, i) for e, r, m, i in hist]}; RB size "
         f"{loop.rd.solution_dim} [{smi}]")
     log(f"parabolic enrichment spans, median (max) [{smi}]: {_spans(T, 'parabolic enrich:')}")
+    T.disable()
     if not hist[-1][1] < hist[0][1]:
         raise AssertionError(f"the enriched ROM's error did not fall: {hist}")
 
@@ -1326,6 +1332,7 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
     runs = {}
     for batched in (False, True):
         T.clear()
+        T.enable()
         ParabolicLRBMSReductor.batched_gs = batched
         try:
             torch.cuda.synchronize()
@@ -1344,6 +1351,7 @@ def parabolic_serving_phase(hk, torch, dev, smi, cfg=None, nt=20):
             f"{', '.join(f'{e:.4e}' for e in res.max_etas)}; RB size "
             f"{int(res.reductor.basis_sizes().sum())} (r_max {res.rd.r_max}) [{smi}]")
         log(f"POD-greedy ({label}) spans, median (max) [{smi}]: {_spans(T, 'pod-greedy:')}")
+        T.disable()
     res, res_b = runs[False], runs[True]
     if not res.max_etas[-1] < res.max_etas[0]:
         raise AssertionError(f"POD-greedy max estimate did not fall: {res.max_etas}")

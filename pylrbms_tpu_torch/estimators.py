@@ -32,6 +32,7 @@ from .ops.rt1 import rt_tab_any_order
 from .ops.rt1hex import rt_tab_any_order3
 from .ops import assembly as asm
 from .ops import assembly3d as asm3
+from .utils.timers import GLOBAL_TIMINGS
 
 
 @dataclass
@@ -146,16 +147,18 @@ class EllipticEstimator:
         return torch.max(self._ratios(mu, mu_ref), dim=-1).values
 
     def reconstruct_flux(self, U, mu=None, per_component: bool = False):
-        """Affine flux reconstruction; [..., K, Nrt] (or [Q, ..., K, Nrt])."""
+        """Affine flux reconstruction; [..., K, Nrt] (or [Q, ..., K, Nrt]);
+        an ``estimate.flux`` span of ``GLOBAL_TIMINGS``."""
         d = self.data
-        t_q = torch.stack([d.flux.apply(lf, U) for lf in d.lambda_funcs])
-        if per_component:
-            return t_q
-        theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=t_q.dtype,
-                                      device=t_q.device)           # [Q] | [B, Q]
-        th = theta.movedim(-1, 0)                                  # [Q(, B)]
-        th = th.reshape(th.shape + (1,) * (t_q.ndim - th.ndim))
-        return (th * t_q).sum(0)
+        with GLOBAL_TIMINGS.span("estimate.flux"):
+            t_q = torch.stack([d.flux.apply(lf, U) for lf in d.lambda_funcs])
+            if per_component:
+                return t_q
+            theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=t_q.dtype,
+                                          device=t_q.device)           # [Q] | [B, Q]
+            th = theta.movedim(-1, 0)                                  # [Q(, B)]
+            th = th.reshape(th.shape + (1,) * (t_q.ndim - th.ndim))
+            return (th * t_q).sum(0)
 
     def local_quantities(self, U, mu, tensors: dict | None = None,
                          elliptic_reconstruction: bool = False, d_model=None,

@@ -17,10 +17,17 @@ one rank's band of subdomains and every dot product is the sum of the
 ranks' partials: ``p . Ap`` in one all-reduce, ``r . z`` and ``r . r`` of
 the new residual stacked into a second one.  Each rank then reads the same
 numbers, so every rank stops on the same iteration.
+
+Each operator apply is an ``operator.apply`` span and each preconditioner
+apply a ``precond.apply`` span of ``utils/timers.GLOBAL_TIMINGS``; the
+counter ``pcg.bodies`` adds ``chunk`` per outer loop (no-ops while the
+timings are off).
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils.timers import GLOBAL_TIMINGS as T
 
 
 def default_chunk(device) -> int:
@@ -50,8 +57,11 @@ def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None, comm=Non
                 if len(partials) > 1 else comm.sum(partials[0])
     atol2 = (tol ** 2) * torch.clamp(total(lane_dot(b, b)), min=torch.finfo(b.dtype).tiny)
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).clone()
-    r = b - matvec(x)
-    z, rz = M(r)
+    with T.span("operator.apply"):
+        Ax = matvec(x)
+    r = b - Ax
+    with T.span("precond.apply"):
+        z, rz = M(r)
     rz, rr = total(rz, lane_dot(r, r))
     p = z
     it = torch.zeros(b.shape[:-2], dtype=torch.int64, device=b.device)
@@ -60,13 +70,16 @@ def pcg_chunked(matvec, M, b, tol, maxiter, x0=None, chunk: int = None, comm=Non
         return (rr > atol2) & (it < maxiter)
 
     while bool(active().any()):
+        T.count("pcg.bodies", chunk)
         for _ in range(chunk):
             act = active()
-            Ap = matvec(p)
+            with T.span("operator.apply"):
+                Ap = matvec(p)
             alpha = rz / total(lane_dot(p, Ap))
             xn = x + alpha[..., None, None] * p
             rn = r - alpha[..., None, None] * Ap
-            zn, rzn = M(rn)
+            with T.span("precond.apply"):
+                zn, rzn = M(rn)
             rzn, rrn = total(rzn, lane_dot(rn, rn))
             pn = zn + (rzn / rz)[..., None, None] * p
             sel = act[..., None, None]

@@ -41,6 +41,7 @@ from .ops.fluxreco import FluxReconstructor
 from .parameters import (CubicParameterSpace, evaluate_coefficients,
                          parse_parameter)
 from .estimators import EllipticEstimator, ParabolicEstimator
+from .utils.timers import GLOBAL_TIMINGS
 
 # dof counts from which the reference takes the stencil operator: in the
 # online step (matrix_free=None) and in solve's 'auto' (mf_pcg)
@@ -583,6 +584,11 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     Lane-batched calls share one solve for the stencil form and for the
     affine form with a fixed preconditioner; the other forms answer the
     lanes one by one.
+
+    Each call is a ``step`` span of ``utils/timers.GLOBAL_TIMINGS`` that
+    holds, per solve, the spans ``operator.assemble`` (the rhs and the
+    operator at theta), ``solve`` (with the refinements of ``certify``) and
+    ``estimate`` (the indicators); no-ops while the timings are off.
     """
     pin_precision()
     st = d.op.static
@@ -642,27 +648,30 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
             coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)
 
     def _core(theta, theta_f, mu):
-        b = torch.einsum("...q,qkn->...kn", theta_f, arrays["rhs_q"])
-        A, solve = _solver(theta)
-        U = solve(b)
-        base = U.dtype
-        if certify:
-            # mixed-precision refinement: wide residual, base correction
-            Aw = cast(A, wide)
-            Uw, bw = U.to(wide), b.to(wide)
-            for _ in range(refinements):
-                Uw = Uw + solve((bw - Aw.apply(Uw)).to(base)).to(wide)
-            U = Uw
+        with GLOBAL_TIMINGS.span("operator.assemble"):
+            b = torch.einsum("...q,qkn->...kn", theta_f, arrays["rhs_q"])
+            A, solve = _solver(theta)
+        with GLOBAL_TIMINGS.span("solve"):
+            U = solve(b)
+            base = U.dtype
+            if certify:
+                # mixed-precision refinement: wide residual, base correction
+                Aw = cast(A, wide)
+                Uw, bw = U.to(wide), b.to(wide)
+                for _ in range(refinements):
+                    Uw = Uw + solve((bw - Aw.apply(Uw)).to(base)).to(wide)
+                U = Uw
         if not with_estimate:
             return U.to(base)
         batched = U.ndim == 3
         Ub = U if batched else U[None]
-        tensors = {k: arrays[k].to(U.dtype) for k in est_keys}
-        if positive_form:
-            nc, r, df = est_w.local_quantities_positive(Ub, mu, tensors=tensors)
-        else:
-            nc, r, df = est_w.local_quantities(Ub, mu, tensors=tensors)
-        ind = nc + r + df
+        with GLOBAL_TIMINGS.span("estimate"):
+            tensors = {k: arrays[k].to(U.dtype) for k in est_keys}
+            if positive_form:
+                nc, r, df = est_w.local_quantities_positive(Ub, mu, tensors=tensors)
+            else:
+                nc, r, df = est_w.local_quantities(Ub, mu, tensors=tensors)
+            ind = nc + r + df
         return U.to(base), (ind if batched else ind[0])
 
     shared_lanes = matrix_free is True or (matrix_free == "affine" and fixed_preconditioner)
@@ -675,16 +684,17 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
         """Single query: (theta [Q], theta_f [Qf], mu) -> (U [K, N], ind [K]).
         Batched: (thetas [B, Q], theta_fs [B, Qf], mu with [B, ...] leaves)
         -> (U [B, K, N], ind [B, K]) in one call."""
-        mu = {} if mu is None else mu
-        theta, theta_f = _args(theta, theta_f)
-        if theta.ndim == 1 or shared_lanes:
-            return _core(theta, theta_f, mu)
-        outs = [_core(theta[i], theta_f[i],
-                      {k: torch.as_tensor(v)[i] for k, v in mu.items()})
-                for i in range(theta.shape[0])]
-        if not with_estimate:
-            return torch.stack(outs)
-        return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]))
+        with GLOBAL_TIMINGS.span("step"):
+            mu = {} if mu is None else mu
+            theta, theta_f = _args(theta, theta_f)
+            if theta.ndim == 1 or shared_lanes:
+                return _core(theta, theta_f, mu)
+            outs = [_core(theta[i], theta_f[i],
+                          {k: torch.as_tensor(v)[i] for k, v in mu.items()})
+                    for i in range(theta.shape[0])]
+            if not with_estimate:
+                return torch.stack(outs)
+            return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]))
 
     def iters_probe(theta, theta_f):
         """PCG iteration count of the step's solve (the largest over the

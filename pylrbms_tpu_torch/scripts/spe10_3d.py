@@ -212,6 +212,7 @@ def main(argv=None, device=None):
     if args.greedy:
         from ..greedy import weak_greedy
         from ..utils.timers import GLOBAL_TIMINGS as T
+        T.enable()
         train = [{"switch": m} for m in np.linspace(0.1, 1.0, args.training)]
         t0 = time.perf_counter()
         with T.span("offline greedy"):
@@ -269,6 +270,7 @@ def main(argv=None, device=None):
                                    "rounds": len(rounds) - 1})
             out["online"] = online_out
         print(T.report())
+        T.disable()
         return out
 
     red = LRBMSReductor(d, order=0)

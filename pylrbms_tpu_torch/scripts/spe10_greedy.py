@@ -30,6 +30,7 @@ def main(num_subdomains=(8, 8), half=2, nref=1, training=8, target=1e-3,
     from ..utils.timers import GLOBAL_TIMINGS as T
 
     dev = _device(device)
+    T.enable()
     set_log_levels({'pylrbms': 'INFO'})
     logger = getLogger('spe10_greedy')
     cfg = {'num_subdomains': list(num_subdomains),
@@ -62,6 +63,7 @@ def main(num_subdomains=(8, 8), half=2, nref=1, training=8, target=1e-3,
         logger.info(f'online mu #{i}: eta {eta:.3e} RB size {rd.solution_dim}')
         online_out.append((eta, int(rd.solution_dim)))
     print(T.report())
+    T.disable()
     return {"max_etas": [float(v) for v in res.max_etas], "fom_solves": int(res.fom_solves),
             "rb_size": int(res.rd.solution_dim), "online": online_out, "result": res}
 

@@ -87,8 +87,12 @@ def test_residual_norm_matches_true_residual(fom, rd1):
 def test_weak_greedy_converges(fom):
     d = fom
     GLOBAL_TIMINGS.clear()
-    res = weak_greedy(d, d.parameter_space.sample_uniformly(7), target_error=1e-8,
-                      max_extensions=10, criterion="residual")
+    GLOBAL_TIMINGS.enable()                 # off by default: the spans record only when on
+    try:
+        res = weak_greedy(d, d.parameter_space.sample_uniformly(7), target_error=1e-8,
+                          max_extensions=10, criterion="residual")
+    finally:
+        GLOBAL_TIMINGS.disable()
     # the residual surrogate decays hard (smooth 1-parameter problem)
     assert res.max_etas[-1] < 1e-6 * res.max_etas[0], res.max_etas
     # and the ROM reproduces the FOM at an unseen parameter
