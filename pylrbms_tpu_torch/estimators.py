@@ -89,6 +89,44 @@ def _band_rows(band, *vs):
     return tuple(v[..., band[0]:band[1], :] for v in vs)
 
 
+def _volume_tables(data, dtype, device) -> dict:
+    """The positive form's U- and mu-independent volume tables: the
+    quadrature weights, basis gradients and the degree-matched RT tab
+    (``chi``, ``div_q`` at the quadrature points, the cell gather ``idx`` of
+    the local RT dofs) with lambda_q, lambda_hat and f_q at the physical
+    quadrature points ([K, ...] leading)."""
+    sp = data.flux.space
+    if getattr(sp, "dim", 2) == 3:
+        xq = asm3.vol_points(sp, dtype, device)                # [K, C, nq, 3]
+        chi, idx, div_q, _nrt = rt_tab_any_order3(sp)          # chi [nq, nf, 3]
+        div_q = np.ascontiguousarray(div_q)
+    else:
+        xq = asm.tensor(asm.vol_points(sp), dtype, device)     # [K, s, s, T, nq, 2]
+        chi, idx, div_q, _nrt = rt_tab_any_order(sp)
+    return {"w": asm.tensor(sp.vol_w, dtype, device),
+            "dphi": asm.tensor(sp.vol_dphi, dtype, device),
+            "chi": asm.tensor(chi, dtype, device),
+            "div_q": asm.tensor(div_q, dtype, device),
+            "idx": torch.as_tensor(idx.reshape(-1), device=device),
+            "nf": idx.shape[-1],
+            "lam_q": torch.stack([lf(xq).to(dtype) for lf in data.lambda_funcs]),
+            "lam_hat": data.lambda_hat(xq).to(dtype),
+            "f_q": torch.stack([ff(xq).to(dtype) for ff in data.f_funcs])}
+
+
+# the subdomain axis of the point-valued volume tables
+_POINT_K_AXIS = {"lam_q": 1, "lam_hat": 0, "f_q": 1}
+
+
+def _band_tables(tables, band):
+    """The tables with their point values cut to the band's subdomains (a
+    view: no copy, no upload)."""
+    if band is None:
+        return tables
+    return {**tables, **{n: tables[n].narrow(a, band[0], band[1] - band[0])
+                         for n, a in _POINT_K_AXIS.items()}}
+
+
 def _contract(theta, stacked):
     """sum_q theta[..., q] * stacked[q, ...] with theta [Q] or [B, Q]."""
     return torch.tensordot(theta, stacked, dims=([-1], [0]))
@@ -127,6 +165,27 @@ class EllipticEstimator:
     def __init__(self, data: EstimatorData, alpha_first_component_only: bool = True):
         self.data = data
         self.alpha_first_component_only = alpha_first_component_only
+        self._tables = {}
+
+    def tables(self, dtype, device):
+        """The U- and mu-independent tables of an evaluation in ``dtype`` on
+        ``device``, built on first use and kept (each build counts one
+        ``estimate.table_builds`` of ``GLOBAL_TIMINGS``): the flux
+        reconstruction's face tables and, where the data has f and
+        lambda_hat, the positive form's volume tables (:func:`_volume_tables`)."""
+        d = self.data
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (dtype, device, tuple(d.lambda_funcs), tuple(d.f_funcs or ()), d.lambda_hat)
+        got = self._tables.get(key)
+        if got is None:
+            GLOBAL_TIMINGS.count("estimate.table_builds")
+            d.flux.tables(d.lambda_funcs)
+            got = self._tables[key] = (
+                None if d.f_funcs is None or d.lambda_hat is None
+                else _volume_tables(d, dtype, device))
+        return got
 
     def _ratios(self, mu, mu_ref):
         # a mu of plain numbers (or none, {}) names no device: take the model's
@@ -151,14 +210,14 @@ class EllipticEstimator:
         an ``estimate.flux`` span of ``GLOBAL_TIMINGS``."""
         d = self.data
         with GLOBAL_TIMINGS.span("estimate.flux"):
-            t_q = torch.stack([d.flux.apply(lf, U) for lf in d.lambda_funcs])
+            t_q = d.flux.apply_components(d.lambda_funcs, U)          # [Q, ..., N_rt_global]
             if per_component:
-                return t_q
+                return d.flux.restrict(t_q)
             theta = evaluate_coefficients(d.lambda_coeffs, mu, dtype=t_q.dtype,
                                           device=t_q.device)           # [Q] | [B, Q]
             th = theta.movedim(-1, 0)                                  # [Q(, B)]
             th = th.reshape(th.shape + (1,) * (t_q.ndim - th.ndim))
-            return (th * t_q).sum(0)
+            return d.flux.restrict((th * t_q).sum(0))
 
     def local_quantities(self, U, mu, tensors: dict | None = None,
                          elliptic_reconstruction: bool = False, d_model=None,
@@ -236,35 +295,25 @@ class EllipticEstimator:
         U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 
-        xq = asm.tensor(asm.vol_points(sp), dtype, dev)        # [K,s,s,T,nq,2]
-        if band is not None:
-            xq = xq[band[0]:band[1]]
-        w = asm.tensor(sp.vol_w, dtype, dev)
+        tb = _band_tables(self.tables(dtype, dev), band)
+        w = tb["w"]
         area = sp.hx * sp.hy
-        lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
-        lam_mu = _contract(theta, lam_q)                       # [..., K,s,s,T,nq]
-        lam_hat_v = d.lambda_hat(xq).to(dtype)
+        lam_mu = _contract(theta, tb["lam_q"])                 # [..., K,s,s,T,nq]
 
         # per-cell tables on 'crisscross'; the degree-matched RT basis (RT0
         # for order 1, RT1 for order 2) with div at the quadrature points
         ein = lambda e: asm.vol_ein(sp, e)                     # noqa: E731
-        dphi = asm.tensor(sp.vol_dphi, dtype, dev)             # [T,nq,nb,2]
         Uc = U.reshape(U.shape[:-2] + (U.shape[-2], sp.s, sp.s, sp.T, sp.nb))
-        gu = torch.einsum(ein("...kyxtj,tqja->...kyxtqa"), Uc, dphi)
-        chi, idx, div_q, _nrt = rt_tab_any_order(sp)
-        nf = idx.shape[-1]
-        t_cell = t_loc[..., torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
-            t_loc.shape[:-1] + (sp.s, sp.s, sp.T, nf))
-        t_q = torch.einsum(ein("...kyxte,tqea->...kyxtqa"), t_cell,
-                           asm.tensor(chi, dtype, dev))
+        gu = torch.einsum(ein("...kyxtj,tqja->...kyxtqa"), Uc, tb["dphi"])
+        t_cell = t_loc[..., tb["idx"]].reshape(
+            t_loc.shape[:-1] + (sp.s, sp.s, sp.T, tb["nf"]))
+        t_q = torch.einsum(ein("...kyxte,tqea->...kyxtqa"), t_cell, tb["chi"])
         z = lam_mu[..., None] * gu + t_q                       # kappa = I
-        df_int = (z * z).sum(-1) / lam_hat_v
+        df_int = (z * z).sum(-1) / tb["lam_hat"]
         eta_df = area * torch.einsum(ein("tq,...kyxtq->...k"), w, df_int)
 
-        f_q = torch.stack([ff(xq).to(dtype) for ff in d.f_funcs])
-        f_mu = _contract(theta_f, f_q)
-        div_t = torch.einsum(ein("...kyxte,tqe->...kyxtq"), t_cell,
-                             asm.tensor(div_q, dtype, dev))
+        f_mu = _contract(theta_f, tb["f_q"])
+        div_t = torch.einsum(ein("...kyxte,tqe->...kyxtq"), t_cell, tb["div_q"])
         res = f_mu - div_t
         scale = ((self.poincare_constant / g("min_ev")) * g("diam") ** 2).to(dtype)
         eta_r = area * torch.einsum(ein("tq,...kyxtq->...k"), w, res * res) * scale
@@ -286,32 +335,21 @@ class EllipticEstimator:
         U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 
-        xq = asm3.vol_points(sp, dtype, dev)                   # [K, C, nq, 3]
-        if band is not None:
-            xq = xq[band[0]:band[1]]
-        w = asm.tensor(sp.vol_w, dtype, dev)
-        lam_q = torch.stack([lf(xq).to(dtype) for lf in d.lambda_funcs])
-        lam_mu = _contract(theta, lam_q)                       # [..., K, C, nq]
-        lam_hat_v = d.lambda_hat(xq).to(dtype)
+        tb = _band_tables(self.tables(dtype, dev), band)
+        w = tb["w"]
+        lam_mu = _contract(theta, tb["lam_q"])                 # [..., K, C, nq]
 
         C = sp.s ** 3
         Uc = U.reshape(U.shape[:-2] + (U.shape[-2], C, sp.nb))
-        gu = torch.einsum("...kcj,qja->...kcqa", Uc, asm.tensor(sp.vol_dphi, dtype, dev))
-        # the degree-matched RT hex tab (RT0 for Q1, RT_[1] for Q2) with div
-        # at the quadrature points
-        chi, idx, div_q, _nrt = rt_tab_any_order3(sp)         # chi [nq, nf, 3]
-        nf = idx.shape[-1]
-        t_cell = t_loc[..., torch.as_tensor(idx.reshape(-1), device=dev)].reshape(
-            t_loc.shape[:-1] + (C, nf))
-        t_q = torch.einsum("...kce,qea->...kcqa", t_cell, asm.tensor(chi, dtype, dev))
+        gu = torch.einsum("...kcj,qja->...kcqa", Uc, tb["dphi"])
+        t_cell = t_loc[..., tb["idx"]].reshape(t_loc.shape[:-1] + (C, tb["nf"]))
+        t_q = torch.einsum("...kce,qea->...kcqa", t_cell, tb["chi"])
         z = lam_mu[..., None] * gu + t_q                       # kappa = I
-        df_int = (z * z).sum(-1) / lam_hat_v
+        df_int = (z * z).sum(-1) / tb["lam_hat"]
         eta_df = sp.volume * torch.einsum("q,...kcq->...k", w, df_int)
 
-        f_q = torch.stack([ff(xq).to(dtype) for ff in d.f_funcs])
-        f_mu = _contract(theta_f, f_q)
-        div_t = torch.einsum("...kce,qe->...kcq", t_cell,
-                             asm.tensor(np.ascontiguousarray(div_q), dtype, dev))
+        f_mu = _contract(theta_f, tb["f_q"])
+        div_t = torch.einsum("...kce,qe->...kcq", t_cell, tb["div_q"])
         res = f_mu - div_t
         scale = ((self.poincare_constant / g("min_ev")) * g("diam") ** 2).to(dtype)
         eta_r = sp.volume * torch.einsum("q,...kcq->...k", w, res * res) * scale

@@ -37,7 +37,6 @@ from .ops.matrixfree3d import (StencilOperator3, assemble_swipdg_stencil3,
                                mass_stencil3)
 from .ops.ir import diag_of_blocks, solve_ir
 from .ops.halodense import halo_from_assembled
-from .ops.fluxreco import FluxReconstructor
 from .parameters import (CubicParameterSpace, evaluate_coefficients,
                          parse_parameter)
 from .estimators import EllipticEstimator, ParabolicEstimator
@@ -540,8 +539,7 @@ def _wide_estimator(est, dtype):
     fl = ed.flux
     wide = {f.name: getattr(ed, f.name).to(dtype) for f in dataclasses.fields(ed)
             if isinstance(getattr(ed, f.name), torch.Tensor)}
-    wide["flux"] = FluxReconstructor(fl.space, fl.kappa_fn, fl.ipdg, dtype=dtype,
-                                     device=fl.device)
+    wide["flux"] = type(fl)(fl.space, fl.kappa_fn, fl.ipdg, dtype=dtype, device=fl.device)
     return EllipticEstimator(dataclasses.replace(ed, **wide),
                              est.alpha_first_component_only)
 
@@ -628,6 +626,13 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     wide = torch.float64
     certify = certify and d.dtype != wide
     est_w = _wide_estimator(est, wide) if certify and with_estimate else est
+    if with_estimate:
+        # the estimator's U- and mu-independent tables, built here (set-up),
+        # not in the first call
+        if positive_form:
+            est_w.tables(wide if certify else d.dtype, dev)
+        else:
+            est_w.data.flux.tables(est_w.data.lambda_funcs)
 
     def _solver(theta):
         """(operator at theta, solve(rhs, **kw)) of the configured form."""

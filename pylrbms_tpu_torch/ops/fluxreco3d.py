@@ -3,8 +3,8 @@
 The port of ``pylrbms_tpu/ops/fluxreco3d.py``: per affine diffusion
 component reconstruct t_q in tensor RT0 on hexes from the face moments of
 :class:`~pylrbms_tpu_torch.ops.fluxreco.FluxReconstructor` (its integrands
-are dimension-agnostic and reused); only the bookkeeping — three face
-families X/Y/Z and six boundary sides — is 3D.
+and face tables are dimension-agnostic and reused); only the bookkeeping —
+three face families X/Y/Z and six boundary sides — is 3D.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .assembly import IPDGParams, DEFAULT_IPDG
-from .fluxreco import FluxReconstructor
+from .fluxreco import Faces, FluxReconstructor
 
 
 class FluxReconstructor3D(FluxReconstructor):
@@ -40,6 +40,7 @@ class FluxReconstructor3D(FluxReconstructor):
                                  np.arange(self.Sx), indexing="ij")
         self.cell_org = (np.asarray(g.lower_left)
                          + np.stack([gx, gy, gz], axis=-1) * self.scale)  # [Sz,Sy,Sx,3]
+        self._tables = {}
 
     @property
     def scale(self) -> np.ndarray:
@@ -54,41 +55,29 @@ class FluxReconstructor3D(FluxReconstructor):
         U = torch.movedim(U, -3, -4)
         return U.reshape(lead + (self.Sz, self.Sy, self.Sx, sp.nb))
 
-    def apply_global(self, lam_fn, U):
-        """U [..., K, N] -> global RT dofs [..., N_rt_global]."""
-        sp = self.space
-        nb, nm = sp.nb, self.nm
+    def _face_families(self):
+        """(families, number of face slots) of the 3D layout: per axis X,
+        Y, Z the inner faces (slot = the plus cell) and the two boundary
+        sides."""
         S = (self.Sz, self.Sy, self.Sx)
-        uc = self._u_block_to_cells(U)             # [..., Sz, Sy, Sx, nb]
-        out_dt = torch.promote_types(uc.dtype, self.dtype)
-        lead = uc.shape[:-4]
-        org = self.cell_org
-        parts = []
-        # (family, cell axis of [Sz, Sy, Sx], lo side, hi side)
+        c = np.stack([a.ravel() for a in np.meshgrid(*map(np.arange, S), indexing="ij")])
+        org = self.cell_org.reshape(-1, 3)
+        fams, off = [], 0
         for fam, ax, lo, hi in (("X", 2, "left", "right"), ("Y", 1, "bottom", "top"),
                                 ("Z", 0, "near", "far")):
             n = S[ax]
             fshape = list(S)
             fshape[ax] = n + 1
-            dof = torch.zeros(lead + tuple(fshape) + (nm,), dtype=out_dt, device=uc.device)
-            ua = -4 + ax                            # the axis in uc [..., Sz, Sy, Sx, nb]
-            da = -4 + ax                            # the axis in dof [..., ., ., ., nm]
-            if n > 1:
-                x_m, x_p = self._phys_pts(sp.face_tabs[fam],
-                                          np.take(org, np.arange(n - 1), axis=ax).reshape(-1, 3))
-                um = uc.narrow(ua, 0, n - 1)
-                up = uc.narrow(ua, 1, n - 1)
-                inner = self._face_moment_inner(fam, lam_fn,
-                                                um.reshape(lead + (-1, nb)),
-                                                up.reshape(lead + (-1, nb)), x_m, x_p)
-                dof.narrow(da, 1, n - 1).copy_(inner.reshape(um.shape[:-1] + (nm,)))
-            for side, c, f in ((lo, 0, 0), (hi, n - 1, n)):
-                x, _ = self._phys_pts(sp.face_tabs["bnd_" + side],
-                                      np.take(org, c, axis=ax).reshape(-1, 3))
-                ub = uc.select(ua, c)
-                dof.select(da, f).copy_(self._face_moment_boundary(
-                    side, lam_fn, ub.reshape(lead + (-1, nb)), x
-                ).reshape(ub.shape[:-1] + (nm,)))
-            parts.append(dof.reshape(lead + (-1,)))
-        parts += self._extra_parts(lam_fn, uc, out_dt)
-        return torch.cat([p.to(out_dt) for p in parts], dim=-1)
+            step = np.zeros((3, 1), np.int64)
+            step[ax] = 1
+            for side, m, dst in ((None, c[ax] < n - 1, c + step), (lo, c[ax] == 0, c),
+                                 (hi, c[ax] == n - 1, c + step)):
+                if not m.any():
+                    continue
+                fams.append(Faces(
+                    fam if side is None else "bnd_" + side, side, org[m],
+                    np.ravel_multi_index(c[:, m], S),
+                    None if side else np.ravel_multi_index(dst[:, m], S),
+                    off + np.ravel_multi_index(dst[:, m], fshape)))
+            off += int(np.prod(fshape))
+        return fams, off

@@ -506,7 +506,7 @@ class FluxReconstructorRT1(FluxReconstructor):
     def _lift_cc(self, lam_fn, uc, mdt):
         """Crisscross lifting: the 6 parity-split interior families and the
         per-parity boundary groups (the face enumeration of
-        :meth:`FluxReconstructor._apply_global_cc`)."""
+        :meth:`FluxReconstructor._face_families`)."""
         sp = self.space
         lead = uc.shape[:-4]
         Sy, Sx = self.Sy, self.Sx

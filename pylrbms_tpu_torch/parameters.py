@@ -201,9 +201,18 @@ def evaluate_coefficients(coeffs: Sequence, mu: Mu, dtype=torch.float64,
     """Stack theta_q(mu) into ``[Q]``, or ``[B, Q]`` for lane-batched mu
     (constant functionals broadcast over the lanes)."""
     device = _mu_device(mu) if device is None else torch.device(device)
-    vals = [_as_tensor(as_functional(c).evaluate(mu)).to(device=device, dtype=dtype)
-            for c in coeffs]
+    vals = [_on(as_functional(c).evaluate(mu), device, dtype) for c in coeffs]
     return torch.stack(torch.broadcast_tensors(*vals), dim=-1)
+
+
+def _on(v, device, dtype) -> torch.Tensor:
+    """``v`` on ``device`` in ``dtype``.  A host scalar (a constant
+    coefficient) is filled there: a copy from pageable host memory would
+    make the host wait for the device."""
+    v = _as_tensor(v)
+    if v.ndim == 0 and v.device.type == "cpu" and device.type != "cpu":
+        return torch.full((), v.item(), dtype=dtype, device=device)
+    return v.to(device=device, dtype=dtype)
 
 
 def merge_parameter_types(*pts: ParameterType) -> ParameterType:

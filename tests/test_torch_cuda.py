@@ -424,6 +424,60 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
     assert n1["precond_dot"] > 0
 
 
+# CUDA runtime calls that block the host until the device has caught up
+# (a copy from pageable host memory ends in one)
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+            "cudaMemcpy")
+
+
+@pytest.mark.parametrize("form", [True, "affine"], ids=["stencil", "affine"])
+def test_estimate_on_cuda_makes_no_host_sync(cuda, form):
+    """f64 model (2x2 subdomains, half 1, nref 2), 8 lanes: the step's
+    estimator, its tables built with the step, blocks the host nowhere
+    (sync debug mode "error" around the estimator's call; no blocking CUDA
+    runtime call inside the step's ``estimate`` span under the profiler),
+    and the step's indicators on the card equal the CPU step's to 1e-8."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+
+    cfg = {"num_subdomains": [2, 2],
+           "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2}
+    mus = np.linspace(0.15, 0.95, 8)
+    th, tf = np.stack([np.ones(8), mus], 1), np.ones((8, 1))
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev)
+        step = make_online_step(d, tol=1e-10, maxiter=500, matrix_free=form,
+                                coarse_space="harvested", coarse_modes=4)
+        mu = {"diffusion": torch.tensor(mus[:, None], device=dev)}
+        U, ind = step(th, tf, mu)
+        outs.append(ind.cpu())
+    U = U.contiguous()
+    tensors = {"E_bar": step.arrays["E_bar"]}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q = d.estimator.local_quantities_positive(U, mu, tensors=tensors)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _rel((q[0] + q[1] + q[2]).cpu(), outs[1]) <= 1e-12   # the Oswald sums' atomics
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(th, tf, mu)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in events if e.name == "estimate"]
+    blocking = [e for e in events if e.name in BLOCKING
+                and any(s.start <= e.time_range.start <= s.end for s in spans)]
+    assert len(spans) == 1 and blocking == []
+    assert _rel(outs[1], outs[0]) <= 1e-8
+
+
 @pytest.mark.parametrize("B", [2, 8, 32, 256])
 def test_corrector_shapes_match_plain_versions(cuda, B):
     """The batched corrector's launches at the north-star width: f64 x f64,

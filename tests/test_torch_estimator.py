@@ -106,3 +106,114 @@ def test_estimate_and_indicators(setup):
             assert rel(a, b) <= TOL
         assert rel(dt.estimate(torch.tensor(U[i]), m, paper_convention=True),
                    dj.estimate(jnp.asarray(U[i]), m, paper_convention=True)) <= TOL
+
+
+# -- the estimator's U- and mu-independent tables ----------------------------
+
+TABLE_CHECKS = ["jax", "float32", "builds", "wide", "band"]
+
+
+@pytest.fixture(scope="module")
+def grids():
+    """{grid type: (JAX model, port float64 model, port float32 model)}."""
+    out = {}
+    for gt in ("tri", "crisscross"):
+        cfg = dict(CFG, grid_type=gt)
+        dj, _ = jax_discretize(jax_problem(dict(cfg)))
+        d64, _ = discretize(init_grid_and_problem(dict(cfg)), device="cpu")
+        d32, _ = discretize(init_grid_and_problem(dict(cfg)), device="cpu",
+                            dtype=torch.float32)
+        out[gt] = (dj, d64, d32)
+    return out
+
+
+def _table_tensors(est, dtype):
+    """Every tensor of the estimator's tables at ``dtype`` (face and volume)."""
+    vol = est.tables(dtype, "cpu")
+    face = est.data.flux.tables(est.data.lambda_funcs)
+    return [v for v in vol.values() if isinstance(v, torch.Tensor)] + list(face)
+
+
+@pytest.mark.parametrize("check", TABLE_CHECKS)
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("gt", ["tri", "crisscross"])
+def test_estimator_tables(grids, gt, B, check):
+    """The tabled flux reconstruction and positive form (order 1, B lanes at
+    their own mu): equal to JAX lane by lane; float32 tables on a float32
+    model; one table build serves five calls; the certified step's wide
+    estimator builds float64 tables at set-up; a band's quantities are the
+    full evaluation's rows."""
+    from pylrbms_tpu_torch.estimators import EllipticEstimator
+    from pylrbms_tpu_torch.model import _wide_estimator, make_online_step
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS
+
+    dj, d64, d32 = grids[gt]
+    rng = np.random.default_rng(B)
+    mus = np.linspace(0.1, 1.0, B) if B > 1 else np.array([0.3])
+    u0 = np.asarray(dj.solve(dj.parse_parameter(0.5), {"type": "dense"}))
+    U = u0[None] + 0.05 * rng.normal(size=(B,) + u0.shape)
+    mu = {"diffusion": torch.tensor(mus[:, None])}
+
+    if check == "jax":
+        est = EllipticEstimator(d64.estimator.data)
+        t = est.reconstruct_flux(torch.tensor(U), mu, per_component=True)
+        q = est.local_quantities_positive(torch.tensor(U), mu)
+        for i, m in enumerate(mus):
+            mj = {"diffusion": jnp.asarray([m])}
+            assert rel(t[:, i], dj.estimator.reconstruct_flux(
+                jnp.asarray(U[i]), mj, per_component=True)) <= TOL
+            qj = dj.estimator.local_quantities_positive(jnp.asarray(U[i:i + 1]), mj)
+            for a, b in zip(q, qj):
+                assert rel(a[i], b[0]) <= TOL
+    elif check == "float32":
+        est = EllipticEstimator(d32.estimator.data)
+        q32 = est.local_quantities_positive(torch.tensor(U, dtype=torch.float32),
+                                            {"diffusion": mu["diffusion"].float()})
+        assert all(v.dtype == torch.float32 for v in q32)
+        assert all(v.dtype == torch.float32 for v in _table_tensors(est, torch.float32)
+                   if v.is_floating_point())
+        q64 = d64.estimator.local_quantities_positive(torch.tensor(U), mu)
+        for a, b in zip(q32, q64):
+            assert rel(a, b) <= 1e-4         # float32 rounding, ~1e-6 seen
+    elif check == "builds":
+        est = EllipticEstimator(d64.estimator.data)
+        GLOBAL_TIMINGS.clear()
+        GLOBAL_TIMINGS.enable()
+        try:
+            first = est.local_quantities_positive(torch.tensor(U), mu)
+            for _ in range(4):
+                again = est.local_quantities_positive(torch.tensor(U), mu)
+            builds = GLOBAL_TIMINGS.counters["estimate.table_builds"]
+        finally:
+            GLOBAL_TIMINGS.disable()
+            GLOBAL_TIMINGS.clear()
+        assert builds == 1
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+    elif check == "wide":
+        wide = _wide_estimator(d32.estimator, torch.float64)
+        assert wide.data.flux.dtype == torch.float64
+        assert all(v.dtype == torch.float64 for v in _table_tensors(wide, torch.float64)
+                   if v.is_floating_point())
+        GLOBAL_TIMINGS.clear()
+        GLOBAL_TIMINGS.enable()
+        try:
+            step = make_online_step(d32, tol=1e-6, maxiter=200, certify=True)
+            built = GLOBAL_TIMINGS.counters["estimate.table_builds"]
+            th = torch.tensor(np.stack([np.ones(B), mus], 1), dtype=torch.float32)
+            _, ind = step(th, torch.ones((B, 1), dtype=torch.float32),
+                          {"diffusion": mu["diffusion"].float()})
+            after = GLOBAL_TIMINGS.counters["estimate.table_builds"]
+        finally:
+            GLOBAL_TIMINGS.disable()
+            GLOBAL_TIMINGS.clear()
+        assert (built, after) == (1, 1)          # built at set-up, not in the call
+        assert ind.dtype == torch.float64
+    else:
+        est = EllipticEstimator(d64.estimator.data)
+        full = est.local_quantities_positive(torch.tensor(U), mu)
+        K = d64.space.K
+        for k0, k1 in ((0, 1), (1, K - 1), (K - 2, K)):
+            part = est.local_quantities_positive(torch.tensor(U), mu, band=(k0, k1))
+            for a, b in zip(part, full):
+                assert rel(a, b[..., k0:k1]) <= 1e-14    # summation order only
