@@ -273,7 +273,8 @@ class EllipticEstimator:
 
     def local_quantities_positive(self, U, mu, tensors: dict | None = None, band=None):
         """Cancellation-free evaluation of the squared local quantities as
-        manifestly non-negative integrals (kappa = I):
+        manifestly non-negative integrals (kappa = I; the Oswald witness
+        u - I_os(u) in an ``estimate.oswald`` span of ``GLOBAL_TIMINGS``):
 
           eta_r_sq  ~ int (f(mu) - div t)^2,
           eta_df_sq = int (lam(mu) k grad u + t) . (lam_hat k)^{-1} (...).
@@ -291,7 +292,8 @@ class EllipticEstimator:
 
         E_bar = g("E_bar").to(dtype)
         t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
-        U_o = d.oswald.apply(U)
+        with GLOBAL_TIMINGS.span("estimate.oswald"):
+            U_o = d.oswald.apply(U)
         U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 
@@ -331,7 +333,8 @@ class EllipticEstimator:
 
         E_bar = g("E_bar").to(dtype)
         t_loc = self.reconstruct_flux(U, mu)                   # [..., K, Nrt]
-        U_o = d.oswald.apply(U)
+        with GLOBAL_TIMINGS.span("estimate.oswald"):
+            U_o = d.oswald.apply(U)
         U, t_loc, U_o = _band_rows(band, U, t_loc, U_o)
         eta_nc = torch.einsum("...kn,knm,...km->...k", U_o, E_bar, U_o)
 

@@ -36,6 +36,7 @@ stencil apply itself stays plain torch (XLA einsums in the reference).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -46,6 +47,7 @@ from . import assembly as asm
 from .assembly import IPDGParams, DEFAULT_IPDG
 from .hopper_kernels import precond_dot
 from ..la.krylov import lane_dot, pcg_chunked
+from ..utils.timers import GLOBAL_TIMINGS
 
 
 @dataclass(eq=False)
@@ -274,6 +276,15 @@ class StencilOperator:
             D_side={k: mix(lambda st, k=k: st.D_side[k]) for k in st0.D_side})
 
 
+def count_apply(x) -> None:
+    """Count one stencil apply to ``x`` [..., K, N] in ``GLOBAL_TIMINGS``:
+    ``stencil.applies`` += 1 and ``stencil.lane_applies`` += the lanes of
+    x (1 without a lane axis); nothing while the timings are off."""
+    if GLOBAL_TIMINGS.on:
+        GLOBAL_TIMINGS.count("stencil.applies")
+        GLOBAL_TIMINGS.count("stencil.lane_applies", math.prod(x.shape[:-2]))
+
+
 def bmv(A, v):
     """Batched block matvec ``A[..., i, j] v[..., j]`` (leading axes
     broadcast)."""
@@ -483,7 +494,8 @@ class AssembledStencil:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., K, N] -> A x, matrix-free (lane axes of x and of the
-        fields broadcast)."""
+        fields broadcast; counted by :func:`count_apply`)."""
+        count_apply(x)
         sp = self.space
         grid = sp.grid
         K, s, T, nb = sp.K, sp.s, sp.T, sp.nb

@@ -35,7 +35,7 @@ import torch
 from . import assembly as asm
 from . import assembly3d as asm3
 from .assembly import IPDGParams, DEFAULT_IPDG
-from .matrixfree import bmv, make_precond
+from .matrixfree import bmv, count_apply, make_precond
 from .swipdg3d import SIDES, edge_lists3
 from ..la.krylov import lane_dot, pcg_chunked
 
@@ -190,7 +190,9 @@ class AssembledStencil3:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., K, N] -> A x, matrix-free (lane axes of x and of the
-        fields broadcast)."""
+        fields broadcast; counted by
+        :func:`~pylrbms_tpu_torch.ops.matrixfree.count_apply`)."""
+        count_apply(x)
         sp = self.space
         grid = sp.grid
         K, s, nb = sp.K, sp.s, sp.nb

@@ -5,10 +5,13 @@ the stencil form, batched and single-query:
 * off (the default of ``GLOBAL_TIMINGS``): a step call records nothing,
   reads no clock and waits for no device; every span is one shared no-op;
 * U and the indicators are bitwise equal with the timings on and off;
-* on: the seven spans nest as ``step`` > ``operator.assemble`` | ``solve``
+* on: the eight spans nest as ``step`` > ``operator.assemble`` | ``solve``
   (> ``operator.apply`` | ``precond.apply``) | ``estimate`` (>
-  ``estimate.flux``), each call's spans carry one call number, and the
-  ``pcg.bodies`` counter is the iterations rounded up to the chunk;
+  ``estimate.flux`` | ``estimate.oswald``), each call's spans carry one
+  call number, the ``pcg.bodies`` counter is the iterations rounded up to
+  the chunk, and ``stencil.applies`` counts the ``operator.apply`` spans of
+  a stencil call (``stencil.lane_applies`` their lanes), in 2D and on the
+  3D hex stencil;
 * under a CPU ``torch.profiler`` the spans are ``user_annotation`` events
   that enclose the aten operations launched in them.
 """
@@ -35,8 +38,12 @@ CFG = {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim":
 FORMS = {"affine": dict(matrix_free="affine", coarse_space="harvested", coarse_modes=4),
          "stencil": dict(matrix_free=True, coarse_space="harvested", coarse_modes=4)}
 PARENT = {"step": None, "operator.assemble": "step", "solve": "step", "estimate": "step",
-          "operator.apply": "solve", "precond.apply": "solve", "estimate.flux": "estimate"}
+          "operator.apply": "solve", "precond.apply": "solve", "estimate.flux": "estimate",
+          "estimate.oswald": "estimate"}
 MUS = np.array([0.15, 0.6, 1.0])
+STENCIL_COUNTERS = {"stencil.applies", "stencil.lane_applies"}
+CFG3 = {"num_subdomains": [2, 2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+        "num_refinements": 1}
 CASES = [(form, batched) for form in FORMS for batched in (True, False)]
 
 
@@ -44,6 +51,20 @@ CASES = [(form, batched) for form in FORMS for batched in (True, False)]
 def steps():
     d, _ = discretize(init_grid_and_problem(CFG), device="cpu")
     return {form: make_online_step(d, **kw) for form, kw in FORMS.items()}
+
+
+@pytest.fixture(scope="module")
+def step3d():
+    """The 3D hex stencil step of the SPE10 block (K = 8, N = 64)."""
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize as disc3
+    from pylrbms_tpu_torch.problems.spe10_3d import init_grid_and_problem as spe10_3d
+    d, _ = disc3(spe10_3d(CFG3), device="cpu", dtype=torch.float32)
+    return make_online_step(d, **FORMS["stencil"])
+
+
+def args3d(batched):
+    th, tf, mu = args(batched)
+    return th, tf, {"switch": mu["diffusion"].float()}
 
 
 @pytest.fixture(autouse=True)
@@ -63,10 +84,10 @@ def args(batched):
     return (np.array([1.0, MUS[1]]), np.array([1.0]), {"diffusion": torch.tensor([MUS[1]])})
 
 
-def recorded(step, batched, calls=1):
+def recorded(step, batched, calls=1, make=args):
     GLOBAL_TIMINGS.enable()
     try:
-        outs = [step(*args(batched)) for _ in range(calls)]
+        outs = [step(*make(batched)) for _ in range(calls)]
     finally:
         GLOBAL_TIMINGS.disable()
     return outs
@@ -125,9 +146,10 @@ def test_pcg_bodies_are_the_iterations_rounded_up_to_the_chunk(steps, form, chun
     theta, theta_f, _ = args(True)
     iters = step.iters_probe(theta, theta_f)
     recorded(step, True)
-    counts = GLOBAL_TIMINGS.counts
-    assert {name for name, _, _ in counts} == {"pcg.bodies"}
-    assert all(n == chunk and span.name == "solve" for _, n, span in counts)
+    counts = [(n, span) for name, n, span in GLOBAL_TIMINGS.counts if name == "pcg.bodies"]
+    others = {name for name, _, _ in GLOBAL_TIMINGS.counts} - {"pcg.bodies"}
+    assert others == (STENCIL_COUNTERS if form == "stencil" else set())
+    assert counts and all(n == chunk and span.name == "solve" for n, span in counts)
     bodies = GLOBAL_TIMINGS.counters["pcg.bodies"]
     assert iters <= bodies < iters + chunk and bodies % chunk == 0
 
@@ -204,3 +226,43 @@ def test_a_callers_timings_start_on_and_count():
     T.disable()
     T.count("c")
     assert T.counters == {"c": 3}
+
+
+def _stencil_case(steps, step3d, dim):
+    return (steps["stencil"], args) if dim == 2 else (step3d, args3d)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("batched", [True, False])
+def test_stencil_applies_count_the_operator_apply_spans(steps, step3d, dim, batched):
+    step, make = _stencil_case(steps, step3d, dim)
+    recorded(step, batched, calls=2, make=make)
+    applies = [r for r in GLOBAL_TIMINGS.records if r.name == "operator.apply"]
+    counted = [(name, n, span) for name, n, span in GLOBAL_TIMINGS.counts
+               if name in STENCIL_COUNTERS]
+    totals = GLOBAL_TIMINGS.counters
+    assert applies and totals["stencil.applies"] == len(applies)
+    assert totals["stencil.lane_applies"] == len(applies) * (len(MUS) if batched else 1)
+    # each count sits in the apply span that made it
+    assert {span.name for _, _, span in counted} == {"operator.apply"}
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_the_oswald_span_nests_in_estimate(steps, step3d, dim):
+    step, make = _stencil_case(steps, step3d, dim)
+    recorded(step, True, make=make)
+    recs = GLOBAL_TIMINGS.records
+    oswald = [r for r in recs if r.name == "estimate.oswald"]
+    assert len(oswald) == 1 and oswald[0].parent.name == "estimate"
+    assert {r.name for r in recs} == set(PARENT)
+
+
+def test_off_the_3d_step_counts_nothing_and_waits_for_nothing(step3d, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a span off read the clock or waited")
+
+    monkeypatch.setattr(time, "perf_counter_ns", refuse)
+    monkeypatch.setattr(timers, "_wait", refuse)
+    U, ind = step3d(*args3d(True))
+    assert torch.isfinite(U).all() and torch.isfinite(ind).all()
+    assert not GLOBAL_TIMINGS.records and not GLOBAL_TIMINGS.counts
