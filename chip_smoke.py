@@ -32,7 +32,13 @@ phase passes:
    shape of ``TENSOR_SHAPES`` (the paths' f32-vector launches above the
    stream: the 2D and 3D serving apply and preconditioner at B=256, the
    truth harvest filter at 32 lanes, N=512 and 1728); a row that takes
-   another route fails;
+   another route fails; then ``stencil3_apply`` (the lane-batched 3D hex
+   stencil apply) at the SPE10 3D cell's shape (K=32, s=4, nb=8, Q=2) at
+   B=1024 and 256 in f32 and f64, against the plain gather in f64 and the
+   per-lane assembled apply (f32 2e-5, f64 1e-12 of the |.|-sum), y
+   bitwise equal over two launches, timed beside its bound (the formula of
+   ``benchmark/stencil_roofline.py``) and the plain apply; and on grids
+   with one subdomain along an axis, s = 1, 2, 4 and Q = 3;
 4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
    tol 1e-8), one query on the card in f64 and in f32, against its own
    CPU f64 run;
@@ -59,6 +65,7 @@ phase passes:
    two-level PCG, its divergence post-check, U against scipy splu (1e-6);
    then the same solve with ``mixed=True``; prints time and iterations;
 9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
+   (``stencil3_apply`` by (Q, grid, s, B, dtype), on random components)
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
    the card at phase 3's tolerances, timed as in phase 3; fails if an
@@ -131,7 +138,8 @@ phase passes:
    within 1e-12 of the port on the CPU;
 20. 3D serving: academic3d (OS2015 lifted to 3D) at 4x4x4 subdomains, half
    1, nref 2 (K=64, N=512, 32 768 dofs): phase 5 (affine, B=256) and phase
-   7 (the stencil step) with their gates;
+   7 (the stencil step) with their gates, the stencil step launching
+   ``stencil3_apply``;
 21. 3D scale: SPE10 3D (z-layers 40-44, contrast 1e4) at 8x8x4, half 1,
    nref 2 (K=256, N=512, 131 072 dofs), f64, lean: mf_pcg (harvested, 12
    modes, precision 1e-8) and mixed=True, relative f64 residual <= 1e-7;
@@ -290,6 +298,19 @@ TENSOR_SHAPES = (
     ("block_matvec", 1, 256, 1728, 32, "f32", "f32"),   # 442k truth harvest filter (25b)
 )
 
+
+# the kernels of the two Pallas TPU kernels (every main path but the 3D
+# lane-batched stencil launches both)
+BLOCK_KERNELS = ("block_matvec", "precond_dot")
+# stencil3_apply at the SPE10 3D cell's shape (4x4x2 subdomains of 4^3 hex
+# cells: K=32, s=4, nb=8, Q=2) at these lane counts, f32 and f64; tolerance
+# on max |kernel - reference| / max sum_q |theta| |S_q| |x| (the |.|-sum:
+# at contrast 1e4 A x cancels), the reference the plain gather in f64:
+# f64 summation-order rounding; f32 that of 7 x 8 x Q-term f32 sums
+STENCIL3_CFG = {"num_subdomains": [4, 4, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+                "num_refinements": 2}
+STENCIL3_LANES = (1024, 256)
+STENCIL3_TOL = {"f64": 1e-12, "f32": 2e-5}
 
 _LOG_TO = [None]          # where log() prints while a phase redirects stdout
 
@@ -486,6 +507,112 @@ def c_entry_ms(hk, torch, dev, randn, kind, G, K, N, B, route, mdt=None, vdt=Non
     return cuda_ms(lambda: rcs.append(call()), flush=True)
 
 
+def random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dtype, seed=SEED):
+    """A ``StencilOperator3`` of Q random hex Q1 components (every field
+    standard normal) on kz x ky x kx subdomains of s^3 cells: the kernel's
+    operand at any grid a path launched it on."""
+    from types import SimpleNamespace
+    from pylrbms_tpu_torch.ops.matrixfree3d import StencilOperator3, SwipdgStencil3
+    K, nb = kz * ky * kx, 8
+    space = SimpleNamespace(K=K, s=s, nb=nb, N=s ** 3 * nb,
+                            grid=SimpleNamespace(kx=kx, ky=ky, kz=kz))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape + (nb, nb), generator=g, device=dev, dtype=dtype)
+
+    def quads(*shape):
+        return tuple(r(*shape) for _ in range(4))
+
+    return StencilOperator3(space, tuple(SwipdgStencil3(
+        vol=r(K, s, s, s), X=quads(K, s, s, s - 1), Y=quads(K, s, s - 1, s),
+        Z=quads(K, s - 1, s, s), IX=quads(kz * ky * (kx - 1), s * s),
+        IY=quads(kz * (ky - 1) * kx, s * s), IZ=quads((kz - 1) * ky * kx, s * s),
+        D_side={sd: r(K, s * s) for sd in ("left", "right", "bottom", "top", "near", "far")})
+        for _ in range(Q)))
+
+
+def stencil3_case(hk, torch, dev, op, B, dtype):
+    """``stencil3_apply`` on the folded components of ``op`` against its
+    plain versions on the card, theta [B, Q] in [0.1, 1], x standard normal:
+    the gather form in f64 (``STENCIL3_TOL`` of the |.|-sum) and the per-lane
+    assembled apply in ``dtype`` (the step's plain path; the same tolerance,
+    both sides rounding), y bitwise equal over two launches.  Times (L2
+    flushed, and warm) the kernel and the plain apply (its per-lane
+    stencils built beforehand).  Returns the summary's numbers."""
+    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
+    sp = op.space
+    grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+    Q = len(op.stencils)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + B)
+    theta = (0.1 + 0.9 * torch.rand((B, Q), generator=g, device=dev,
+                                    dtype=torch.float64)).to(dtype)
+    x = torch.randn((B, sp.K, sp.N), generator=g, device=dev, dtype=torch.float64).to(dtype)
+    P, P64 = op.folded(dtype, dev), op.folded(torch.float64, dev)
+    run = lambda: hk.stencil3_apply(P, theta, x, grid)           # noqa: E731
+    y, y2 = run(), run()
+    ref = hk.stencil3_apply_plain(P64, theta.double(), x.double(), grid)
+    scale = float(hk.stencil3_apply_plain(P64.abs(), theta.double().abs(), x.double().abs(),
+                                          grid).max())
+    del P64
+    A = LaneStencil3(op, theta).materialize()
+    plain = lambda: A.apply(x)                                    # noqa: E731
+    yp = plain()
+    torch.cuda.synchronize()
+    errs = [float((y.double() - ref).abs().max()) / scale,
+            float((y - yp).double().abs().max()) / scale]
+    del ref, yp
+    same = bool(torch.equal(y, y2))
+    dt = "f64" if dtype == torch.float64 else "f32"
+    tol = STENCIL3_TOL[dt]
+    ms, warm_ms, plain_ms = cuda_ms(run, flush=True), cuda_ms(run), cuda_ms(plain, flush=True)
+    del A
+    bound_ms, bound_by = hk.stencil3_bound(Q, *grid, sp.s, B, dtype)
+    ok = max(errs) <= tol and same
+    label = f"stencil3_apply Q={Q} grid={grid} s={sp.s} B={B} {dt}"
+    log(f"kernel {label}: max err / |.|-sum "
+        f"{errs[0]:.3e} (f64 gather), {errs[1]:.3e} (plain apply) (tol {tol:.0e}), y bitwise "
+        f"equal over 2 launches: {same} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (warm L2 "
+        f"{warm_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f} ms ({bound_by}), share "
+        f"of bound {bound_ms / ms:.3f}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain versions"
+                             f"{'' if same else ' (y not reproducible)'}")
+    return {"max_abs_err": errs[0] * scale, "ms": ms, "warm_ms": warm_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def stencil3_phase(hk, torch, dev):
+    """Phase 3's rows of ``stencil3_apply``: the SPE10 3D cell's components
+    (``STENCIL3_CFG``) at ``STENCIL3_LANES`` lanes, f32 and f64; then grids
+    with one subdomain along an axis, s = 1 and 2 and Q = 3 (random
+    components).  Returns (the summary row: f32 at the cell's B, the
+    signatures checked)."""
+    _, discretize = problem_and_discretizer(3)
+    checked, row = set(), None
+    for dtype in (torch.float32, torch.float64):
+        d, _ = discretize(spe10_3d(STENCIL3_CFG), device=dev, dtype=dtype)
+        op = d.mf_operator()
+        g = d.space.grid
+        for B in STENCIL3_LANES:
+            r = stencil3_case(hk, torch, dev, op, B, dtype)
+            checked.add(("stencil3_apply", len(op.stencils), g.kz, g.ky, g.kx, d.space.s,
+                         B, dtype))
+            if dtype == torch.float32 and B == STENCIL3_LANES[0]:
+                row = r
+            torch.cuda.empty_cache()
+        del d, op
+    for kz, ky, kx, s, Q, B in ((1, 2, 3, 2, 3, 7), (3, 1, 2, 1, 2, 33), (2, 2, 1, 4, 2, 1)):
+        for dtype in (torch.float32, torch.float64):
+            op = random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dtype)
+            stencil3_case(hk, torch, dev, op, B, dtype)
+            checked.add(("stencil3_apply", Q, kz, ky, kx, s, B, dtype))
+    return row, checked
+
+
 def kernel_phase(hk, torch, dev):
     """Kernel vs plain on the card; returns the summary of the serving-shape
     cases per kernel (f32 vectors, B=256: the main path's dtypes) and the
@@ -573,7 +700,8 @@ def kernel_phase(hk, torch, dev):
         for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32)):
             case("block_matvec", 2 if mdt != bf16 else 1, 4, 24, B, mdt, vdt)
             case("precond_dot", 1, 4, 24, B, mdt, vdt)
-    return summary, checked
+    summary["stencil3_apply"], stencil_checked = stencil3_phase(hk, torch, dev)
+    return summary, checked | stencil_checked
 
 
 def path_shape_phase(hk, torch, dev, paths, checked):
@@ -594,6 +722,16 @@ def path_shape_phase(hk, torch, dev, paths, checked):
                 per_shape.setdefault((kind, *sig), {})[path] = n
     todo = sorted(set(per_shape) - checked, key=str)
     log(f"main-path kernel shapes: {len(per_shape)}, not in the kernel phase: {len(todo)}")
+    for shape in sorted((s for s in per_shape if s[0] == "stencil3_apply"), key=str):
+        _, Q, kz, ky, kx, s, B, dt = shape
+        log(f"launches of stencil3_apply Q={Q} grid=({kz}, {ky}, {kx}) s={s} B={B} "
+            f"{str(dt)[6:]}{'' if shape in todo else ' (checked in the kernel phase)'}: "
+            f"{per_shape.pop(shape)}")
+        if shape in todo:
+            stencil3_case(hk, torch, dev, random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dt),
+                          B, dt)
+            torch.cuda.empty_cache()
+    todo = [s for s in todo if s in per_shape]
     simt = [s for s in per_shape if hk.plan(*s).route == hk.TILES]
     log(f"main-path shapes on the SIMT tiles: {simt}")
     if any(s[-1] == torch.float64 for s in simt):
@@ -689,8 +827,8 @@ def serving_phase(hk, torch, dev, smi, cfg=None, label="serving", dim=2):
             f"{err:.3e} (tol 1e-03) {'ok' if err <= 1e-3 else 'FAIL'}")
         if not err <= 1e-3:
             raise AssertionError(f"{label} lane {i} off the sparse LU solution")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in BLOCK_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
 
     # ---- measurements (launches here are not counted in the summary)
@@ -788,6 +926,9 @@ def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=T
         raise AssertionError("make_online_step did not resolve to the stencil form")
     if launches["precond_dot"] <= 0:
         raise AssertionError("precond_dot was not launched on the stencil path")
+    if getattr(d.space, "dim", 2) == 3 and d.space.nb == hk.STENCIL3_NB \
+            and launches["stencil3_apply"] <= 0:
+        raise AssertionError("stencil3_apply was not launched on the 3D stencil path")
     ind_np = np.concatenate([ind1.double().cpu().numpy()[None], indb.double().cpu().numpy()])
     if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
         raise AssertionError(f"{label} indicators not finite and non-negative")
@@ -1002,8 +1143,8 @@ def mor_serving_phase(hk, torch, dev, smi, cfg=None, label="MOR serving"):
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"{label} main path: kernel launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB [{smi}]")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in BLOCK_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     return launches, shapes
 
@@ -1136,8 +1277,8 @@ def mor_scale_phase(hk, torch, dev, smi, cfg=None):
 def _launched_both(hk, label):
     launches, shapes = hk.launch_counts(), hk.launch_signature_counts()
     log(f"{label} main path: kernel launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in BLOCK_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     return launches, shapes
 
@@ -2108,7 +2249,7 @@ def distributed_phase(hk, torch, dev, smi, paths, runs=DIST_RUNS):
             f"{ {k: sum(v.values()) for k, v in sigs.items()} }; per-rank peak device memory "
             f"{[round(p['peak_bytes'] / 2**20, 1) for p in payloads]} MiB")
         paths[f"distributed {label}"] = ({k: sum(v.values()) for k, v in sigs.items()}, sigs)
-        if not all(paths[f"distributed {label}"][0].values()):
+        if not all(paths[f"distributed {label}"][0].get(k) for k in BLOCK_KERNELS):
             raise RuntimeError(f"{label}: a kernel was not launched in the ranks: {sigs}")
 
 
@@ -2686,6 +2827,7 @@ def api_phase(hk, torch, dev, smi, paths):
         f"{seen}, wrapper launches {launched}")
     # the trace names both kernels; its counts may fall a few launches short
     # of the wrappers' (CUPTI can drop kernel records)
+    launched = {k: launched[k] for k in BLOCK_KERNELS}
     if not size or not all(launched.values()) or not all(seen.get(k) for k in launched):
         raise AssertionError(f"timers.trace: no trace, or a kernel missing from it: "
                              f"{seen} (wrapper launches {launched})")
@@ -2774,19 +2916,20 @@ def main() -> int:
         ph("26 distributed", distributed_phase, hk, torch, dev, smi, paths)
         ph("27 scripts", scripts_phase, hk, torch, dev, smi, paths)
         ph("28 API", api_phase, hk, torch, dev, smi, paths)
-        launches = {k: sum(p[0][k] for p in paths.values()) for k in summary}
+        launches = {k: sum(p[0].get(k, 0) for p in paths.values()) for k in summary}
         log(f"main-path kernel launches: { {name: p[0] for name, p in paths.items()} }")
         ph("9 main-path shapes", path_shape_phase, hk, torch, dev, paths, checked)
         log(f"chip_smoke total: {time.perf_counter() - t_all:.2f} s after the build")
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
-                    "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89"}
+                    "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89",
+                    "stencil3_apply": None}
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [{"name": name, "route": "cuda",
                     "source": "pylrbms_tpu_torch/csrc/block_kernels.cu",
                     "replaces": replaces[name], "launches": launches[name],
                     **{key: summary[name][key] for key in keys}}
-                   for name in ("block_matvec", "precond_dot")]
+                   for name in ("block_matvec", "precond_dot", "stencil3_apply")]
     except Exception:                                    # noqa: BLE001 — report and fail
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

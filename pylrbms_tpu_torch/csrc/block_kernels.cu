@@ -14,6 +14,12 @@
 //      1-D (K,) block).  rz is deterministic on every route: summed in a
 //      fixed order, without float atomics, in one launch.
 //
+// and adds one kernel that replaces none (its note is at its code):
+//
+//  * pylrbms_stencil3_apply: the lane-batched 3D hex Q1 stencil apply
+//      y[b,k,c,:] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b,nbr_j(k,c),:]
+//      S [Q,K,s,s,s,7,8,8], theta [B,Q], x/y [B,K,8 s^3] (f32 | f64).
+//
 // Every matrix element is used once per lane, so the work is 2 G K N^2 B
 // operations on G K N^2 matrix elements: below ~20 operations per byte
 // (f32; ~10 for f64) the card's memory bounds it, above it the arithmetic.
@@ -1693,6 +1699,258 @@ int launch_precond_dot(int route, int lanes, int C, const void* F, const void* r
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ----------------------------------------------------------------------------
+// stencil3: the lane-batched 3D hex (Q1) stencil apply
+// ----------------------------------------------------------------------------
+//
+//   y[b,k,c,:] = sum_q theta[b,q] * sum_{j<7} S[q,k,c,j] @ x[b, nbr_j(k,c), :]
+//
+// Replaces no Pallas kernel: the JAX package's 3D apply is plain jnp.  It
+// was added because the port's plain apply materialised one assembled
+// stencil per lane (B x 7 MB at the SPE10 3D cell's shape) and streamed it,
+// with a product temporary per block family, in every PCG iteration.  The
+// operator is affine in theta, so only the Q component stencils are read
+// here, from the folded layout S [Q, K, s, s, s, 7, 8, 8]
+// (ops/matrixfree3d.fold_stencils3: slot 0 the cell's own block, slots 1-6
+// the couplings to its -x, +x, -y, +y, -z, +z neighbour, across subdomain
+// interfaces too; zero where there is none).
+//
+// Bound (K=32, s=4, Q=2, B=1024, f32): bytes, 42.1 us an apply (the
+// component stencils 6.8 MB, x read and y written once 134.2 MB, at 3.35
+// TB/s).  With theta applied to x the depth of a cell's product is
+// Q 7 nb = 112, so the work is 2 Q 7 nb^2 multiply-adds a lane and cell
+// (3.8 GFLOP: 56 us at the 67 TFLOP/s of the f32 units).  What bounds it in
+// practice is the loads: each lane's x row of a cell is 32 bytes in its own
+// cache line (lanes lie K N apart), so a warp's load of 32 lanes' rows
+// costs 32 L1 wavefronts, and every row is read for each of the 7 blocks
+// that use it.  Both routes load each x row once per block that uses it
+// (for all q) and keep every other operand in registers; a warp owns one
+// cell, the blocks walk all cells of a lane tile before the next tile (a
+// tile's x, 2-8 MB, stays in L2 for the six neighbour reads), and y is
+// written once:
+//
+//  * simt (f64 vectors): a thread owns L = 2 lanes and the cell's 8 rows;
+//    the cell's block rows are the same address for the whole warp (one
+//    broadcast 16-byte load feeds 32 x L x 2 multiply-adds), each thread's
+//    x rows are four 16-byte loads of its lane; theta_bq scales the x row
+//    before each component's block.
+//  * tensor (f32 vectors): mma.sync m16n8k8 on the 3xTF32 split (the
+//    split of the ring route: big = round-to-nearest TF32, small = the
+//    truncated remainder; small x small dropped), lanes as M (16 a tile, MT
+//    = 2 tiles a warp), the cell's rows as N, a block's 8 columns as the
+//    depth.
+//    Columns are permuted (fragment column t <-> 2t, t + 4 <-> 2t + 1) so a
+//    thread's pair is adjacent: x rows come as 8-byte loads, 4 threads a
+//    row (one wavefront a row), scaled by theta_bq for each component; the
+//    block's fragment is one 8-byte load, split once and used for all MT
+//    tiles; y leaves as 8-byte stores.  Each (j, q) step's three products
+//    sum into fresh registers, added to the running sum with an IEEE f32
+//    add (the tensor cores drop low bits in long chains).
+//
+// At the shape above in f32 (H100 SXM, 700 W, L2 flushed) the tensor route
+// takes 0.224 ms at MT = 2 (0.33 at 1, 0.23 at 4), the simt route 0.297
+// ms at L = 2 (0.37 at 1, 0.30 at 4); slower were: all 7 x rows loaded up
+// front (0.284), the box's x staged in shared memory once a block with only
+// the outer neighbours read from global memory (0.285), and 16 or 32 warps
+// a block (0.241, 0.259).  In f64 the simt route takes 0.659 ms at L = 2
+// (0.763 at 1).
+//
+// Sums run in a fixed order (j, then q, then the 8 columns), so every
+// launch gives the same bits.  nb = 8 only; any Q, B >= 1, and kx, ky, kz,
+// s >= 1.
+
+constexpr int S3_NB = 8;      // Q1 hex: dofs a cell
+constexpr int S3_SLOTS = 7;   // the own block, then -x, +x, -y, +y, -z, +z
+constexpr int S3_WARPS = 8;   // warps a block, one cell each
+constexpr int S3_LANES = 2;   // simt route: lanes a thread
+constexpr int S3_TILES = 2;   // tensor route: 16-lane tiles a warp
+
+__device__ __forceinline__ void load8(const double* p, double (&v)[S3_NB]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p) + h);
+    v[2 * h] = a.x;
+    v[2 * h + 1] = a.y;
+  }
+}
+
+__device__ __forceinline__ void store8(double* p, const double (&v)[S3_NB]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    reinterpret_cast<double2*>(p)[h] = make_double2(v[2 * h], v[2 * h + 1]);
+}
+
+// flat (k, c) index of the global cell (gx, gy, gz); k = (iz ky + iy) kx + ix,
+// c = (cz s + cy) s + cx
+__device__ __forceinline__ int s3_cell(int gx, int gy, int gz, int s, int ky, int kx) {
+  const int k = ((gz / s) * ky + gy / s) * kx + gx / s;
+  return (k * s + gz % s) * s * s + (gy % s) * s + gx % s;
+}
+
+// the flat index of `cell` and of its six neighbours (-1: none)
+__device__ __forceinline__ void s3_neighbours(int cell, int kz, int ky, int kx, int s,
+                                              int (&nbr)[S3_SLOTS]) {
+  const int C = s * s * s;
+  const int k = cell / C, c = cell - k * C;
+  const int gx = (k % kx) * s + c % s;
+  const int gy = ((k / kx) % ky) * s + (c / s) % s;
+  const int gz = (k / (kx * ky)) * s + c / (s * s);
+  nbr[0] = cell;
+  nbr[1] = gx > 0 ? s3_cell(gx - 1, gy, gz, s, ky, kx) : -1;
+  nbr[2] = gx < kx * s - 1 ? s3_cell(gx + 1, gy, gz, s, ky, kx) : -1;
+  nbr[3] = gy > 0 ? s3_cell(gx, gy - 1, gz, s, ky, kx) : -1;
+  nbr[4] = gy < ky * s - 1 ? s3_cell(gx, gy + 1, gz, s, ky, kx) : -1;
+  nbr[5] = gz > 0 ? s3_cell(gx, gy, gz - 1, s, ky, kx) : -1;
+  nbr[6] = gz < kz * s - 1 ? s3_cell(gx, gy, gz + 1, s, ky, kx) : -1;
+}
+
+__global__ void __launch_bounds__(32 * S3_WARPS)
+stencil3_simt(const double* __restrict__ S, const double* __restrict__ theta,
+              const double* __restrict__ x, double* __restrict__ y,
+              int Q, int kz, int ky, int kx, int s, int B) {
+  using T = double;
+  constexpr int L = S3_LANES;
+  const int KC = kz * ky * kx * s * s * s;
+  const int cell = blockIdx.x * S3_WARPS + (threadIdx.x >> 5);
+  if (cell >= KC) return;                       // the whole warp
+  int nbr[S3_SLOTS];
+  s3_neighbours(cell, kz, ky, kx, s, nbr);
+  const int b0 = blockIdx.y * (32 * L) + (threadIdx.x & 31);
+
+  T acc[L][S3_NB];
+#pragma unroll
+  for (int u = 0; u < L; ++u)
+#pragma unroll
+    for (int i = 0; i < S3_NB; ++i) acc[u][i] = T(0);
+#pragma unroll
+  for (int j = 0; j < S3_SLOTS; ++j) {
+    if (nbr[j] < 0) continue;                   // uniform over the warp
+    T xv[L][S3_NB];
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int b = b0 + 32 * u;
+      if (b < B) {
+        load8(x + ((size_t)b * KC + nbr[j]) * S3_NB, xv[u]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < S3_NB; ++l) xv[u][l] = T(0);
+      }
+    }
+    for (int q = 0; q < Q; ++q) {
+      const T* W = S + (((size_t)q * KC + cell) * S3_SLOTS + j) * (S3_NB * S3_NB);
+      T tx[L][S3_NB];                           // theta_bq x
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const int b = b0 + 32 * u;
+        const T th = b < B ? __ldg(theta + (size_t)b * Q + q) : T(0);
+#pragma unroll
+        for (int l = 0; l < S3_NB; ++l) tx[u][l] = th * xv[u][l];
+      }
+#pragma unroll
+      for (int i = 0; i < S3_NB; ++i) {
+        T w[S3_NB];
+        load8(W + i * S3_NB, w);
+#pragma unroll
+        for (int u = 0; u < L; ++u)
+#pragma unroll
+          for (int l = 0; l < S3_NB; ++l) acc[u][i] = madd(w[l], tx[u][l], acc[u][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < L; ++u) {
+    const int b = b0 + 32 * u;
+    if (b < B) store8(y + ((size_t)b * KC + cell) * S3_NB, acc[u]);
+  }
+}
+
+__global__ void __launch_bounds__(32 * S3_WARPS)
+stencil3_tensor(const float* __restrict__ S, const float* __restrict__ theta,
+                const float* __restrict__ x, float* __restrict__ y,
+                int Q, int kz, int ky, int kx, int s, int B) {
+  constexpr int MT = S3_TILES;
+  const int KC = kz * ky * kx * s * s * s;
+  const int cell = blockIdx.x * S3_WARPS + (threadIdx.x >> 5);
+  if (cell >= KC) return;                       // the whole warp
+  int nbr[S3_SLOTS];
+  s3_neighbours(cell, kz, ky, kx, s, nbr);
+  const int grp = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  // lanes of fragment rows grp and grp + 8 of each 16-lane tile
+  int lane[MT][2];
+#pragma unroll
+  for (int u = 0; u < MT; ++u) {
+    lane[u][0] = blockIdx.y * (16 * MT) + 16 * u + grp;
+    lane[u][1] = lane[u][0] + 8;
+  }
+  float acc[MT][4];
+#pragma unroll
+  for (int u = 0; u < MT; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < S3_SLOTS; ++j) {
+    if (nbr[j] < 0) continue;                   // uniform over the warp
+    float2 xv[MT][2];                           // columns 2 tig, 2 tig + 1
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xv[u][h] = lane[u][h] < B
+            ? __ldg(reinterpret_cast<const float2*>(
+                  x + ((size_t)lane[u][h] * KC + nbr[j]) * S3_NB) + tig)
+            : make_float2(0.f, 0.f);
+    for (int q = 0; q < Q; ++q) {
+      // B fragment: (column t, row grp) = S[q, cell, j][grp][2 tig],
+      // (column t + 4, row grp) = S[...][grp][2 tig + 1]
+      const float2 w = __ldg(reinterpret_cast<const float2*>(
+          S + (((size_t)q * KC + cell) * S3_SLOTS + j) * (S3_NB * S3_NB) + grp * S3_NB) + tig);
+      uint32_t wb0, ws0, wb1, ws1;
+      split_tf32(w.x, wb0, ws0);
+      split_tf32(w.y, wb1, ws1);
+#pragma unroll
+      for (int u = 0; u < MT; ++u) {
+        float th[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          th[h] = lane[u][h] < B ? __ldg(theta + (size_t)lane[u][h] * Q + q) : 0.f;
+        uint32_t ab[4], as[4];
+        split_tf32(th[0] * xv[u][0].x, ab[0], as[0]);
+        split_tf32(th[1] * xv[u][1].x, ab[1], as[1]);
+        split_tf32(th[0] * xv[u][0].y, ab[2], as[2]);
+        split_tf32(th[1] * xv[u][1].y, ab[3], as[3]);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, as, wb0, wb1);           // small terms first
+        mma_tf32(part, ab, ws0, ws1);
+        mma_tf32(part, ab, wb0, wb1);
+        add_stage(acc[u], part);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < MT; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (lane[u][h] < B)
+        reinterpret_cast<float2*>(y + ((size_t)lane[u][h] * KC + cell) * S3_NB)[tig] =
+            make_float2(acc[u][2 * h], acc[u][2 * h + 1]);
+}
+
+// f32 vectors take the tensor route, f64 vectors the simt route; a block
+// owns S3_WARPS cells and one lane tile
+template <typename T>
+int launch_stencil3(const T* S, const T* theta, const T* x, T* y, int Q, int kz, int ky,
+                    int kx, int s, int B, cudaStream_t st) {
+  const int KC = kz * ky * kx * s * s * s;
+  const int lanes = std::is_same<T, float>::value ? 16 * S3_TILES : 32 * S3_LANES;
+  const dim3 grid((KC + S3_WARPS - 1) / S3_WARPS, (B + lanes - 1) / lanes);
+  if constexpr (std::is_same<T, float>::value)
+    stencil3_tensor<<<grid, 32 * S3_WARPS, 0, st>>>(S, theta, x, y, Q, kz, ky, kx, s, B);
+  else
+    stencil3_simt<<<grid, 32 * S3_WARPS, 0, st>>>(S, theta, x, y, Q, kz, ky, kx, s, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pylrbms_block_matvec(int route, int lanes, int chunks, int a_dtype, int x_dtype,
@@ -1723,5 +1981,21 @@ extern "C" int pylrbms_precond_dot(int route, int lanes, int chunks, int f_dtype
     return launch_precond_dot<float, float>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
   if (r_dtype == kF32 && f_dtype == kBF16)
     return launch_precond_dot<__nv_bfloat16, float>(route, lanes, chunks, F, r, z, rz, partials, tickets, K, N, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int pylrbms_stencil3_apply(int dtype, const void* S, const void* theta,
+                                      const void* x, void* y, int Q, int kz, int ky, int kx,
+                                      int s, int B, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_stencil3<float>(static_cast<const float*>(S), static_cast<const float*>(theta),
+                                  static_cast<const float*>(x), static_cast<float*>(y), Q, kz,
+                                  ky, kx, s, B, st);
+  if (dtype == kF64)
+    return launch_stencil3<double>(static_cast<const double*>(S),
+                                   static_cast<const double*>(theta),
+                                   static_cast<const double*>(x), static_cast<double*>(y), Q, kz,
+                                   ky, kx, s, B, st);
   return (int)cudaErrorInvalidValue;
 }

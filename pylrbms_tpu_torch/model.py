@@ -30,7 +30,7 @@ from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
                        block_jacobi_factors, geneo_coarse_basis,
                        harvested_coarse_basis, neumann_blocks, prepare_coarse,
                        reblock, unblock)
-from .ops.hopper_kernels import block_matvec
+from .ops.hopper_kernels import STENCIL3_NB, block_matvec
 from .ops.matrixfree import (StencilOperator, assemble_swipdg_stencil, cast,
                              mass_stencil)
 from .ops.matrixfree3d import (StencilOperator3, assemble_swipdg_stencil3,
@@ -634,10 +634,25 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
         else:
             est_w.data.flux.tables(est_w.data.lambda_funcs)
 
+    sop = [None]
+
+    def _stencil_op():
+        """The affine stencil operator of ``arrays["stencils"]`` (rebuilt
+        when they are replaced), kept with its folded components."""
+        if sop[0] is None or sop[0].stencils is not arrays["stencils"]:
+            sop[0] = _stencil_kit(d.space)[1](d.space, arrays["stencils"])
+        return sop[0]
+
+    if matrix_free is True and getattr(d.space, "dim", 2) == 3 and d.space.nb == STENCIL3_NB:
+        # the lane-batched hex Q1 apply's folded components, built here
+        # (set-up), not in the first call
+        for dt in ((d.dtype, wide) if certify else (d.dtype,)):
+            _stencil_op().folded(dt, dev)
+
     def _solver(theta):
         """(operator at theta, solve(rhs, **kw)) of the configured form."""
         if matrix_free is True:
-            A = _stencil_kit(d.space)[1](d.space, arrays["stencils"]).assemble(theta)
+            A = _stencil_op().assemble(theta)
             return A, lambda rhs, **kw: A.solve_pcg(
                 rhs, tol=tol, maxiter=maxiter, block_factors=arrays.get("Minv_bar"),
                 coarse_inv=arrays.get("Cinv_bar"), coarse_basis=arrays.get("C_coarse"), **kw)

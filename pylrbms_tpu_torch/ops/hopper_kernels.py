@@ -10,11 +10,18 @@ header for the design and what bounds them on the card):
 * :func:`precond_dot` <- ``precond_dot_pallas``:
   ``z[b,k] = F[k] @ r[b,k]`` and ``rz[b,k] = r[b,k] . z[b,k]``.
 
-Each launch takes one of five routes, which :func:`plan` picks from the
-shape and dtypes by arithmetic intensity (operations per byte against the
-card's ridge): ``stream`` (memory-bound, B <= 16 lanes; at 5-16 lanes
-the f64 and f32 pairs of both kernels take its ``ring`` form, a cp.async
-ring of A tiles with the product on the tensor cores, wherever rows are
+A third kernel in the same library replaces no Pallas kernel (the JAX
+package's 3D stencil apply is plain ``jnp``):
+
+* :func:`stencil3_apply`: the lane-batched 3D hex Q1 stencil apply
+  ``y[b,k,c] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b, nbr_j(k,c)]`` on the
+  folded component stencils of ``ops/matrixfree3d.fold_stencils3``.
+
+Each launch of the first two takes one of five routes, which :func:`plan`
+picks from the shape and dtypes by arithmetic intensity (operations per
+byte against the card's ridge): ``stream`` (memory-bound, B <= 16 lanes;
+at 5-16 lanes the f64 and f32 pairs of both kernels take its ``ring``
+form, a cp.async ring of A tiles with the product on the tensor cores, wherever rows are
 16-byte multiples and the operands aligned; bf16 matrices, other rows and
 misaligned operands keep the register stream at 16 lanes), ``dmma``
 (every other f64-vector launch: tiled GEMMs on the f64 tensor cores),
@@ -44,6 +51,7 @@ import shutil
 import subprocess
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,6 +93,12 @@ RING_PAIRS = {(kind, dt, dt) for kind in ("block_matvec", "precond_dot")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12, "f64 tensor": 67e12, "tf32": 495e12,
                   "bf16": 989e12}
+# stencil3_apply: dofs a cell (hex Q1), blocks a cell (its own, then the
+# -x, +x, -y, +y, -z, +z neighbours), vector dtypes (f32: 3xTF32 mma.sync;
+# f64: SIMT)
+STENCIL3_NB = 8
+STENCIL3_SLOTS = 7
+STENCIL3_DTYPES = (torch.float32, torch.float64)
 
 
 class Plan(NamedTuple):
@@ -216,6 +230,68 @@ def precond_dot_plain(F, r):
     return z, (r * z).sum(-1)
 
 
+@functools.lru_cache(maxsize=16)
+def stencil3_neighbours(kz, ky, kx, s):
+    """[K C, 7] int64: the flat (k, c) cell index of each cell's own block
+    and of its -x, +x, -y, +y, -z, +z neighbour on the global grid of kz x
+    ky x kx subdomains of s^3 cells (k = (iz ky + iy) kx + ix, c = (cz s +
+    cy) s + cx), K C where there is none."""
+    nx, ny, nz = kx * s, ky * s, kz * s
+    gz, gy, gx = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij")
+
+    def flat(hx, hy, hz):
+        k = ((hz // s) * ky + hy // s) * kx + hx // s
+        return (k * s + hz % s) * s * s + (hy % s) * s + hx % s
+
+    KC = nx * ny * nz
+    table = np.empty((KC, STENCIL3_SLOTS), np.int64)
+    steps = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    for j, (dx, dy, dz) in enumerate(steps):
+        hx, hy, hz = gx + dx, gy + dy, gz + dz
+        inside = (hx >= 0) & (hx < nx) & (hy >= 0) & (hy < ny) & (hz >= 0) & (hz < nz)
+        table[flat(gx, gy, gz).ravel(), j] = np.where(
+            inside, flat(np.clip(hx, 0, nx - 1), np.clip(hy, 0, ny - 1),
+                         np.clip(hz, 0, nz - 1)), KC).ravel()
+    return table
+
+
+def stencil3_apply_plain(S, theta, x, grid):
+    """Gather-and-``einsum`` form of :func:`stencil3_apply` (same
+    arguments): each cell's seven neighbour rows of x gathered, every
+    component's product taken, then mixed by theta."""
+    Q, K, s = S.shape[0], S.shape[1], S.shape[2]
+    B, KC, nb = x.shape[0], K * s ** 3, STENCIL3_NB
+    nbr = torch.as_tensor(stencil3_neighbours(*grid, s), device=x.device)
+    xn = torch.cat([x.reshape(B, KC, nb), x.new_zeros(B, 1, nb)], 1)[:, nbr]
+    per_q = torch.einsum("qcjil,bcjl->bqci", S.reshape(Q, KC, STENCIL3_SLOTS, nb, nb), xn)
+    return torch.einsum("bq,bqci->bci", theta, per_q).reshape(x.shape)
+
+
+def stencil3_work(Q, kz, ky, kx, s, B, dtype):
+    """(operations, bytes) of one :func:`stencil3_apply`, counted as the
+    benchmark counts the stencil apply (``benchmark/stencil_roofline.py``):
+    one nb x nb block a cell and two a face between cells, 2 operations a
+    multiply-add and lane; the Q component stencils read once, x read and
+    y written once a lane, theta read once."""
+    nx, ny, nz = kx * s, ky * s, kz * s
+    C = nx * ny * nz
+    F = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    blocks = STENCIL3_NB ** 2 * (C + 2 * F)
+    size = torch.finfo(dtype).bits // 8
+    return 2 * B * blocks, (Q * blocks + 2 * B * C * STENCIL3_NB + B * Q) * size
+
+
+def stencil3_bound(Q, kz, ky, kx, s, B, dtype):
+    """(ms, "bytes" | "operations"): the least time of one
+    :func:`stencil3_apply` on the card: :func:`stencil3_work`'s bytes over
+    the HBM rate or its operations over the SIMT rate of the vector type
+    (f32 67, f64 34 TFLOP/s), whichever is larger."""
+    ops, nbytes = stencil3_work(Q, kz, ky, kx, s, B, dtype)
+    t_ops = ops / PEAK_OPS_PER_S["f64" if dtype == torch.float64 else "f32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+
+
 # ---------------------------------------------------------------------------
 # build + load
 # ---------------------------------------------------------------------------
@@ -255,6 +331,8 @@ def open_library(library):
     lib.pylrbms_precond_dot.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
                                         ci, ci, ci, vp]
     lib.pylrbms_precond_dot.restype = ci
+    lib.pylrbms_stencil3_apply.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.pylrbms_stencil3_apply.restype = ci
     return lib
 
 
@@ -393,34 +471,74 @@ def precond_dot(F, r):
     return z, rz
 
 
+def stencil3_apply(S, theta, x, grid):
+    """The lane-batched 3D hex Q1 stencil apply
+    ``y[b,k,c,:] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b, nbr_j(k,c), :]``.
+
+    S [Q, K, s, s, s, 7, 8, 8] (the folded component stencils:
+    ``ops/matrixfree3d.fold_stencils3``), theta [B, Q], x [B, K, 8 s^3],
+    all f32 or all f64; ``grid`` (kz, ky, kx) the subdomains (K = kz ky kx),
+    neighbours as in :func:`stencil3_neighbours`.  Returns y like x,
+    accumulated in x's dtype."""
+    if S.ndim != 8 or tuple(S.shape[5:]) != (STENCIL3_SLOTS, STENCIL3_NB, STENCIL3_NB) \
+            or not S.shape[2] == S.shape[3] == S.shape[4] or len(grid) != 3 \
+            or S.shape[1] != math.prod(grid) or x.ndim != 3 or theta.ndim != 2 \
+            or tuple(x.shape[1:]) != (S.shape[1], STENCIL3_NB * S.shape[2] ** 3) \
+            or tuple(theta.shape) != (x.shape[0], S.shape[0]):
+        raise ValueError(f"stencil3_apply: bad shapes S {tuple(S.shape)}, theta "
+                         f"{tuple(theta.shape)}, x {tuple(x.shape)}, grid {tuple(grid)}")
+    if all(t.device.type == "cpu" for t in (S, theta, x)):
+        return stencil3_apply_plain(S, theta, x, grid)
+    _check_cuda("stencil3_apply", S, theta, x)
+    if x.dtype not in STENCIL3_DTYPES or S.dtype != x.dtype:
+        raise TypeError(f"stencil3_apply: unsupported dtypes S {S.dtype}, theta "
+                        f"{theta.dtype}, x {x.dtype} (all f32 or all f64)")
+    if not _aligned(S, x):
+        raise ValueError("stencil3_apply: S and x must be 16-byte aligned")
+    Q, s, B = S.shape[0], S.shape[2], x.shape[0]
+    kz, ky, kx = (int(g) for g in grid)
+    y = torch.empty_like(x)
+    _launch("stencil3_apply", _lib().pylrbms_stencil3_apply, x.device,
+            torch.cuda.current_stream(x.device).cuda_stream,
+            _DTYPE_CODE[x.dtype], S.data_ptr(), theta.data_ptr(), x.data_ptr(), y.data_ptr(),
+            Q, kz, ky, kx, s, B)
+    _count(stencil3_apply, (Q, kz, ky, kx, s, B, x.dtype))
+    return y
+
+
+# every wrapper of the library, by kernel name
+KERNELS = {"block_matvec": block_matvec, "precond_dot": precond_dot,
+           "stencil3_apply": stencil3_apply}
+
+
 def _count(fn, signature) -> None:
     fn.launches += 1
     fn.signatures[signature] = fn.signatures.get(signature, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    """Set both wrappers' launch counts to 0 and clear their signatures."""
-    for fn in (block_matvec, precond_dot):
+    """Set every wrapper's launch count to 0 and clear its signatures."""
+    for fn in KERNELS.values():
         fn.launches = 0
         fn.signatures = {}
 
 
 def launch_counts() -> dict:
-    return {"block_matvec": block_matvec.launches,
-            "precond_dot": precond_dot.launches}
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def launch_signatures() -> dict:
-    """Per kernel, the distinct ``(G, K, N, B, matrix dtype, vector dtype)``
-    it was launched with since the last :func:`reset_launch_counts`."""
+    """Per kernel, the distinct signatures it was launched with since the
+    last :func:`reset_launch_counts`: ``(G, K, N, B, matrix dtype, vector
+    dtype)`` for block_matvec and precond_dot, ``(Q, kz, ky, kx, s, B,
+    dtype)`` for stencil3_apply."""
     return {name: set(counts) for name, counts in launch_signature_counts().items()}
 
 
 def launch_signature_counts() -> dict:
     """Per kernel, ``{signature: launches}`` since the last
     :func:`reset_launch_counts` (signatures as in :func:`launch_signatures`)."""
-    return {"block_matvec": dict(block_matvec.signatures),
-            "precond_dot": dict(precond_dot.signatures)}
+    return {name: dict(fn.signatures) for name, fn in KERNELS.items()}
 
 
 reset_launch_counts()

@@ -17,10 +17,17 @@ Layout (x as [..., K, s, s, s, nb], cell index [cz, cy, cx]):
   interface quadruples IX/IY/IZ [E, s^2, nb, nb] + 6 Dirichlet side strips
   (the layouts of ``SwipdgComponent3``; face pos = side_cells ordering).
 
-Every field of an :class:`AssembledStencil3` may carry leading lane axes
-(``StencilOperator3.assemble`` with theta [B, Q]); ``apply`` broadcasts them
-against the lanes of x.  The subdomain-block preconditioner of
-:meth:`AssembledStencil3.solve_pcg` goes through the hand-written
+Lane-batched operators (``StencilOperator3.assemble`` with theta [B, Q]) on
+hex Q1 (nb = 8) are a :class:`LaneStencil3`: theta and the component
+stencils, folded once per dtype and device into one own block and six
+neighbour blocks a cell (:func:`fold_stencils3`), nothing per lane; on the
+card its apply is one launch of the hand-written
+:func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`, on the CPU it
+is the per-lane :class:`AssembledStencil3`'s apply.  Single-theta
+operators, and lanes at any other nb, are an :class:`AssembledStencil3`,
+whose fields then carry the lane axes (its ``apply`` broadcasts them against
+the lanes of x).  The subdomain-block preconditioner of ``solve_pcg`` goes
+through the hand-written
 :func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`
 (``matrixfree.make_precond``).
 """
@@ -35,9 +42,11 @@ import torch
 from . import assembly as asm
 from . import assembly3d as asm3
 from .assembly import IPDGParams, DEFAULT_IPDG
-from .matrixfree import bmv, count_apply, make_precond
+from . import hopper_kernels as hk
+from .matrixfree import bmv, cast, count_apply, make_precond
 from .swipdg3d import SIDES, edge_lists3
 from ..la.krylov import lane_dot, pcg_chunked
+from ..utils.timers import GLOBAL_TIMINGS
 
 # (side, k axis, k index of the boundary layer as a function of the grid,
 #  cell axis, cell index as a function of s) in [..., kz, ky, kx, cz, cy, cx, nb]
@@ -146,13 +155,87 @@ def mass_stencil3(space, like: SwipdgStencil3) -> SwipdgStencil3:
                           D_side={k: torch.zeros_like(v) for k, v in like.D_side.items()})
 
 
+def fold_stencils3(space, stencils, dtype, device) -> torch.Tensor:
+    """The components ``stencils`` folded per hex cell: [Q, K, s, s, s, 7,
+    nb, nb], slot 0 the cell's own block (volume, the own-side Fmm / Fpp of
+    its inner faces, the interface in_in / out_out blocks and the Dirichlet
+    strips), slots 1-6 its coupling to the -x, +x, -y, +y, -z, +z neighbour
+    (Fpm / Fmp, the interface out_in / in_out blocks, across subdomains;
+    zero where there is none).  ``A x`` is then, for each cell, the sum of
+    the seven blocks times x on the cell and its neighbours (the operand of
+    :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`); the
+    indexing is :meth:`AssembledStencil3.apply`'s, summed in ``dtype``."""
+    grid = space.grid
+    K, s, nb = space.K, space.s, space.nb
+    kz, ky, kx = grid.kz, grid.ky, grid.kx
+    P = torch.zeros((len(stencils), kz, ky, kx, s, s, s, 7, nb, nb), dtype=dtype,
+                    device=device)
+    for q, st in enumerate(stencils):
+        st = cast(st, dtype)
+        # per slot [K, cz, cy, cx, nb, nb] (cells -5..-3) and its grid view
+        # [kz, ky, kx, cz, cy, cx, nb, nb] (k -8..-6, cells -5..-3)
+        slot = [P[q].select(-3, j) for j in range(7)]
+        flat = [t.view(K, s, s, s, nb, nb) for t in slot]
+        flat[0].add_(st.vol.to(device))
+        if s > 1:
+            for (Fmm, Fmp, Fpm, Fpp), a, lo, hi in ((st.X, -3, 1, 2), (st.Y, -4, 3, 4),
+                                                    (st.Z, -5, 5, 6)):
+                flat[0].narrow(a, 0, s - 1).add_(Fmm.to(device))
+                flat[0].narrow(a, 1, s - 1).add_(Fpp.to(device))
+                flat[hi].narrow(a, 0, s - 1).add_(Fmp.to(device))
+                flat[lo].narrow(a, 1, s - 1).add_(Fpm.to(device))
+        kn = {-8: kz, -7: ky, -6: kx}
+        for quads, ka, ca, lo, hi in ((st.IX, -6, -3, 1, 2), (st.IY, -7, -4, 3, 4),
+                                      (st.IZ, -8, -5, 5, 6)):
+            n = kn[ka] - 1
+            if n == 0:
+                continue
+            shape = [kz, ky, kx]
+            shape[ka + 8] = n
+            Fii, Fio, Foi, Foo = (t.to(device).reshape(tuple(shape) + (s, s, nb, nb))
+                                  for t in quads)
+            slot[0].narrow(ka, 0, n).select(ca, s - 1).add_(Fii)
+            slot[hi].narrow(ka, 0, n).select(ca, s - 1).add_(Fio)
+            slot[lo].narrow(ka, 1, n).select(ca, 0).add_(Foi)
+            slot[0].narrow(ka, 1, n).select(ca, 0).add_(Foo)
+        for side, ka, kidx, ca, cidx in _BOUNDARY:
+            D = st.D_side[side].to(device).reshape(kz, ky, kx, s, s, nb, nb)
+            k, c = kidx(grid), cidx(s)
+            slot[0].select(ka - 1, k).select(ca - 1, c).add_(D.select(ka, k))
+    return P.reshape(len(stencils), K, s, s, s, 7, nb, nb)
+
+
 @dataclass(eq=False)
 class StencilOperator3:
     """Affine family of 3D stencils with a fused matrix-free apply."""
     space: object
     stencils: Tuple[SwipdgStencil3, ...]
 
-    def assemble(self, theta) -> "AssembledStencil3":
+    def __post_init__(self):
+        self._folded = {}                 # (dtype, device) -> fold_stencils3
+
+    def folded(self, dtype, device) -> torch.Tensor:
+        """:func:`fold_stencils3` of this family in ``dtype`` on ``device``,
+        built at the first request and kept."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (dtype, device)
+        P = self._folded.get(key)
+        if P is None:
+            P = self._folded[key] = fold_stencils3(self.space, self.stencils, dtype, device)
+        return P
+
+    def assemble(self, theta):
+        """The operator at theta: theta [B, Q] on hex Q1 (nb = 8) gives a
+        :class:`LaneStencil3` (nothing per lane is built), anything else
+        :meth:`mix`'s :class:`AssembledStencil3`."""
+        theta = torch.as_tensor(theta).to(self.stencils[0].vol)
+        if theta.ndim == 2 and self.space.nb == hk.STENCIL3_NB:
+            return LaneStencil3(self, theta)
+        return self.mix(theta)
+
+    def mix(self, theta) -> "AssembledStencil3":
         """sum_q theta_q * stencil_q; theta [Q], or [B, Q] for lane-batched
         fields (a leading B axis on every field)."""
         st0 = self.stencils[0]
@@ -295,6 +378,55 @@ class AssembledStencil3:
 
         x, it = pcg_chunked(self.apply, M, b, tol, maxiter, x0=x0)
         return (x, it) if return_iters else x
+
+
+@dataclass(eq=False)
+class LaneStencil3:
+    """A lane-batched hex Q1 operator A(theta_b), b < B: the affine family
+    ``op`` and theta [B, Q], nothing per lane.  On the card :meth:`apply`
+    launches :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`
+    on ``op.folded`` (x's dtype; f64 after ``matrixfree.cast``, which
+    casts theta); on the CPU it is :meth:`materialize`'s apply, bit for bit
+    the per-lane :class:`AssembledStencil3`.  Its cell-Jacobi factors (the
+    default preconditioner of :meth:`solve_pcg`) are :meth:`materialize`'s."""
+    op: StencilOperator3
+    theta: torch.Tensor
+
+    def __post_init__(self):
+        self._plain = None
+
+    @property
+    def space(self):
+        return self.op.space
+
+    def materialize(self) -> AssembledStencil3:
+        """The per-lane :class:`AssembledStencil3` of ``op.mix`` in theta's
+        dtype (B copies of every field: the plain version of the apply)."""
+        if self._plain is None:
+            op = self.op
+            if op.stencils[0].vol.dtype != self.theta.dtype:
+                op = cast(op, self.theta.dtype)
+            self._plain = op.mix(self.theta)
+        return self._plain
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, K, N] -> A(theta_b) x_b for every lane b (counted by
+        :func:`~pylrbms_tpu_torch.ops.matrixfree.count_apply`, and each
+        kernel launch by ``stencil.kernel_applies``)."""
+        if x.device.type == "cpu":
+            return self.materialize().apply(x)
+        count_apply(x)
+        if GLOBAL_TIMINGS.on:
+            GLOBAL_TIMINGS.count("stencil.kernel_applies")
+        grid = self.space.grid
+        return hk.stencil3_apply(self.op.folded(x.dtype, x.device), self.theta, x,
+                                 (grid.kz, grid.ky, grid.kx))
+
+    def cell_jacobi_factors(self) -> torch.Tensor:
+        return self.materialize().cell_jacobi_factors()
+
+    # the matrix-free PCG of the single-theta form, over this form's apply
+    solve_pcg = AssembledStencil3.solve_pcg
 
 
 def stencil_coarse_matrix(A: AssembledStencil3, chunk: int = 64) -> torch.Tensor:

@@ -109,7 +109,7 @@ def uncounted():
     counts (the unsharded references and the replicated set-up of the
     legs)."""
     from ..ops import hopper_kernels as hk
-    saved = {fn: (fn.launches, dict(fn.signatures)) for fn in (hk.block_matvec, hk.precond_dot)}
+    saved = {fn: (fn.launches, dict(fn.signatures)) for fn in hk.KERNELS.values()}
     try:
         yield
     finally:

@@ -69,10 +69,12 @@ def test_kernels_match_plain_versions(cuda, G, K, N, B):
         assert _rel(y, yp) <= tol, (mdt, vdt)
         assert _rel(z, zp) <= tol, (mdt, vdt)
         assert _rel(rz, rzp) <= tol_rz, (mdt, vdt)
-    assert hk.launch_counts() == {"block_matvec": len(DTYPES), "precond_dot": len(DTYPES)}
+    assert hk.launch_counts() == {"block_matvec": len(DTYPES), "precond_dot": len(DTYPES),
+                                  "stencil3_apply": 0}
     assert hk.launch_signatures() == {
         "block_matvec": {(G, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
-        "precond_dot": {(1, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES}}
+        "precond_dot": {(1, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
+        "stencil3_apply": set()}
 
 
 @pytest.mark.parametrize("N,B,fdt,rdt", [(1536, 1, torch.float32, torch.float32),
@@ -244,7 +246,7 @@ def test_cuda_tensors_on_the_tensor_route_never_take_the_plain_path(cuda, monkey
     hk.reset_launch_counts()
     y, (z, rz) = hk.block_matvec(A, x, coef), hk.precond_dot(F, x)
     torch.cuda.synchronize()
-    assert hk.launch_counts() == {"block_matvec": 1, "precond_dot": 1}
+    assert hk.launch_counts() == {"block_matvec": 1, "precond_dot": 1, "stencil3_apply": 0}
     assert _rel(y, yp) <= 2e-5 and _rel(z, zp) <= 2e-5 and _rel(rz, rzp) <= 2e-4
 
     class Refusing:
@@ -386,7 +388,7 @@ def test_online_step_on_cuda_matches_cpu(cuda):
         outs.append((U.cpu(), ind.cpu(), hk.launch_counts()))
     (U0, i0, n0), (U1, i1, n1) = outs
     assert _rel(U1, U0) <= 1e-8 and _rel(i1, i0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
 
 
@@ -420,7 +422,7 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
         outs.append((U.cpu(), hk.launch_counts()))
     (U0, n0), (U1, n1) = outs
     assert _rel(U1, U0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
     assert n1["precond_dot"] > 0
 
 
@@ -636,7 +638,7 @@ def test_parabolic_paths_on_cuda_match_cpu(cuda):
         eta, _ = rd.estimate(rd.solve(mus[0]), mus[0])
         out.append((U, U_mf, Ub, rd, eta, hk.launch_counts()))
     (U0, M0, B0, rd0, e0, n0), (U1, M1, B1, rd1, e1, n1) = out
-    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
     assert U1.is_cuda and _rel(U1.cpu(), U0) <= 1e-10
     assert _rel(M1.cpu(), M0) <= 1e-8 and _rel(B1.cpu(), B0) <= 1e-8
@@ -674,7 +676,7 @@ def test_stencil_apply_and_estimate_on_cuda_match_cpu(cuda, gt, order):
     (y0, U0, e0, n0), (y1, U1, e1, n1) = outs
     assert _rel(y1, y0) <= 1e-12
     assert _rel(U1, U0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
-    assert n0 == {"block_matvec": 0, "precond_dot": 0} and n1["precond_dot"] > 0
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0} and n1["precond_dot"] > 0
 
 
 def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
@@ -702,7 +704,7 @@ def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
         outs.append((y.cpu(), traj.cpu(), hk.launch_counts()))
     (y0, t0, n0), (y1, t1, n1) = outs
     assert _rel(y1, y0) <= 1e-12 and _rel(t1, t0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0} and n1["precond_dot"] > 0
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0} and n1["precond_dot"] > 0
 
 
 @pytest.mark.parametrize("order", [1, 2])
@@ -736,8 +738,166 @@ def test_hex3d_stencil_solve_and_estimate_on_cuda_match_cpu(cuda, order):
     (y0, U0, W0, e0, n0), (y1, U1, W1, e1, n1) = outs
     assert _rel(y1, y0) <= 1e-12
     assert _rel(U1, U0) <= 1e-8 and _rel(W1, W0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
-    assert n0 == {"block_matvec": 0, "precond_dot": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
+
+
+# the lane-batched 3D hex stencil kernel: the SPE10 3D cell's configuration
+# (4x4x2 subdomains of 4^3 cells, K=32, Q=2) and grids with one subdomain
+# along an axis and s = 1, 2, 4 (random components)
+SPE10_3D = {"num_subdomains": [4, 4, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+            "num_refinements": 2, "grid_type": "hex"}
+S3_GRIDS = [(1, 1, 1, 1), (1, 1, 1, 4), (2, 1, 1, 2), (1, 3, 1, 1), (1, 1, 2, 4),
+            (2, 3, 2, 2), (3, 2, 1, 1)]
+
+
+@pytest.fixture(scope="module")
+def spe10_3d_ops():
+    """{dtype: the SPE10 3D cell's StencilOperator3 on the card}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from pylrbms_tpu_torch.problems.spe10_3d import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    return {dt: discretize(init_grid_and_problem(SPE10_3D), device="cuda", dtype=dt)[0]
+            .mf_operator() for dt in (torch.float32, torch.float64)}
+
+
+def _stencil3_against_plain(op, B, dtype, seed):
+    """stencil3_apply on op's folded components against the gather in f64
+    and the per-lane assembled apply, as max |diff| over the |.|-sum
+    max sum_q |theta_bq| |S_q| |x_b| (A x cancels at contrast 1e4); y
+    bitwise equal over two launches."""
+    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
+    sp, dev = op.space, op.stencils[0].vol.device
+    grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    theta = (0.1 + 0.9 * torch.rand((B, len(op.stencils)), generator=g, device=dev,
+                                    dtype=torch.float64)).to(dtype)
+    x = torch.randn((B, sp.K, sp.N), generator=g, device=dev, dtype=torch.float64).to(dtype)
+    P, P64 = op.folded(dtype, dev), op.folded(torch.float64, dev)
+    y, y2 = hk.stencil3_apply(P, theta, x, grid), hk.stencil3_apply(P, theta, x, grid)
+    ref = hk.stencil3_apply_plain(P64, theta.double(), x.double(), grid)
+    scale = hk.stencil3_apply_plain(P64.abs(), theta.double().abs(), x.double().abs(),
+                                    grid).max()
+    plain = LaneStencil3(op, theta).materialize().apply(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    return (float((y.double() - ref).abs().max() / scale),
+            float((y - plain).double().abs().max() / scale))
+
+
+@pytest.mark.parametrize("B", [1, 7, 128, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil3_apply_matches_plain_versions_on_spe10_3d(cuda, spe10_3d_ops, B, dtype):
+    """The SPE10 3D cell's shape, lane tails included: f32 within 2e-5 of
+    the |.|-sum (the tensor route's 3xTF32 products and f32 sums), f64
+    within 1e-12; one launch an apply."""
+    hk.reset_launch_counts()
+    errs = _stencil3_against_plain(spe10_3d_ops[dtype], B, dtype, seed=B)
+    assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), errs
+    assert hk.launch_signature_counts()["stencil3_apply"] == {(2, 2, 4, 4, 4, B, dtype): 2}
+
+
+@pytest.mark.parametrize("kz,ky,kx,s", S3_GRIDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil3_apply_matches_plain_versions_on_small_grids(cuda, kz, ky, kx, s, dtype):
+    import chip_smoke
+    op = chip_smoke.random_stencil_op3(torch, cuda, kz, ky, kx, s, 3, dtype)
+    for B in (1, 7, 33):
+        errs = _stencil3_against_plain(op, B, dtype, seed=B)
+        assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), (B, errs)
+
+
+def test_stencil3_apply_refuses_what_it_does_not_take(cuda):
+    import chip_smoke
+    op = chip_smoke.random_stencil_op3(torch, cuda, 1, 2, 1, 2, 2, torch.float32)
+    P, grid = op.folded(torch.float32, cuda), (1, 2, 1)
+    theta = torch.rand((4, 2), device=cuda)
+    x = torch.randn((4, 2, 64), device=cuda)
+    with pytest.raises(TypeError):                      # f32 stencils, f64 vectors
+        hk.stencil3_apply(P, theta.double(), x.double(), grid)
+    with pytest.raises(TypeError):                      # vector dtypes differ
+        hk.stencil3_apply(P, theta, x.double(), grid)
+    with pytest.raises(TypeError):                      # bf16
+        hk.stencil3_apply(P.bfloat16(), theta.bfloat16(), x.bfloat16(), grid)
+    with pytest.raises(ValueError):                     # shapes
+        hk.stencil3_apply(P, theta[:3], x, grid)
+    with pytest.raises(ValueError):
+        hk.stencil3_apply(P, theta, x, (1, 1, 1))
+    with pytest.raises(ValueError):                     # not contiguous
+        hk.stencil3_apply(P, theta, torch.randn((4, 2, 128), device=cuda)[..., ::2], grid)
+    with pytest.raises(ValueError):                     # misaligned
+        hk.stencil3_apply(P, theta, torch.randn(4 * 2 * 64 + 1, device=cuda)[1:]
+                          .view(4, 2, 64), grid)
+    with pytest.raises(ValueError):                     # one tensor on the CPU
+        hk.stencil3_apply(P, theta.cpu(), x, grid)
+    lib, stream = hk._lib(), torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.pylrbms_stencil3_apply(hk._DTYPE_CODE[torch.bfloat16], P.data_ptr(),
+                                      theta.data_ptr(), x.data_ptr(), torch.empty_like(x)
+                                      .data_ptr(), 2, *grid, 2, 4, stream) != 0
+    torch.cuda.synchronize()
+
+
+def test_3d_stencil_step_on_cuda_launches_the_kernel_every_apply(cuda, monkeypatch):
+    """The SPE10 3D block (2x2x2, nref 1, f32) online step with 3 lanes on
+    the card: every operator apply is one stencil3_apply launch
+    (``stencil.kernel_applies`` = ``stencil.applies`` = the wrapper's
+    launches), no per-lane stencil is built, no blocking CUDA call happens
+    inside an ``operator.apply`` span, the components are folded at set-up
+    and never in a call, and U and the indicators are the CPU step's to
+    1e-4 (f32 solves at tol 1e-6, sums in another order)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+    from pylrbms_tpu_torch.ops import matrixfree3d
+    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
+    from pylrbms_tpu_torch.problems.spe10_3d import init_grid_and_problem
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS
+
+    cfg = dict(SPE10_3D, num_subdomains=[2, 2, 2], num_refinements=1)
+    mus = np.array([0.15, 0.55, 0.95])
+    th, tf = np.stack([np.ones(3), mus], 1), np.ones((3, 1))
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev, dtype=torch.float32)
+        step = make_online_step(d, tol=1e-6, maxiter=400, matrix_free=True,
+                                coarse_space="harvested", coarse_modes=4)
+        mu = {"switch": torch.tensor(mus[:, None], dtype=torch.float32, device=dev)}
+        outs.append([t.double().cpu() for t in step(th, tf, mu)])
+
+    def no_plain(self):
+        raise AssertionError("a per-lane stencil was built on the card")
+
+    def no_fold(*args):
+        raise AssertionError("the components were folded in a call")
+    monkeypatch.setattr(LaneStencil3, "materialize", no_plain)
+    monkeypatch.setattr(matrixfree3d, "fold_stencils3", no_fold)
+    hk.reset_launch_counts()
+    GLOBAL_TIMINGS.clear()
+    GLOBAL_TIMINGS.enable()
+    try:
+        step(th, tf, mu)
+        torch.cuda.synchronize()
+        counters = dict(GLOBAL_TIMINGS.counters)
+    finally:
+        GLOBAL_TIMINGS.disable()
+        GLOBAL_TIMINGS.clear()
+    assert counters["stencil.applies"] > 0
+    assert counters["stencil.kernel_applies"] == counters["stencil.applies"] \
+        == hk.launch_counts()["stencil3_apply"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(th, tf, mu)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in events if e.name == "operator.apply"]
+    blocking = [e.name for e in events if e.name in BLOCKING
+                and any(s.start <= e.time_range.start <= s.end for s in spans)]
+    assert spans and blocking == []
+    (U0, i0), (U1, i1) = outs
+    assert _rel(U1, U0) <= 1e-4 and _rel(i1, i0) <= 1e-4
 
 
 @pytest.mark.parametrize("N,B,mdt", [(1728, 1, torch.float32), (1728, 32, torch.float32),
@@ -815,7 +975,8 @@ def test_demo_script_on_cuda_matches_cpu(cuda):
     cpu = demo.main(2, 3, device="cpu")
     hk.reset_launch_counts()
     card = demo.main(2, 3, device="cuda")
-    assert all(hk.launch_counts().values()), hk.launch_counts()
+    assert all(hk.launch_counts()[k] for k in ("block_matvec", "precond_dot")), \
+        hk.launch_counts()
     for k in ("eta", "eta_red"):
         assert abs(card[k] - cpu[k]) <= 1e-8 * abs(cpu[k]), k
     assert [n for _, n in card["online"]] == [n for _, n in cpu["online"]]
