@@ -56,10 +56,10 @@ phase passes:
    (``make_online_step`` without ``matrix_free``: the stencil form at
    >= 16 384 dofs; harvested coarse space, 12 modes, tol 1e-6), one query
    and B=256: U against the affine step's U for the same mu (1e-3),
-   indicators finite and non-negative, precond_dot launched; prints
-   per-query and single-query times, PCG iterations beside the affine
-   step's, peak memory and the 10 device ops with the most self time in
-   one batched call (torch.profiler);
+   indicators finite and non-negative, precond_dot launched (and the
+   stencil operator's ``lane_kernel``, where it has one); prints per-query
+   and single-query times, PCG iterations beside the affine step's and
+   peak memory;
 8. ``StationaryBlockModel.solve`` at 98 304 dofs (8x8 subdomains, half 2,
    nref 3, f64, solver 'auto' at precision 1e-10): the matrix-free
    two-level PCG, its divergence post-check, U against scipy splu (1e-6);
@@ -296,6 +296,23 @@ TENSOR_SHAPES = (
     ("precond_dot", 1, 64, 512, 256, "bf16", "f32"),    # 3D serving preconditioner
     ("block_matvec", 1, 256, 512, 32, "f32", "f32"),    # 131k truth harvest filter (25a)
     ("block_matvec", 1, 256, 1728, 32, "f32", "f32"),   # 442k truth harvest filter (25b)
+)
+# the kernel phase's other shapes as the paths launch them (kind, G, K, N,
+# B, matrix dtype, vector dtype): the 2D serving blocks at one lane and at
+# B_SERVE (less what TENSOR_SHAPES holds), the harvest filter, the order-2
+# blocks (precond_dot at 12 and 16 lanes: RING_SHAPES) and the 442k truth
+# blocks stored in bf16 (jacobi_storage='bf16')
+PATH_SHAPES = (
+    *(shape for B in (1, B_SERVE) for shape in (
+        *(("block_matvec", 2, 64, 384, B, dt, dt) for dt in ("f64", "f32")),
+        *(("precond_dot", 1, 64, 384, B, mdt, vdt)
+          for mdt, vdt in (("f64", "f64"), ("f32", "f32"), ("bf16", "f32"), ("bf16", "f64"))))
+      if shape not in TENSOR_SHAPES),
+    ("block_matvec", 1, 64, 384, 12, "f32", "f32"),     # harvest filter (ring)
+    *(shape for N in (576, 768) for dt in ("f64", "f32") for shape in (
+        *(("block_matvec", 1, 64, N, B, dt, dt) for B in (1, 12, 16)),
+        ("precond_dot", 1, 64, N, 1, dt, dt))),         # Q2 quad, P2 tri
+    ("block_matvec", 1, 256, 1728, 1, "bf16", "f32"),   # 442k truth
 )
 
 
@@ -655,21 +672,10 @@ def kernel_phase(hk, torch, dev):
                                                        "bound_ms", "max_abs_err")}})
         torch.cuda.empty_cache()
     log(f"tensor shapes: {json.dumps(tensor_rows)}")
-    for B in (1, 256):
-        for mdt, vdt in ((f64, f64), (f32, f32)):
-            if (B, vdt) != (B_SERVE, f32):               # B=256 f32: TENSOR_SHAPES
-                case("block_matvec", 2, 64, 384, B, mdt, vdt)
-        for mdt, vdt in ((f64, f64), (f32, f32), (bf16, f32), (bf16, f64)):
-            if (B, mdt, vdt) != (B_SERVE, bf16, f32):
-                case("precond_dot", 1, 64, 384, B, mdt, vdt)
-    case("block_matvec", 1, 64, 384, 12, f32, f32)       # harvest-filter shape (ring)
+    for kind, G, K, N, B, mdt, vdt in PATH_SHAPES:
+        case(kind, G, K, N, B, dts[mdt], dts[vdt])
     for dt in (f64, f32):                                # ring: G=2, a half-empty row tile
         case("block_matvec", 2, 4, 96, 13, dt, dt)
-    for N in (576, 768):                                 # order-2 blocks: Q2 quad, P2 tri
-        for dt in (f64, f32):
-            for B in (1, 12, 16):
-                case("block_matvec", 1, 64, N, B, dt, dt)
-            case("precond_dot", 1, 64, N, 1, dt, dt)     # B = 12, 16: RING_SHAPES
     ring_rows = []
     for kind, G, K, N, B, dt in RING_SHAPES:            # ring against the 16-lane stream
         r = case(kind, G, K, N, B, dts[dt], dts[dt])
@@ -685,7 +691,6 @@ def kernel_phase(hk, torch, dev):
                                                      "bound_ms", "max_abs_err")}})
         torch.cuda.empty_cache()
     log(f"ring shapes: {json.dumps(ring_rows)}")
-    case("block_matvec", 1, 256, 1728, 1, bf16, f32)     # 442k truth, jacobi_storage='bf16'
     for n, (kind, G, K, N, B) in enumerate(DMMA_SHAPES):  # dmma: f64 vectors, many lanes
         r = case(kind, G, K, N, B, f64, f64)
         if n < DMMA_TILES_AB:
@@ -880,30 +885,7 @@ def stencil_apply_phase(torch, dev, d_serving):
                 raise AssertionError(f"stencil apply ({name}) disagrees with the block apply")
 
 
-def top_device_ops(torch, fn, n=10):
-    """Device activity of one call of ``fn`` (torch.profiler): the ``n``
-    device ops (kernels, copies) with the most time, as (name, ms, count);
-    their total ms; and the ms CUPTI reports as "Command Buffer Full" (the
-    host blocked on a full launch queue), which is not device work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-
-    def self_dev(e):
-        v = getattr(e, "self_device_time_total", None)
-        return getattr(e, "self_cuda_time_total", 0.0) if v is None else v
-
-    blocked = "Command Buffer Full"
-    dev_evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    full = sum(self_dev(e) for e in dev_evs if e.key == blocked) / 1e3
-    evs = sorted((e for e in dev_evs if e.key != blocked), key=self_dev, reverse=True)
-    total = sum(self_dev(e) for e in evs) / 1e3
-    return [(e.key, self_dev(e) / 1e3, e.count) for e in evs[:n]], total, full
-
-
-def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=True):
+def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step"):
     """The reference's default online step at the serving config (the
     stencil form), against the affine step of phase 5 (``ref``)."""
     from pylrbms_tpu_torch.model import make_online_step
@@ -926,9 +908,9 @@ def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=T
         raise AssertionError("make_online_step did not resolve to the stencil form")
     if launches["precond_dot"] <= 0:
         raise AssertionError("precond_dot was not launched on the stencil path")
-    if getattr(d.space, "dim", 2) == 3 and d.space.nb == hk.STENCIL3_NB \
-            and launches["stencil3_apply"] <= 0:
-        raise AssertionError("stencil3_apply was not launched on the 3D stencil path")
+    lane_kernel = d.mf_operator().lane_kernel
+    if lane_kernel and launches[lane_kernel] <= 0:
+        raise AssertionError(f"{lane_kernel} was not launched on the {label} path")
     ind_np = np.concatenate([ind1.double().cpu().numpy()[None], indb.double().cpu().numpy()])
     if not (np.isfinite(ind_np).all() and (ind_np >= 0).all()):
         raise AssertionError(f"{label} indicators not finite and non-negative")
@@ -951,15 +933,6 @@ def stencil_step_phase(hk, torch, dev, smi, ref, label="stencil step", profile=T
         f"calls), single-query {single * 1e3:.3f} ms (median of 5); PCG iterations "
         f"{it_b} / {it_1} (batched / single; affine step {ref['iters'][0]} / "
         f"{ref['iters'][1]}); peak device memory {peak / 2**20:.1f} MiB [{smi}]")
-    if not profile:
-        return launches, shapes
-    t0 = time.perf_counter()
-    ops, total, full = top_device_ops(torch, batched)
-    log(f"stencil step profile, one batched B={B_SERVE} call: wall "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (profiled), device time {total:.2f} ms, "
-        f"'Command Buffer Full' {full:.2f} ms; top 10 device ops [{smi}]:")
-    for name, ms, count in ops:
-        log(f"  {ms:10.3f} ms  {count:6d}x  {name[:90]}")
     return launches, shapes
 
 
@@ -2886,7 +2859,7 @@ def main() -> int:
             label="crisscross serving")
         paths["crisscross stencil step"] = ph(
             "15b crisscross stencil step", stencil_step_phase, hk, torch, dev, smi, ref,
-            label="crisscross stencil step", profile=False)
+            label="crisscross stencil step")
         del ref
         paths["crisscross solve"] = ph("15c crisscross solve", scale_solve_phase, hk, torch,
                                        dev, smi, cfg=CC_SCALE, label="crisscross scale")
@@ -2902,7 +2875,7 @@ def main() -> int:
             label="3D serving", dim=3)
         paths["3D stencil step"] = ph(
             "20b 3D stencil step", stencil_step_phase, hk, torch, dev, smi, ref,
-            label="3D stencil step", profile=False)
+            label="3D stencil step")
         del ref
         paths["3D scale"], d_scale = ph("21 3D scale", scale3d_phase, hk, torch, dev, smi)
         paths["3D parabolic"] = ph("23 3D parabolic", parabolic3d_phase, hk, torch, dev, smi,

@@ -1,10 +1,11 @@
 """A/B of the kernel source against variants of it on one GPU.
 
-    python3 -m pylrbms_tpu_torch.kernel_ab [VARIANT.cu ...] [--define NAME=VALUE ...]
+    python3 kernel_ab.py [VARIANT.cu ...] [--define NAME=VALUE ...]
         [--shape SHAPE ... | --dmma | --tensor]
 
-Run from the repository root (it uses ``chip_smoke.kernel_case``).  Builds
-the package's ``csrc/block_kernels.cu`` and each VARIANT.cu (a copy of it
+Run from the repository root, beside ``chip_smoke.py``, whose
+``kernel_case`` and shape tables it uses.  Builds the package's
+``csrc/block_kernels.cu`` and each VARIANT.cu (a copy of it
 with one change, same C interface) into libraries of their own, all
 ``nvcc`` runs started together, then holds each to the plain versions and
 times them at each shape in turns "base, variants, variants reversed, base"
@@ -12,10 +13,10 @@ times them at each shape in turns "base, variants, variants reversed, base"
 kernel, plain, library and bound ms).  A turn that disagrees with the plain
 version is reported and the run goes on; the exit code is then 1.  SHAPE
 is ``kind,G,K,N,B,matrix dtype,vector dtype``, e.g.
-``block_matvec,2,64,384,256,f32,f32``; the default is every main-path
-shape of ``PERF.md`` section 6, ``--dmma`` the f64 shapes of the dmma
-route's table there, ``--tensor`` the tensor route's shapes
-(``chip_smoke.TENSOR_SHAPES``).  ``--define NAME=VALUE`` makes a variant
+``block_matvec,2,64,384,256,f32,f32``; the default is the kernel phase's
+path shapes (``chip_smoke.PATH_SHAPES``), ``--dmma`` the dmma route's f64
+shapes (``chip_smoke.DMMA_SHAPES``), ``--tensor`` the tensor route's
+shapes (``chip_smoke.TENSOR_SHAPES``).  ``--define NAME=VALUE`` makes a variant
 of the package's source with the one ``constexpr`` line of that name set
 to VALUE (e.g. ``TC_A_INFLIGHT_LANES=32``, ``TC_MAX_STAGES=3``), written
 under ``_build/``; each ``--define`` is a variant of its own.  Every line
@@ -33,27 +34,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .ops import hopper_kernels as hk
-from .utils.precision import pin_precision
+import chip_smoke as cs
+from pylrbms_tpu_torch.ops import hopper_kernels as hk
+from pylrbms_tpu_torch.utils.precision import pin_precision
 
 DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
-MAIN_PATH_SHAPES = [
-    "precond_dot,1,64,1536,1,f32,f32", "block_matvec,1,64,1536,1,f64,f64",
-    "block_matvec,1,64,1536,16,f64,f64", "precond_dot,1,64,384,256,bf16,f32",
-    "block_matvec,2,64,384,256,f32,f32", "block_matvec,2,64,384,1,f32,f32",
-    "block_matvec,1,64,384,12,f32,f32", "block_matvec,1,64,384,1,f32,f32",
-    "precond_dot,1,64,384,1,bf16,f32"]
-DMMA_SHAPES = [
-    "precond_dot,1,32,512,32,f64,f64", "block_matvec,1,256,384,128,f64,f64",
-    "block_matvec,1,32,512,128,f64,f64", "block_matvec,1,64,384,128,f64,f64",
-    "block_matvec,1,16,384,128,f64,f64", "block_matvec,1,32,512,32,f64,f64",
-    "block_matvec,1,256,384,21,f64,f64", "block_matvec,1,64,24,128,f64,f64",
-    "precond_dot,1,64,384,256,f64,f64"]
 
 
 def parse_shape(text):
+    """``kind,G,K,N,B,mdt,vdt`` -> the shape as the tables hold it."""
     kind, G, K, N, B, mdt, vdt = text.split(",")
-    return kind, int(G), int(K), int(N), int(B), DTYPES[mdt], DTYPES[vdt]
+    return kind, int(G), int(K), int(N), int(B), mdt, vdt
 
 
 def define_variant(name_value):
@@ -95,8 +86,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available; this probe runs only on a GPU", file=sys.stderr)
         return 2
-    import chip_smoke as cs                              # the repository root's smoke run
-
     smi = cs.smi_line()
     pin_precision()
     variants = [*args.variants, *map(define_variant, args.define)]
@@ -104,20 +93,21 @@ def main(argv=None) -> int:
     libs = build_all({"base": hk.SOURCE,
                       **{n: os.path.abspath(v) for n, v in zip(names, variants)}})
     turns = ["base", *names, *names[::-1], "base"] if names else ["base"]
-    tensor = [",".join(map(str, s)) for s in cs.TENSOR_SHAPES]
-    shapes = args.shape or (DMMA_SHAPES if args.dmma else tensor if args.tensor
-                            else MAIN_PATH_SHAPES)
+    shapes = (list(map(parse_shape, args.shape)) if args.shape
+              else [(*s, "f64", "f64") for s in cs.DMMA_SHAPES] if args.dmma
+              else cs.TENSOR_SHAPES if args.tensor else cs.PATH_SHAPES)
     dev = torch.device("cuda", 0)
     lib, failed = hk._lib, 0
     try:
-        for shape in map(parse_shape, shapes):
+        for kind, G, K, N, B, mdt, vdt in shapes:
             for turn in turns:
                 hk._lib = lambda t=turn: libs[t]             # noqa: E731
                 rng = np.random.default_rng(cs.SEED)
                 randn = lambda s: torch.as_tensor(rng.standard_normal(s), device=dev)  # noqa: E731
                 print(f"{turn:9s} [{smi}]", end=" ", flush=True)
                 try:
-                    cs.kernel_case(hk, torch, dev, randn, *shape)
+                    cs.kernel_case(hk, torch, dev, randn, kind, G, K, N, B,
+                                   DTYPES[mdt], DTYPES[vdt])
                 except AssertionError as err:
                     failed += 1
                     print(f"{turn:9s} FAILED: {err}", flush=True)

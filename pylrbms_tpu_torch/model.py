@@ -30,7 +30,7 @@ from .la.block import (AffineBlockOp, AssembledBlockOp, AffineBlockApply,
                        block_jacobi_factors, geneo_coarse_basis,
                        harvested_coarse_basis, neumann_blocks, prepare_coarse,
                        reblock, unblock)
-from .ops.hopper_kernels import STENCIL3_NB, block_matvec
+from .ops.hopper_kernels import block_matvec
 from .ops.matrixfree import (StencilOperator, assemble_swipdg_stencil, cast,
                              mass_stencil)
 from .ops.matrixfree3d import (StencilOperator3, assemble_swipdg_stencil3,
@@ -643,11 +643,10 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
             sop[0] = _stencil_kit(d.space)[1](d.space, arrays["stencils"])
         return sop[0]
 
-    if matrix_free is True and getattr(d.space, "dim", 2) == 3 and d.space.nb == STENCIL3_NB:
-        # the lane-batched hex Q1 apply's folded components, built here
-        # (set-up), not in the first call
-        for dt in ((d.dtype, wide) if certify else (d.dtype,)):
-            _stencil_op().folded(dt, dev)
+    if matrix_free is True:
+        # the stencil operator's own set-up (a lane kernel's folded
+        # components), here, not in the first call
+        _stencil_op().prepare((d.dtype, wide) if certify else (d.dtype,), dev)
 
     def _solver(theta):
         """(operator at theta, solve(rhs, **kw)) of the configured form."""

@@ -28,7 +28,8 @@ Every field of an :class:`AssembledStencil` may carry leading lane axes
 (``StencilOperator.assemble`` with theta [B, Q]); ``apply`` broadcasts them
 against the lanes of x, so B parameter queries share one lane-batched PCG.
 
-The block-factor preconditioner of :meth:`AssembledStencil.solve_pcg` goes
+The block-factor preconditioner of :func:`stencil_pcg`, the PCG of every
+stencil form (``AssembledStencil.solve_pcg`` and the 3D ones), goes
 through the hand-written :func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`
 (f32 or bf16 factors, f32 residual, as the reference applies them); the
 stencil apply itself stays plain torch (XLA einsums in the reference).
@@ -251,6 +252,13 @@ class StencilOperator:
     space: object
     stencils: Tuple[SwipdgStencil, ...]
 
+    # the hand kernel of the lane-batched applies: none in 2D, whose lanes
+    # carry per-lane fields (the 3D family's ``lane_kernel`` is one)
+    lane_kernel = None
+
+    def prepare(self, dtypes, device) -> None:
+        """The lane kernel's set-up: nothing, as there is no lane kernel."""
+
     def assemble(self, theta) -> "AssembledStencil":
         """sum_q theta_q * stencil_q; theta [Q], or [B, Q] for lane-batched
         fields (a leading B axis on every field)."""
@@ -388,6 +396,36 @@ def coarse_level(coarse_inv, coarse_basis, cdt, comm=None, band=None):
     return coarse
 
 
+def stencil_pcg(A, b, cell_shape, tol, maxiter, factors, block_factors, coarse_inv,
+                coarse_basis, return_iters, coarse_f32, x0, *, comm=None, band=None):
+    """The matrix-free PCG of every stencil form ``A`` (its ``apply``; its
+    ``cell_jacobi_factors`` when no factors are given) for b [K, N] or lanes
+    [B, K, N] (per-lane frozen, see ``la/krylov.pcg_chunked``), on cells of
+    ``cell_shape`` (K and the cell's axes, the last one its dofs).
+
+    Preconditioner (:func:`make_precond` in b's dtype): the subdomain
+    block-Jacobi ``block_factors`` [K, N, N] through one
+    :func:`precond_dot` launch, else cell-block Jacobi (``factors``,
+    default ``A.cell_jacobi_factors()``); ``coarse_inv`` (with or without
+    ``coarse_basis``) adds the coarse level, in f32 when b is f32 or
+    ``coarse_f32``.  The CG scalar is r . M(r) in r's dtype (for f32
+    vectors the kernel's fused partials).  ``comm`` and ``band`` as in
+    :func:`make_precond` (every dot product then all-reduced).  Returns x
+    (and the iteration counts)."""
+    if block_factors is None and factors is None:
+        factors = A.cell_jacobi_factors()
+    P = make_precond(b.dtype, block_factors=block_factors, factors=factors,
+                     cell_shape=cell_shape, coarse_inv=coarse_inv, coarse_basis=coarse_basis,
+                     coarse_dtype=torch.float32 if coarse_f32 else None, comm=comm, band=band)
+
+    def M(r):
+        z, rz = P(r)
+        return z, (lane_dot(r, z) if rz is None else rz)
+
+    x, it = pcg_chunked(A.apply, M, b, tol, maxiter, x0=x0, comm=comm)
+    return (x, it) if return_iters else x
+
+
 @dataclass(eq=False)
 class AssembledStencil:
     space: object
@@ -466,31 +504,10 @@ class AssembledStencil:
                   factors=None, block_factors=None, coarse_inv=None,
                   coarse_basis=None, return_iters: bool = False,
                   coarse_f32: bool = False, x0=None):
-        """Matrix-free PCG for b [K, N] or lanes [B, K, N] (per-lane frozen,
-        see ``la/krylov.pcg_chunked``).
-
-        Preconditioner (:func:`make_precond` in b's dtype): the subdomain
-        block-Jacobi ``block_factors`` [K, N, N] through one
-        :func:`precond_dot` launch, else cell-block Jacobi (``factors``,
-        default :meth:`cell_jacobi_factors`); ``coarse_inv`` (with or
-        without ``coarse_basis``) adds the coarse level, in f32 when b is
-        f32 or ``coarse_f32``.  The CG scalar is r . M(r) in r's dtype (for
-        f32 vectors the kernel's fused partials).  Returns x (and the
-        iteration counts)."""
+        """:func:`stencil_pcg` on this operator's cells."""
         sp = self.space
-        if block_factors is None and factors is None:
-            factors = self.cell_jacobi_factors()
-        P = make_precond(b.dtype, block_factors=block_factors, factors=factors,
-                         cell_shape=(sp.K, sp.s, sp.s, sp.T * sp.nb),
-                         coarse_inv=coarse_inv, coarse_basis=coarse_basis,
-                         coarse_dtype=torch.float32 if coarse_f32 else None)
-
-        def M(r):
-            z, rz = P(r)
-            return z, (lane_dot(r, z) if rz is None else rz)
-
-        x, it = pcg_chunked(self.apply, M, b, tol, maxiter, x0=x0)
-        return (x, it) if return_iters else x
+        return stencil_pcg(self, b, (sp.K, sp.s, sp.s, sp.T * sp.nb), tol, maxiter, factors,
+                           block_factors, coarse_inv, coarse_basis, return_iters, coarse_f32, x0)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., K, N] -> A x, matrix-free (lane axes of x and of the

@@ -26,10 +26,11 @@ card its apply is one launch of the hand-written
 is the per-lane :class:`AssembledStencil3`'s apply.  Single-theta
 operators, and lanes at any other nb, are an :class:`AssembledStencil3`,
 whose fields then carry the lane axes (its ``apply`` broadcasts them against
-the lanes of x).  The subdomain-block preconditioner of ``solve_pcg`` goes
+the lanes of x).  This module alone decides which operators take the lane
+kernel (:attr:`StencilOperator3.lane_kernel`).  ``solve_pcg`` is
+``matrixfree.stencil_pcg``, whose subdomain-block preconditioner goes
 through the hand-written
-:func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`
-(``matrixfree.make_precond``).
+:func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`.
 """
 from __future__ import annotations
 
@@ -43,10 +44,8 @@ from . import assembly as asm
 from . import assembly3d as asm3
 from .assembly import IPDGParams, DEFAULT_IPDG
 from . import hopper_kernels as hk
-from .matrixfree import bmv, cast, count_apply, make_precond
+from .matrixfree import bmv, cast, count_apply, stencil_pcg
 from .swipdg3d import SIDES, edge_lists3
-from ..la.krylov import lane_dot, pcg_chunked
-from ..utils.timers import GLOBAL_TIMINGS
 
 # (side, k axis, k index of the boundary layer as a function of the grid,
 #  cell axis, cell index as a function of s) in [..., kz, ky, kx, cz, cy, cx, nb]
@@ -226,12 +225,26 @@ class StencilOperator3:
             P = self._folded[key] = fold_stencils3(self.space, self.stencils, dtype, device)
         return P
 
+    @property
+    def lane_kernel(self):
+        """The hand kernel of this family's lane-batched applies:
+        ``"stencil3_apply"`` on hex Q1 (nb = 8), else None (the lanes then
+        carry per-lane fields)."""
+        return "stencil3_apply" if self.space.nb == hk.STENCIL3_NB else None
+
+    def prepare(self, dtypes, device) -> None:
+        """The lane kernel's set-up: the components folded in each of
+        ``dtypes`` on ``device`` (nothing without a lane kernel)."""
+        if self.lane_kernel:
+            for dt in dtypes:
+                self.folded(dt, device)
+
     def assemble(self, theta):
-        """The operator at theta: theta [B, Q] on hex Q1 (nb = 8) gives a
-        :class:`LaneStencil3` (nothing per lane is built), anything else
-        :meth:`mix`'s :class:`AssembledStencil3`."""
+        """The operator at theta: theta [B, Q] with a :attr:`lane_kernel`
+        gives a :class:`LaneStencil3` (nothing per lane is built), anything
+        else :meth:`mix`'s :class:`AssembledStencil3`."""
         theta = torch.as_tensor(theta).to(self.stencils[0].vol)
-        if theta.ndim == 2 and self.space.nb == hk.STENCIL3_NB:
+        if theta.ndim == 2 and self.lane_kernel:
             return LaneStencil3(self, theta)
         return self.mix(theta)
 
@@ -359,25 +372,11 @@ class AssembledStencil3:
                   factors=None, block_factors=None, coarse_inv=None,
                   coarse_basis=None, return_iters: bool = False,
                   coarse_f32: bool = False, x0=None):
-        """Matrix-free PCG for b [K, N] or lanes [B, K, N] (the options of
-        the 2D ``AssembledStencil.solve_pcg``): subdomain ``block_factors``
-        through one :func:`precond_dot` launch, else the cell-block Jacobi
-        ``factors`` (default :meth:`cell_jacobi_factors`), plus an optional
-        coarse level.  Returns x (and the iteration counts)."""
+        """:func:`~pylrbms_tpu_torch.ops.matrixfree.stencil_pcg` on this
+        operator's hex cells."""
         sp = self.space
-        if block_factors is None and factors is None:
-            factors = self.cell_jacobi_factors()
-        P = make_precond(b.dtype, block_factors=block_factors, factors=factors,
-                         cell_shape=(sp.K, sp.s, sp.s, sp.s, sp.nb),
-                         coarse_inv=coarse_inv, coarse_basis=coarse_basis,
-                         coarse_dtype=torch.float32 if coarse_f32 else None)
-
-        def M(r):
-            z, rz = P(r)
-            return z, (lane_dot(r, z) if rz is None else rz)
-
-        x, it = pcg_chunked(self.apply, M, b, tol, maxiter, x0=x0)
-        return (x, it) if return_iters else x
+        return stencil_pcg(self, b, (sp.K, sp.s, sp.s, sp.s, sp.nb), tol, maxiter, factors,
+                           block_factors, coarse_inv, coarse_basis, return_iters, coarse_f32, x0)
 
 
 @dataclass(eq=False)
@@ -411,13 +410,10 @@ class LaneStencil3:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, K, N] -> A(theta_b) x_b for every lane b (counted by
-        :func:`~pylrbms_tpu_torch.ops.matrixfree.count_apply`, and each
-        kernel launch by ``stencil.kernel_applies``)."""
+        :func:`~pylrbms_tpu_torch.ops.matrixfree.count_apply`)."""
         if x.device.type == "cpu":
             return self.materialize().apply(x)
         count_apply(x)
-        if GLOBAL_TIMINGS.on:
-            GLOBAL_TIMINGS.count("stencil.kernel_applies")
         grid = self.space.grid
         return hk.stencil3_apply(self.op.folded(x.dtype, x.device), self.theta, x,
                                  (grid.kz, grid.ky, grid.kx))

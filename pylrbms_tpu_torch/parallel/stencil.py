@@ -32,7 +32,7 @@ import torch
 from ..la.block import _couple, block_jacobi_factors
 from ..la.krylov import lane_dot, pcg_chunked
 from ..ops.hopper_kernels import block_matvec, precond_dot
-from ..ops.matrixfree import make_precond
+from ..ops.matrixfree import stencil_pcg
 from ..ops.matrixfree3d import SwipdgStencil3
 
 
@@ -192,7 +192,7 @@ class BandedAssembledStencil:
     def solve_pcg(self, b, tol: float = 1e-10, maxiter: int = 3000, factors=None,
                   block_factors=None, coarse_inv=None, coarse_basis=None,
                   return_iters: bool = False, coarse_f32: bool = False, x0=None):
-        """The matrix-free PCG of ``AssembledStencil.solve_pcg`` on the band:
+        """:func:`~pylrbms_tpu_torch.ops.matrixfree.stencil_pcg` on the band:
         b, ``block_factors`` [Kb, N, N] (or cell ``factors``) and
         ``coarse_basis`` [Kb, N, m] are this rank's bands, ``coarse_inv``
         the replicated [K*m, K*m] (or [K, K]) inverse.  Every dot product
@@ -202,18 +202,9 @@ class BandedAssembledStencil:
                 else (sp.s, sp.s, sp.T * sp.nb))
         if block_factors is None and factors is None:
             factors = self._cell_factors(len(cell))
-        P = make_precond(b.dtype, block_factors=block_factors, factors=factors,
-                         cell_shape=(self.Kb,) + cell, coarse_inv=coarse_inv,
-                         coarse_basis=coarse_basis,
-                         coarse_dtype=torch.float32 if coarse_f32 else None,
-                         comm=self.mesh, band=(self.k0, self.K))
-
-        def M(r):
-            z, rz = P(r)
-            return z, (lane_dot(r, z) if rz is None else rz)
-
-        x, it = pcg_chunked(self.apply, M, b, tol, maxiter, x0=x0, comm=self.mesh)
-        return (x, it) if return_iters else x
+        return stencil_pcg(self, b, (self.Kb,) + cell, tol, maxiter, factors, block_factors,
+                           coarse_inv, coarse_basis, return_iters, coarse_f32, x0,
+                           comm=self.mesh, band=(self.k0, self.K))
 
 
 @dataclass(eq=False)

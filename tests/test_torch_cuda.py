@@ -842,8 +842,7 @@ def test_stencil3_apply_refuses_what_it_does_not_take(cuda):
 def test_3d_stencil_step_on_cuda_launches_the_kernel_every_apply(cuda, monkeypatch):
     """The SPE10 3D block (2x2x2, nref 1, f32) online step with 3 lanes on
     the card: every operator apply is one stencil3_apply launch
-    (``stencil.kernel_applies`` = ``stencil.applies`` = the wrapper's
-    launches), no per-lane stencil is built, no blocking CUDA call happens
+    (``stencil.applies`` = the wrapper's launches), no per-lane stencil is built, no blocking CUDA call happens
     inside an ``operator.apply`` span, the components are folded at set-up
     and never in a call, and U and the indicators are the CPU step's to
     1e-4 (f32 solves at tol 1e-6, sums in another order)."""
@@ -886,8 +885,7 @@ def test_3d_stencil_step_on_cuda_launches_the_kernel_every_apply(cuda, monkeypat
         GLOBAL_TIMINGS.disable()
         GLOBAL_TIMINGS.clear()
     assert counters["stencil.applies"] > 0
-    assert counters["stencil.kernel_applies"] == counters["stencil.applies"] \
-        == hk.launch_counts()["stencil3_apply"]
+    assert counters["stencil.applies"] == hk.launch_counts()["stencil3_apply"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(th, tf, mu)
         torch.cuda.synchronize()

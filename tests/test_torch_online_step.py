@@ -405,13 +405,14 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_have_no_reference_import():
-    """No line of the port's package or of chip_smoke.py imports the JAX
-    package (docstrings may still name its files)."""
+    """No line of the port's package or of the root tools (chip_smoke.py,
+    kernel_ab.py) imports the JAX package (docstrings may still name its
+    files)."""
     pattern = re.compile(r"^\s*(from|import) pylrbms_tpu(\.|\s|$)")
     files = sorted(os.path.join(root, f)
                    for root, _, names in os.walk(os.path.join(REPO, "pylrbms_tpu_torch"))
                    for f in names if f.endswith(".py"))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, tool) for tool in ("chip_smoke.py", "kernel_ab.py")]
     assert len(files) > 20
     scanned = {os.path.relpath(f, REPO) for f in files}
     for module in ("truth.py", "utils/vtk.py", "utils/roofline.py", "native/__init__.py",

@@ -15,8 +15,8 @@ CPU it is the per-lane ``AssembledStencil3``'s apply.  Here:
 * ``assemble`` takes the lane form only for lane-batched theta at nb = 8;
 * ``matrixfree.cast`` and ``certify`` work on it; its cell-Jacobi factors
   are the per-lane form's;
-* the online step folds at set-up, never in a call, and counts
-  ``stencil.kernel_applies`` nowhere on the CPU;
+* the online step folds at set-up (at nb = 8; nothing at Q2, nb = 27),
+  never in a call, and launches no ``stencil3_apply`` on the CPU;
 * the wrapper's shape checks, neighbour table and work count.
 """
 from types import SimpleNamespace
@@ -66,10 +66,10 @@ def random_family(kz, ky, kx, s, Q=2, nb=8, dtype=f64, seed=0):
         D_side={sd: r(K, s * s) for sd in SIDES}) for _ in range(Q)))
 
 
-def spe10_model(cfg, dtype):
+def spe10_model(cfg, dtype, order=1):
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
     from pylrbms_tpu_torch.problems.spe10_3d import init_grid_and_problem
-    return discretize(init_grid_and_problem(cfg), device="cpu", dtype=dtype)[0]
+    return discretize(init_grid_and_problem(cfg), device="cpu", dtype=dtype, order=order)[0]
 
 
 def grid_of(op):
@@ -177,15 +177,21 @@ def test_certify_with_lanes_on_a_3d_f32_model():
         assert float((ib[i] - i1).abs().max() / i1.abs().max()) <= 1e-6
 
 
-def test_the_step_folds_at_set_up_and_counts_no_kernel_apply_on_the_cpu(monkeypatch):
+@pytest.mark.parametrize("order,cfg,folded", [
+    (1, SPE10_SMALL, [torch.float32]),                              # hex Q1: nb = 8
+    (2, dict(SPE10_SMALL, num_refinements=0), []),                  # hex Q2: nb = 27
+], ids=["q1", "q2"])
+def test_the_step_folds_at_set_up_and_counts_no_kernel_apply_on_the_cpu(monkeypatch, order,
+                                                                         cfg, folded):
     folds = []
     real = mf3.fold_stencils3
     monkeypatch.setattr(mf3, "fold_stencils3",
                         lambda *a, **k: folds.append(a[2]) or real(*a, **k))
-    d = spe10_model(SPE10_SMALL, torch.float32)
+    d = spe10_model(cfg, torch.float32, order)
+    assert d.space.nb == (8 if order == 1 else 27)
     step = make_online_step(d, tol=1e-6, maxiter=200, matrix_free=True,
                             coarse_space="harvested", coarse_modes=4)
-    assert folds == [torch.float32]
+    assert folds == folded
     mus = np.array([0.2, 0.5, 0.8])
     args = (np.stack([np.ones(3), mus], 1), np.ones((3, 1)),
             {"switch": torch.tensor(mus[:, None], dtype=torch.float32)})
@@ -197,9 +203,8 @@ def test_the_step_folds_at_set_up_and_counts_no_kernel_apply_on_the_cpu(monkeypa
     finally:
         GLOBAL_TIMINGS.disable()
         GLOBAL_TIMINGS.clear()
-    assert folds == [torch.float32]                                 # none in the call
+    assert folds == folded                                          # none in the call
     assert counters["stencil.applies"] > 0
-    assert counters.get("stencil.kernel_applies", 0) == 0
     assert hk.launch_counts()["stencil3_apply"] == 0
 
 
