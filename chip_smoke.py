@@ -38,7 +38,11 @@ phase passes:
    per-lane assembled apply (f32 2e-5, f64 1e-12 of the |.|-sum), y
    bitwise equal over two launches, timed beside its bound (the formula of
    ``benchmark/stencil_roofline.py``) and the plain apply; and on grids
-   with one subdomain along an axis, s = 1, 2, 4 and Q = 3;
+   with one subdomain along an axis, s = 1, 2, 4 and Q = 3; then
+   ``stencil2_apply`` (the lane-batched 2D tri P1 stencil apply) at the
+   OS2015 stencil cell's shape (K=64, s=8, nb=3, Q=2; the ``PATH_SHAPES``
+   rows, random components) at B=1024 and 256 in f32 and f64, held and
+   timed as ``stencil3_apply``, and on ragged grids (s = 1, 2, 3, 4; Q = 3);
 4. entry config: ``graft_entry.entry()`` (2x2 subdomains, half 1, nref 1,
    tol 1e-8), one query on the card in f64 and in f32, against its own
    CPU f64 run;
@@ -65,7 +69,8 @@ phase passes:
    two-level PCG, its divergence post-check, U against scipy splu (1e-6);
    then the same solve with ``mixed=True``; prints time and iterations;
 9. main-path shapes: every (kernel, shape, dtypes) the main paths launched
-   (``stencil3_apply`` by (Q, grid, s, B, dtype), on random components)
+   (``stencil3_apply`` and ``stencil2_apply`` by (Q, grid, s, B, dtype),
+   on random components)
    that phase 3 did not check (phase 8's K=64, N=1536 blocks, the
    harvest's one-lane power iteration, ...), against its plain version on
    the card at phase 3's tolerances, timed as in phase 3; fails if an
@@ -230,6 +235,7 @@ without that last line if CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -313,6 +319,9 @@ PATH_SHAPES = (
         *(("block_matvec", 1, 64, N, B, dt, dt) for B in (1, 12, 16)),
         ("precond_dot", 1, 64, N, 1, dt, dt))),         # Q2 quad, P2 tri
     ("block_matvec", 1, 256, 1728, 1, "bf16", "f32"),   # 442k truth
+    # the OS2015 stencil cell's apply (K=64 square subdomains, N = 6 s^2 at
+    # s=8, Q=2 as G), random components: kernel_case takes it to stencil_case
+    *(("stencil2_apply", 2, 64, 384, B, dt, dt) for B in (1024, 256) for dt in ("f32", "f64")),
 )
 
 
@@ -323,11 +332,12 @@ BLOCK_KERNELS = ("block_matvec", "precond_dot")
 # cells: K=32, s=4, nb=8, Q=2) at these lane counts, f32 and f64; tolerance
 # on max |kernel - reference| / max sum_q |theta| |S_q| |x| (the |.|-sum:
 # at contrast 1e4 A x cancels), the reference the plain gather in f64:
-# f64 summation-order rounding; f32 that of 7 x 8 x Q-term f32 sums
+# f64 summation-order rounding; f32 that of 7 x 8 x Q-term f32 sums (the
+# 2D stencil2_apply's 4 x 3 x Q-term sums are held to the same)
 STENCIL3_CFG = {"num_subdomains": [4, 4, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
                 "num_refinements": 2}
 STENCIL3_LANES = (1024, 256)
-STENCIL3_TOL = {"f64": 1e-12, "f32": 2e-5}
+STENCIL_TOL = {"f64": 1e-12, "f32": 2e-5}
 
 _LOG_TO = [None]          # where log() prints while a phase redirects stdout
 
@@ -430,6 +440,10 @@ def kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt):
     library call is one ``torch.matmul`` on operands laid out beforehand,
     its output [K, N, B] instead of [B, K, N]), ``bound_ms``, ``bound_by``
     and ``path`` (the route ``hk.plan`` picked)."""
+    if kind == "stencil2_apply":                     # G components, square grid of K
+        ky = kx = math.isqrt(K)
+        op = random_stencil_op2(torch, dev, ky, kx, math.isqrt(N // 6), G, vdt)
+        return {**stencil_case(hk, torch, dev, op, B, vdt), "path": "simt"}
     dt_name = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
     A = randn((G, K, N, N)).to(mdt)
     x = randn((B, K, N)).to(vdt)
@@ -550,17 +564,49 @@ def random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dtype, seed=SEED):
         for _ in range(Q)))
 
 
-def stencil3_case(hk, torch, dev, op, B, dtype):
-    """``stencil3_apply`` on the folded components of ``op`` against its
+def random_stencil_op2(torch, dev, ky, kx, s, Q, dtype, seed=SEED):
+    """A ``StencilOperator`` of Q random tri P1 components (every field
+    standard normal) on ky x kx subdomains of s^2 cells of two triangles:
+    the operand of ``stencil2_apply`` at any grid a path launched it on."""
+    from pylrbms_tpu_torch.grid import Grid
+    from pylrbms_tpu_torch.ops.matrixfree import StencilOperator, SwipdgStencil
+    from pylrbms_tpu_torch.ops.spaces import BlockDGSpace
+    space = BlockDGSpace(Grid(lower_left=(0.0, 0.0), upper_right=(1.0, 1.0), kx=kx, ky=ky,
+                              s=s, grid_type="tri"))
+    K, nb = space.K, space.nb
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape + (nb, nb), generator=g, device=dev, dtype=dtype)
+
+    def quads(*shape):
+        return tuple(r(*shape) for _ in range(4))
+
+    return StencilOperator(space, tuple(SwipdgStencil(
+        vol=r(K, s, s, 2), D=quads(K, s, s), V=quads(K, s, s - 1), H=quads(K, s - 1, s),
+        R=quads(ky * (kx - 1), s), U=quads((ky - 1) * kx, s),
+        D_side={sd: r(K, s) for sd in ("left", "right", "bottom", "top")})
+        for _ in range(Q)))
+
+
+def stencil_case(hk, torch, dev, op, B, dtype):
+    """The lane kernel of ``op`` (``stencil3_apply`` on a hex Q1 family,
+    ``stencil2_apply`` on a tri P1 one) on its folded components against its
     plain versions on the card, theta [B, Q] in [0.1, 1], x standard normal:
-    the gather form in f64 (``STENCIL3_TOL`` of the |.|-sum) and the per-lane
+    the gather form in f64 (``STENCIL_TOL`` of the |.|-sum) and the per-lane
     assembled apply in ``dtype`` (the step's plain path; the same tolerance,
     both sides rounding), y bitwise equal over two launches.  Times (L2
     flushed, and warm) the kernel and the plain apply (its per-lane
     stencils built beforehand).  Returns the summary's numbers."""
-    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
     sp = op.space
-    grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+    name = op.lane_kernel
+    if name == "stencil3_apply":
+        grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+        kernel, gather, bound = hk.stencil3_apply, hk.stencil3_apply_plain, hk.stencil3_bound
+    else:
+        grid = (sp.grid.ky, sp.grid.kx)
+        kernel, gather, bound = hk.stencil2_apply, hk.stencil2_apply_plain, hk.stencil2_bound
     Q = len(op.stencils)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + B)
@@ -568,13 +614,12 @@ def stencil3_case(hk, torch, dev, op, B, dtype):
                                     dtype=torch.float64)).to(dtype)
     x = torch.randn((B, sp.K, sp.N), generator=g, device=dev, dtype=torch.float64).to(dtype)
     P, P64 = op.folded(dtype, dev), op.folded(torch.float64, dev)
-    run = lambda: hk.stencil3_apply(P, theta, x, grid)           # noqa: E731
+    run = lambda: kernel(P, theta, x, grid)                      # noqa: E731
     y, y2 = run(), run()
-    ref = hk.stencil3_apply_plain(P64, theta.double(), x.double(), grid)
-    scale = float(hk.stencil3_apply_plain(P64.abs(), theta.double().abs(), x.double().abs(),
-                                          grid).max())
+    ref = gather(P64, theta.double(), x.double(), grid)
+    scale = float(gather(P64.abs(), theta.double().abs(), x.double().abs(), grid).max())
     del P64
-    A = LaneStencil3(op, theta).materialize()
+    A = op.assemble(theta).materialize()
     plain = lambda: A.apply(x)                                    # noqa: E731
     yp = plain()
     torch.cuda.synchronize()
@@ -583,12 +628,12 @@ def stencil3_case(hk, torch, dev, op, B, dtype):
     del ref, yp
     same = bool(torch.equal(y, y2))
     dt = "f64" if dtype == torch.float64 else "f32"
-    tol = STENCIL3_TOL[dt]
+    tol = STENCIL_TOL[dt]
     ms, warm_ms, plain_ms = cuda_ms(run, flush=True), cuda_ms(run), cuda_ms(plain, flush=True)
     del A
-    bound_ms, bound_by = hk.stencil3_bound(Q, *grid, sp.s, B, dtype)
+    bound_ms, bound_by = bound(Q, *grid, sp.s, B, dtype)
     ok = max(errs) <= tol and same
-    label = f"stencil3_apply Q={Q} grid={grid} s={sp.s} B={B} {dt}"
+    label = f"{name} Q={Q} grid={grid} s={sp.s} B={B} {dt}"
     log(f"kernel {label}: max err / |.|-sum "
         f"{errs[0]:.3e} (f64 gather), {errs[1]:.3e} (plain apply) (tol {tol:.0e}), y bitwise "
         f"equal over 2 launches: {same} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (warm L2 "
@@ -615,7 +660,7 @@ def stencil3_phase(hk, torch, dev):
         op = d.mf_operator()
         g = d.space.grid
         for B in STENCIL3_LANES:
-            r = stencil3_case(hk, torch, dev, op, B, dtype)
+            r = stencil_case(hk, torch, dev, op, B, dtype)
             checked.add(("stencil3_apply", len(op.stencils), g.kz, g.ky, g.kx, d.space.s,
                          B, dtype))
             if dtype == torch.float32 and B == STENCIL3_LANES[0]:
@@ -625,7 +670,7 @@ def stencil3_phase(hk, torch, dev):
     for kz, ky, kx, s, Q, B in ((1, 2, 3, 2, 3, 7), (3, 1, 2, 1, 2, 33), (2, 2, 1, 4, 2, 1)):
         for dtype in (torch.float32, torch.float64):
             op = random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dtype)
-            stencil3_case(hk, torch, dev, op, B, dtype)
+            stencil_case(hk, torch, dev, op, B, dtype)
             checked.add(("stencil3_apply", Q, kz, ky, kx, s, B, dtype))
     return row, checked
 
@@ -639,7 +684,10 @@ def kernel_phase(hk, torch, dev):
     summary, checked = {}, set()
 
     def case(kind, G, K, N, B, mdt, vdt):
-        checked.add((kind, G, K, N, B, mdt, vdt))
+        if kind == "stencil2_apply":                     # its signature (Q, ky, kx, s, B, dtype)
+            checked.add((kind, G, math.isqrt(K), math.isqrt(K), math.isqrt(N // 6), B, vdt))
+        else:
+            checked.add((kind, G, K, N, B, mdt, vdt))
         r = kernel_case(hk, torch, dev, randn, kind, G, K, N, B, mdt, vdt)
         if vdt == torch.float64 and r["path"] == "tiles":
             raise AssertionError(f"{kind} K={K} N={N} B={B}: an f64 launch took the SIMT tiles")
@@ -673,7 +721,15 @@ def kernel_phase(hk, torch, dev):
         torch.cuda.empty_cache()
     log(f"tensor shapes: {json.dumps(tensor_rows)}")
     for kind, G, K, N, B, mdt, vdt in PATH_SHAPES:
-        case(kind, G, K, N, B, dts[mdt], dts[vdt])
+        r = case(kind, G, K, N, B, dts[mdt], dts[vdt])
+        if kind == "stencil2_apply" and (B, vdt) == (1024, "f32"):
+            summary[kind] = r                            # the OS2015 stencil cell's shape
+        torch.cuda.empty_cache()
+    for ky, kx, s, Q, B in ((1, 2, 3, 3, 7), (3, 1, 1, 2, 33), (2, 2, 4, 2, 1), (2, 3, 2, 2, 17)):
+        for dtype in (f32, f64):                         # ragged grids, s odd among them
+            stencil_case(hk, torch, dev, random_stencil_op2(torch, dev, ky, kx, s, Q, dtype),
+                         B, dtype)
+            checked.add(("stencil2_apply", Q, ky, kx, s, B, dtype))
     for dt in (f64, f32):                                # ring: G=2, a half-empty row tile
         case("block_matvec", 2, 4, 96, 13, dt, dt)
     ring_rows = []
@@ -727,14 +783,15 @@ def path_shape_phase(hk, torch, dev, paths, checked):
                 per_shape.setdefault((kind, *sig), {})[path] = n
     todo = sorted(set(per_shape) - checked, key=str)
     log(f"main-path kernel shapes: {len(per_shape)}, not in the kernel phase: {len(todo)}")
-    for shape in sorted((s for s in per_shape if s[0] == "stencil3_apply"), key=str):
-        _, Q, kz, ky, kx, s, B, dt = shape
-        log(f"launches of stencil3_apply Q={Q} grid=({kz}, {ky}, {kx}) s={s} B={B} "
+    for shape in sorted((s for s in per_shape if s[0] in ("stencil3_apply", "stencil2_apply")),
+                        key=str):
+        kind, Q, *grid, s, B, dt = shape
+        log(f"launches of {kind} Q={Q} grid={tuple(grid)} s={s} B={B} "
             f"{str(dt)[6:]}{'' if shape in todo else ' (checked in the kernel phase)'}: "
             f"{per_shape.pop(shape)}")
         if shape in todo:
-            stencil3_case(hk, torch, dev, random_stencil_op3(torch, dev, kz, ky, kx, s, Q, dt),
-                          B, dt)
+            random_op = random_stencil_op3 if kind == "stencil3_apply" else random_stencil_op2
+            stencil_case(hk, torch, dev, random_op(torch, dev, *grid, s, Q, dt), B, dt)
             torch.cuda.empty_cache()
     todo = [s for s in todo if s in per_shape]
     simt = [s for s in per_shape if hk.plan(*s).route == hk.TILES]
@@ -2896,13 +2953,13 @@ def main() -> int:
 
         replaces = {"block_matvec": "pylrbms_tpu/ops/pallas_kernels.py:41",
                     "precond_dot": "pylrbms_tpu/ops/pallas_kernels.py:89",
-                    "stencil3_apply": None}
+                    "stencil3_apply": None, "stencil2_apply": None}
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         kernels = [{"name": name, "route": "cuda",
                     "source": "pylrbms_tpu_torch/csrc/block_kernels.cu",
                     "replaces": replaces[name], "launches": launches[name],
                     **{key: summary[name][key] for key in keys}}
-                   for name in ("block_matvec", "precond_dot", "stencil3_apply")]
+                   for name in hk.KERNELS]
     except Exception:                                    # noqa: BLE001 — report and fail
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -13,7 +13,9 @@ times them at each shape in turns "base, variants, variants reversed, base"
 kernel, plain, library and bound ms).  A turn that disagrees with the plain
 version is reported and the run goes on; the exit code is then 1.  SHAPE
 is ``kind,G,K,N,B,matrix dtype,vector dtype``, e.g.
-``block_matvec,2,64,384,256,f32,f32``; the default is the kernel phase's
+``block_matvec,2,64,384,256,f32,f32`` (``stencil2_apply,Q,K,N,B,dt,dt``
+for the 2D stencil kernel on Q random components, K square subdomains of N
+= 6 s^2 dofs: ``chip_smoke.stencil_case``); the default is the kernel phase's
 path shapes (``chip_smoke.PATH_SHAPES``), ``--dmma`` the dmma route's f64
 shapes (``chip_smoke.DMMA_SHAPES``), ``--tensor`` the tensor route's
 shapes (``chip_smoke.TENSOR_SHAPES``).  ``--define NAME=VALUE`` makes a variant

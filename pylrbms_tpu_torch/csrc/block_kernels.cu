@@ -14,11 +14,13 @@
 //      1-D (K,) block).  rz is deterministic on every route: summed in a
 //      fixed order, without float atomics, in one launch.
 //
-// and adds one kernel that replaces none (its note is at its code):
+// and adds two kernels that replace none (their notes are at their code):
 //
 //  * pylrbms_stencil3_apply: the lane-batched 3D hex Q1 stencil apply
 //      y[b,k,c,:] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b,nbr_j(k,c),:]
 //      S [Q,K,s,s,s,7,8,8], theta [B,Q], x/y [B,K,8 s^3] (f32 | f64).
+//  * pylrbms_stencil2_apply: the same on the 2D tri P1 stencil
+//      S [Q,K,s,s,2,4,3,3], theta [B,Q], x/y [B,K,6 s^2] (f32 | f64).
 //
 // Every matrix element is used once per lane, so the work is 2 G K N^2 B
 // operations on G K N^2 matrix elements: below ~20 operations per byte
@@ -1951,6 +1953,210 @@ int launch_stencil3(const T* S, const T* theta, const T* x, T* y, int Q, int kz,
   return (int)cudaGetLastError();
 }
 
+
+// ----------------------------------------------------------------------------
+// stencil2: the lane-batched 2D tri (P1) stencil apply
+// ----------------------------------------------------------------------------
+//
+//   y[b,k,c,:] = sum_q theta[b,q] * sum_{j<4} S[q,k,c,j] @ x[b, nbr_j(k,c), :]
+//
+// Replaces no Pallas kernel: the JAX package's 2D apply is plain jnp.  It
+// was added for the reason stencil3 was: the port's plain apply mixed theta
+// into one assembled stencil per lane (B x 2.4 MB at the OS2015 cell's
+// shape) and streamed it through ~27 block products and shifted adds in
+// every PCG iteration.  Here only the Q component stencils are read, from
+// the folded layout S [Q, K, s, s, 2, 4, 3, 3] (ops/matrixfree.
+// fold_stencils2: per triangle c = 2 (cy s + cx) + t, slot 0 its own block,
+// slot 1 its in-cell partner across the diagonal, slots 2 and 3 its
+// neighbour across the vertical and across the horizontal edge: the B to
+// the right and below for A (t = 0), the A to the left and above for B,
+// across subdomain interfaces too; zero where there is none).
+//
+// Bound (K=64, s=8, Q=2, B=1024, f32): bytes, 0.0608 ms an apply (x read
+// and y written once, 201 MB, and the component stencils, 2.3 MB, at 3.35
+// TB/s).  The work is 2 x 9 multiply-adds a lane and block, 0.60 GFLOP,
+// 3 operations a byte: far below the f32 SIMT ridge (~20), and blocks of
+// 3 x 3 leave nothing for mma, so it is SIMT FMA in x's type.  What the
+// design does about the bytes: a block owns one subdomain k and a tile of
+// LT lanes.  Each lane's x row of the subdomain (6 s^2 contiguous numbers)
+// reaches shared memory by 16-byte cp.async copies, read once from device
+// memory; the four edge strips of the neighbour subdomains (s triangles of
+// 3 numbers each) are gathered beside it (zero where the domain ends), so
+// no x element is read from device memory twice by a block and the strips
+// come from L2 (blockIdx.x = k: neighbouring subdomains run together).  A
+// thread owns a triangle: for each component it holds the triangle's four
+// blocks in registers (one 16-byte load per 4 or 2 numbers) and walks the
+// tile's lanes, reading its four x rows from shared memory (consecutive
+// triangles, conflict-free) and adding theta_bq times the product to the
+// lane's three sums, so no per-lane operator exists anywhere; y is written
+// once, consecutive triangles of one lane side by side.
+//
+// At the shape above (H100 SXM, 700 W, L2 flushed) it takes 0.152 ms in f32
+// at 8 lanes a block (0.185 at 4, 0.163 at 12, 0.185 at 16, 0.195 at 32:
+// a thread's 3 sums a lane are registers, 188 a thread at 16 lanes, so
+// more lanes cost blocks an SM; two or four groups of 128 threads sharing
+// a 16- or 32-lane tile, 0.163 and 0.176), and 0.253 ms in f64 (0.350 at 4
+// lanes).  The rest of the gap to the bound is the component blocks, read
+// from L2 once a lane tile (37 KB against the tile's 16 KB of x).
+//
+// Sums run in a fixed order (q, then j, then the 3 columns), so every
+// launch gives the same bits.  Any Q, B >= 1, kx, ky, s >= 1; the staged
+// rows must fit in shared memory (a lane tile of 1 takes s up to ~90 in
+// f32, ~60 in f64).
+
+constexpr int S2_NB = 3;                          // P1 triangle: dofs
+constexpr int S2_SLOTS = 4;                       // own, partner, vertical, horizontal
+constexpr int S2_BLOCK = S2_SLOTS * S2_NB * S2_NB;  // numbers a (q, triangle)
+constexpr int S2_THREADS = 128;                   // a triangle a thread (2 s^2 = 128 at s = 8)
+constexpr int S2_LANES = 8;                       // lanes a block (a thread's sums in registers)
+constexpr int S2_SMEM_MAX = 227 * 1024;           // the H100's dynamic shared memory a block
+
+// a triangle's four blocks of one component, 16-byte loads
+__device__ __forceinline__ void s2_load_block(const float* p, float (&w)[S2_BLOCK]) {
+#pragma unroll
+  for (int v = 0; v < S2_BLOCK / 4; ++v) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p) + v);
+    w[4 * v] = a.x; w[4 * v + 1] = a.y; w[4 * v + 2] = a.z; w[4 * v + 3] = a.w;
+  }
+}
+__device__ __forceinline__ void s2_load_block(const double* p, double (&w)[S2_BLOCK]) {
+#pragma unroll
+  for (int v = 0; v < S2_BLOCK / 2; ++v) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p) + v);
+    w[2 * v] = a.x; w[2 * v + 1] = a.y;
+  }
+}
+
+// Block (k = blockIdx.x, lane tile blockIdx.y of LT lanes).  Shared memory:
+// per lane of the tile a row of R = 3 (2 s^2 + 4 s) numbers, the subdomain's triangles
+// then the halo strips left (the A at (j, s-1) of k - 1), right (the B at
+// (j, 0) of k + 1), below (the B at (s-1, j) of k - kx) and above (the A at
+// (0, j) of k + kx), j < s; then theta [LT, Q].
+template <typename T, int LT>
+__global__ void __launch_bounds__(S2_THREADS)
+stencil2_simt(const T* __restrict__ S, const T* __restrict__ theta,
+              const T* __restrict__ x, T* __restrict__ y,
+              int Q, int ky, int kx, int s, int B) {
+  extern __shared__ __align__(16) unsigned char s2_raw[];
+  T* xs = reinterpret_cast<T*>(s2_raw);
+  const int C = 2 * s * s, N = S2_NB * C, R = N + 4 * S2_NB * s;
+  const int K = kx * ky, k = blockIdx.x, ix = k % kx, iy = k / kx;
+  const int b0 = blockIdx.y * LT, tid = threadIdx.x;
+  T* ths = xs + (size_t)LT * R;
+
+  // the tile's x rows: 16-byte copies where rows are 16-byte multiples
+  constexpr int V = 16 / sizeof(T);
+  if (N % V == 0) {
+    const int nv = N / V;
+    for (int e = tid; e < LT * nv; e += S2_THREADS) {
+      const int u = e / nv, i = e - u * nv, b = b0 + u;
+      cp_async16(xs + (size_t)u * R + i * V,
+                 x + ((size_t)min(b, B - 1) * K + k) * N + i * V, b < B);
+    }
+    cp_async_commit();
+  } else {
+    for (int e = tid; e < LT * N; e += S2_THREADS) {
+      const int u = e / N, i = e - u * N, b = b0 + u;
+      xs[(size_t)u * R + i] = b < B ? __ldg(x + ((size_t)b * K + k) * N + i) : T(0);
+    }
+  }
+  const int HN = 4 * s * S2_NB;                 // halo numbers a lane
+  for (int e = tid; e < LT * HN; e += S2_THREADS) {
+    const int u = e / HN, r = e - u * HN, h = r / S2_NB, l = r - h * S2_NB;
+    const int side = h / s, j = h - side * s, b = b0 + u;
+    int kn = -1, c = 0;
+    if (side == 0 && ix > 0) { kn = k - 1; c = 2 * (j * s + s - 1); }
+    else if (side == 1 && ix < kx - 1) { kn = k + 1; c = 2 * j * s + 1; }
+    else if (side == 2 && iy > 0) { kn = k - kx; c = 2 * ((s - 1) * s + j) + 1; }
+    else if (side == 3 && iy < ky - 1) { kn = k + kx; c = 2 * j; }
+    xs[(size_t)u * R + N + r] =
+        kn >= 0 && b < B ? __ldg(x + ((size_t)b * K + kn) * N + c * S2_NB + l) : T(0);
+  }
+  for (int e = tid; e < LT * Q; e += S2_THREADS)
+    ths[e] = b0 + e / Q < B ? __ldg(theta + (size_t)b0 * Q + e) : T(0);
+  if (N % V == 0) cp_async_wait<0>();
+  __syncthreads();
+
+  for (int c = tid; c < C; c += S2_THREADS) {
+    const int t = c & 1, cy = (c >> 1) / s, cx = (c >> 1) - cy * s;
+    int o[S2_SLOTS];                              // the four rows in a lane's row
+    o[0] = S2_NB * c;
+    o[1] = S2_NB * (c ^ 1);
+    if (t == 0) {
+      o[2] = S2_NB * (cx < s - 1 ? c + 3 : C + s + cy);
+      o[3] = S2_NB * (cy > 0 ? c - 2 * s + 1 : C + 2 * s + cx);
+    } else {
+      o[2] = S2_NB * (cx > 0 ? c - 3 : C + cy);
+      o[3] = S2_NB * (cy < s - 1 ? c + 2 * s - 1 : C + 3 * s + cx);
+    }
+    T acc[LT][S2_NB];
+#pragma unroll
+    for (int u = 0; u < LT; ++u)
+#pragma unroll
+      for (int i = 0; i < S2_NB; ++i) acc[u][i] = T(0);
+    for (int q = 0; q < Q; ++q) {
+      T w[S2_BLOCK];
+      s2_load_block(S + ((size_t)(q * K + k) * C + c) * S2_BLOCK, w);
+#pragma unroll
+      for (int u = 0; u < LT; ++u) {
+        const T* xu = xs + (size_t)u * R;
+        T p[S2_NB] = {T(0), T(0), T(0)};
+#pragma unroll
+        for (int j = 0; j < S2_SLOTS; ++j) {
+          const T x0 = xu[o[j]], x1 = xu[o[j] + 1], x2 = xu[o[j] + 2];
+#pragma unroll
+          for (int i = 0; i < S2_NB; ++i) {
+            const T* wi = w + (j * S2_NB + i) * S2_NB;
+            p[i] = madd(wi[2], x2, madd(wi[1], x1, madd(wi[0], x0, p[i])));
+          }
+        }
+        const T th = ths[u * Q + q];
+#pragma unroll
+        for (int i = 0; i < S2_NB; ++i) acc[u][i] = madd(th, p[i], acc[u][i]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LT; ++u) {
+      const int b = b0 + u;
+      if (b < B) {
+        T* yr = y + ((size_t)b * K + k) * N + S2_NB * c;
+#pragma unroll
+        for (int i = 0; i < S2_NB; ++i) yr[i] = acc[u][i];
+      }
+    }
+  }
+}
+
+template <typename T, int LT>
+int launch_stencil2_tile(const T* S, const T* theta, const T* x, T* y, int Q, int ky, int kx,
+                         int s, int B, size_t bytes, cudaStream_t st) {
+  auto kernel = stencil2_simt<T, LT>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+  }
+  const dim3 grid(kx * ky, (B + LT - 1) / LT);
+  kernel<<<grid, S2_THREADS, bytes, st>>>(S, theta, x, y, Q, ky, kx, s, B);
+  return (int)cudaGetLastError();
+}
+
+// S2_LANES lanes a block where their rows fit in shared memory, else one
+template <typename T>
+int launch_stencil2(const T* S, const T* theta, const T* x, T* y, int Q, int ky, int kx, int s,
+                    int B, cudaStream_t st) {
+  const size_t row = (size_t)S2_NB * (2 * s * s + 4 * s) + Q;   // a lane's x row and theta
+  const size_t bytes = S2_LANES * row * sizeof(T);
+  if (bytes <= S2_SMEM_MAX)
+    return launch_stencil2_tile<T, S2_LANES>(S, theta, x, y, Q, ky, kx, s, B, bytes, st);
+  const size_t one = row * sizeof(T);
+  if (one > S2_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return launch_stencil2_tile<T, 1>(S, theta, x, y, Q, ky, kx, s, B, one, st);
+}
+
 }  // namespace
 
 extern "C" int pylrbms_block_matvec(int route, int lanes, int chunks, int a_dtype, int x_dtype,
@@ -1997,5 +2203,21 @@ extern "C" int pylrbms_stencil3_apply(int dtype, const void* S, const void* thet
                                    static_cast<const double*>(theta),
                                    static_cast<const double*>(x), static_cast<double*>(y), Q, kz,
                                    ky, kx, s, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int pylrbms_stencil2_apply(int dtype, const void* S, const void* theta,
+                                      const void* x, void* y, int Q, int ky, int kx, int s,
+                                      int B, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_stencil2<float>(static_cast<const float*>(S), static_cast<const float*>(theta),
+                                  static_cast<const float*>(x), static_cast<float*>(y), Q, ky,
+                                  kx, s, B, st);
+  if (dtype == kF64)
+    return launch_stencil2<double>(static_cast<const double*>(S),
+                                   static_cast<const double*>(theta),
+                                   static_cast<const double*>(x), static_cast<double*>(y), Q, ky,
+                                   kx, s, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,12 +10,15 @@ header for the design and what bounds them on the card):
 * :func:`precond_dot` <- ``precond_dot_pallas``:
   ``z[b,k] = F[k] @ r[b,k]`` and ``rz[b,k] = r[b,k] . z[b,k]``.
 
-A third kernel in the same library replaces no Pallas kernel (the JAX
-package's 3D stencil apply is plain ``jnp``):
+Two more kernels in the same library replace no Pallas kernel (the JAX
+package's stencil applies are plain ``jnp``):
 
 * :func:`stencil3_apply`: the lane-batched 3D hex Q1 stencil apply
   ``y[b,k,c] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b, nbr_j(k,c)]`` on the
-  folded component stencils of ``ops/matrixfree3d.fold_stencils3``.
+  folded component stencils of ``ops/matrixfree3d.fold_stencils3``;
+* :func:`stencil2_apply`: the same for the 2D tri P1 stencil, each triangle
+  coupled to itself, its in-cell partner and its two edge neighbours, on
+  the folded components of ``ops/matrixfree.fold_stencils2``.
 
 Each launch of the first two takes one of five routes, which :func:`plan`
 picks from the shape and dtypes by arithmetic intensity (operations per
@@ -98,7 +101,12 @@ PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12, "f64 tensor": 67e12, "tf32": 495e1
 # f64: SIMT)
 STENCIL3_NB = 8
 STENCIL3_SLOTS = 7
-STENCIL3_DTYPES = (torch.float32, torch.float64)
+STENCIL_DTYPES = (torch.float32, torch.float64)
+# stencil2_apply: dofs a triangle (tri P1), blocks a triangle (its own, then
+# its in-cell partner across the diagonal, its neighbour across the vertical
+# and across the horizontal edge); SIMT FMA for both vector dtypes
+STENCIL2_NB = 3
+STENCIL2_SLOTS = 4
 
 
 class Plan(NamedTuple):
@@ -259,37 +267,102 @@ def stencil3_apply_plain(S, theta, x, grid):
     """Gather-and-``einsum`` form of :func:`stencil3_apply` (same
     arguments): each cell's seven neighbour rows of x gathered, every
     component's product taken, then mixed by theta."""
-    Q, K, s = S.shape[0], S.shape[1], S.shape[2]
-    B, KC, nb = x.shape[0], K * s ** 3, STENCIL3_NB
-    nbr = torch.as_tensor(stencil3_neighbours(*grid, s), device=x.device)
+    return _stencil_apply_plain(S, theta, x, stencil3_neighbours(*grid, S.shape[2]))
+
+
+@functools.lru_cache(maxsize=16)
+def stencil2_neighbours(ky, kx, s):
+    """[K C, 4] int64: the flat (k, c) index of each triangle's own block,
+    of its in-cell partner, and of its neighbour across the vertical and
+    across the horizontal edge on the global grid of ky x kx subdomains of
+    s^2 cells of two triangles (k = iy kx + ix, c = 2 (cy s + cx) + t; t = 0
+    the lower triangle A, whose edge neighbours are the B of the cells to
+    its right and below, t = 1 the upper B, whose are the A to its left and
+    above), K C where there is none."""
+    nx, ny = kx * s, ky * s
+    gy, gx, t = np.meshgrid(np.arange(ny), np.arange(nx), np.arange(2), indexing="ij")
+
+    def flat(hx, hy, ht):
+        k = (hy // s) * kx + hx // s
+        return (k * s * s + (hy % s) * s + hx % s) * 2 + ht
+
+    KC = 2 * nx * ny
+    table = np.empty((KC, STENCIL2_SLOTS), np.int64)
+    # A (t = 0): right and below; B (t = 1): left and above
+    dx, dy = 1 - 2 * t, 2 * t - 1
+    for j, (hx, hy) in enumerate(((gx, gy), (gx, gy), (gx + dx, gy), (gx, gy + dy))):
+        inside = (hx >= 0) & (hx < nx) & (hy >= 0) & (hy < ny)
+        table[flat(gx, gy, t).ravel(), j] = np.where(
+            inside, flat(np.clip(hx, 0, nx - 1), np.clip(hy, 0, ny - 1),
+                         t if j == 0 else 1 - t), KC).ravel()
+    return table
+
+
+def stencil2_apply_plain(S, theta, x, grid):
+    """Gather-and-``einsum`` form of :func:`stencil2_apply` (same
+    arguments): each triangle's four neighbour rows of x gathered, every
+    component's product taken, then mixed by theta."""
+    return _stencil_apply_plain(S, theta, x, stencil2_neighbours(*grid, S.shape[2]))
+
+
+def _stencil_apply_plain(S, theta, x, table):
+    """``sum_q theta[b,q] sum_j S[q,c,j] @ x[b, table[c,j]]`` for S [Q, K, ...,
+    slots, nb, nb] and the neighbour ``table`` [K C, slots] (K C: none)."""
+    KC, slots = table.shape
+    Q, nb, B = S.shape[0], S.shape[-1], x.shape[0]
+    nbr = torch.as_tensor(table, device=x.device)
     xn = torch.cat([x.reshape(B, KC, nb), x.new_zeros(B, 1, nb)], 1)[:, nbr]
-    per_q = torch.einsum("qcjil,bcjl->bqci", S.reshape(Q, KC, STENCIL3_SLOTS, nb, nb), xn)
+    per_q = torch.einsum("qcjil,bcjl->bqci", S.reshape(Q, KC, slots, nb, nb), xn)
     return torch.einsum("bq,bqci->bci", theta, per_q).reshape(x.shape)
 
 
-def stencil3_work(Q, kz, ky, kx, s, B, dtype):
-    """(operations, bytes) of one :func:`stencil3_apply`, counted as the
-    benchmark counts the stencil apply (``benchmark/stencil_roofline.py``):
-    one nb x nb block a cell and two a face between cells, 2 operations a
-    multiply-add and lane; the Q component stencils read once, x read and
-    y written once a lane, theta read once."""
-    nx, ny, nz = kx * s, ky * s, kz * s
-    C = nx * ny * nz
-    F = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
-    blocks = STENCIL3_NB ** 2 * (C + 2 * F)
+def _stencil_work(nb, C, F, Q, B, dtype):
+    """(operations, bytes) of one lane-batched stencil apply on C cells and
+    F inner faces, counted as the benchmark counts it
+    (``benchmark/stencil_roofline.py``): one nb x nb block a cell and two a
+    face, 2 operations a multiply-add and lane; the Q component stencils
+    read once, x read and y written once a lane, theta read once."""
+    blocks = nb ** 2 * (C + 2 * F)
     size = torch.finfo(dtype).bits // 8
-    return 2 * B * blocks, (Q * blocks + 2 * B * C * STENCIL3_NB + B * Q) * size
+    return 2 * B * blocks, (Q * blocks + 2 * B * C * nb + B * Q) * size
+
+
+def _stencil_bound(ops, nbytes, dtype):
+    """(ms, "bytes" | "operations"): bytes over the HBM rate or operations
+    over the SIMT rate of the vector type (f32 67, f64 34 TFLOP/s),
+    whichever is larger."""
+    t_ops = ops / PEAK_OPS_PER_S["f64" if dtype == torch.float64 else "f32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+
+
+def stencil3_work(Q, kz, ky, kx, s, B, dtype):
+    """(operations, bytes) of one :func:`stencil3_apply`
+    (:func:`_stencil_work` on the hex cells and their faces)."""
+    nx, ny, nz = kx * s, ky * s, kz * s
+    F = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    return _stencil_work(STENCIL3_NB, nx * ny * nz, F, Q, B, dtype)
 
 
 def stencil3_bound(Q, kz, ky, kx, s, B, dtype):
     """(ms, "bytes" | "operations"): the least time of one
-    :func:`stencil3_apply` on the card: :func:`stencil3_work`'s bytes over
-    the HBM rate or its operations over the SIMT rate of the vector type
-    (f32 67, f64 34 TFLOP/s), whichever is larger."""
-    ops, nbytes = stencil3_work(Q, kz, ky, kx, s, B, dtype)
-    t_ops = ops / PEAK_OPS_PER_S["f64" if dtype == torch.float64 else "f32"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+    :func:`stencil3_apply` on the card (:func:`_stencil_bound`)."""
+    return _stencil_bound(*stencil3_work(Q, kz, ky, kx, s, B, dtype), dtype)
+
+
+def stencil2_work(Q, ky, kx, s, B, dtype):
+    """(operations, bytes) of one :func:`stencil2_apply`
+    (:func:`_stencil_work` on the triangles, two a square, and their inner
+    edges: the diagonals, the vertical and the horizontal ones)."""
+    nx, ny = kx * s, ky * s
+    F = nx * ny + (nx - 1) * ny + nx * (ny - 1)
+    return _stencil_work(STENCIL2_NB, 2 * nx * ny, F, Q, B, dtype)
+
+
+def stencil2_bound(Q, ky, kx, s, B, dtype):
+    """(ms, "bytes" | "operations"): the least time of one
+    :func:`stencil2_apply` on the card (:func:`_stencil_bound`)."""
+    return _stencil_bound(*stencil2_work(Q, ky, kx, s, B, dtype), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +406,8 @@ def open_library(library):
     lib.pylrbms_precond_dot.restype = ci
     lib.pylrbms_stencil3_apply.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.pylrbms_stencil3_apply.restype = ci
+    lib.pylrbms_stencil2_apply.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.pylrbms_stencil2_apply.restype = ci
     return lib
 
 
@@ -489,12 +564,7 @@ def stencil3_apply(S, theta, x, grid):
                          f"{tuple(theta.shape)}, x {tuple(x.shape)}, grid {tuple(grid)}")
     if all(t.device.type == "cpu" for t in (S, theta, x)):
         return stencil3_apply_plain(S, theta, x, grid)
-    _check_cuda("stencil3_apply", S, theta, x)
-    if x.dtype not in STENCIL3_DTYPES or S.dtype != x.dtype:
-        raise TypeError(f"stencil3_apply: unsupported dtypes S {S.dtype}, theta "
-                        f"{theta.dtype}, x {x.dtype} (all f32 or all f64)")
-    if not _aligned(S, x):
-        raise ValueError("stencil3_apply: S and x must be 16-byte aligned")
+    _check_stencil("stencil3_apply", S, theta, x)
     Q, s, B = S.shape[0], S.shape[2], x.shape[0]
     kz, ky, kx = (int(g) for g in grid)
     y = torch.empty_like(x)
@@ -506,9 +576,50 @@ def stencil3_apply(S, theta, x, grid):
     return y
 
 
+def stencil2_apply(S, theta, x, grid):
+    """The lane-batched 2D tri P1 stencil apply
+    ``y[b,k,c,:] = sum_q theta[b,q] sum_j S[q,k,c,j] @ x[b, nbr_j(k,c), :]``.
+
+    S [Q, K, s, s, 2, 4, 3, 3] (the folded component stencils:
+    ``ops/matrixfree.fold_stencils2``), theta [B, Q], x [B, K, 6 s^2], all
+    f32 or all f64; ``grid`` (ky, kx) the subdomains (K = ky kx),
+    neighbours as in :func:`stencil2_neighbours`.  Returns y like x,
+    accumulated in x's dtype."""
+    if S.ndim != 8 or tuple(S.shape[4:]) != (2, STENCIL2_SLOTS, STENCIL2_NB, STENCIL2_NB) \
+            or S.shape[2] != S.shape[3] or len(grid) != 2 \
+            or S.shape[1] != math.prod(grid) or x.ndim != 3 or theta.ndim != 2 \
+            or tuple(x.shape[1:]) != (S.shape[1], 2 * STENCIL2_NB * S.shape[2] ** 2) \
+            or tuple(theta.shape) != (x.shape[0], S.shape[0]):
+        raise ValueError(f"stencil2_apply: bad shapes S {tuple(S.shape)}, theta "
+                         f"{tuple(theta.shape)}, x {tuple(x.shape)}, grid {tuple(grid)}")
+    if all(t.device.type == "cpu" for t in (S, theta, x)):
+        return stencil2_apply_plain(S, theta, x, grid)
+    _check_stencil("stencil2_apply", S, theta, x)
+    Q, s, B = S.shape[0], S.shape[2], x.shape[0]
+    ky, kx = (int(g) for g in grid)
+    y = torch.empty_like(x)
+    _launch("stencil2_apply", _lib().pylrbms_stencil2_apply, x.device,
+            torch.cuda.current_stream(x.device).cuda_stream,
+            _DTYPE_CODE[x.dtype], S.data_ptr(), theta.data_ptr(), x.data_ptr(), y.data_ptr(),
+            Q, ky, kx, s, B)
+    _count(stencil2_apply, (Q, ky, kx, s, B, x.dtype))
+    return y
+
+
+def _check_stencil(name, S, theta, x):
+    """A stencil kernel's operands: on one CUDA device, contiguous, all f32
+    or all f64, S and x 16-byte aligned."""
+    _check_cuda(name, S, theta, x)
+    if x.dtype not in STENCIL_DTYPES or S.dtype != x.dtype:
+        raise TypeError(f"{name}: unsupported dtypes S {S.dtype}, theta "
+                        f"{theta.dtype}, x {x.dtype} (all f32 or all f64)")
+    if not _aligned(S, x):
+        raise ValueError(f"{name}: S and x must be 16-byte aligned")
+
+
 # every wrapper of the library, by kernel name
 KERNELS = {"block_matvec": block_matvec, "precond_dot": precond_dot,
-           "stencil3_apply": stencil3_apply}
+           "stencil3_apply": stencil3_apply, "stencil2_apply": stencil2_apply}
 
 
 def _count(fn, signature) -> None:
@@ -531,7 +642,8 @@ def launch_signatures() -> dict:
     """Per kernel, the distinct signatures it was launched with since the
     last :func:`reset_launch_counts`: ``(G, K, N, B, matrix dtype, vector
     dtype)`` for block_matvec and precond_dot, ``(Q, kz, ky, kx, s, B,
-    dtype)`` for stencil3_apply."""
+    dtype)`` for stencil3_apply and ``(Q, ky, kx, s, B, dtype)`` for
+    stencil2_apply."""
     return {name: set(counts) for name, counts in launch_signature_counts().items()}
 
 

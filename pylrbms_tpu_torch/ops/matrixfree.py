@@ -25,14 +25,25 @@ apply by the static cell-parity checkerboard (H faces couple t1 below to t0
 above for both parities, as on 'tri').
 
 Every field of an :class:`AssembledStencil` may carry leading lane axes
-(``StencilOperator.assemble`` with theta [B, Q]); ``apply`` broadcasts them
+(``StencilOperator.mix`` with theta [B, Q]); ``apply`` broadcasts them
 against the lanes of x, so B parameter queries share one lane-batched PCG.
+Lane-batched operators on tri P1 (T = 2, nb = 3, not crisscross) are a
+:class:`LaneStencil` instead: theta and the component stencils, folded
+once per dtype and device into one own block and three neighbour blocks a
+triangle (:func:`fold_stencils2`), nothing per lane; on the card its apply
+is one launch of the hand-written
+:func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil2_apply`, on the CPU it
+is the per-lane :class:`AssembledStencil`'s apply.  Quad, crisscross, P2
+and single-theta operators stay an :class:`AssembledStencil`, whose apply
+is plain torch.  :attr:`StencilOperator.lane_kernel` alone decides which
+operators take the lane kernel (:class:`LaneFamily` holds what the 2D and
+3D families share of it).
 
 The block-factor preconditioner of :func:`stencil_pcg`, the PCG of every
-stencil form (``AssembledStencil.solve_pcg`` and the 3D ones), goes
-through the hand-written :func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot`
-(f32 or bf16 factors, f32 residual, as the reference applies them); the
-stencil apply itself stays plain torch (XLA einsums in the reference).
+stencil form (``AssembledStencil.solve_pcg`` and the 3D and lane ones),
+goes through the hand-written
+:func:`~pylrbms_tpu_torch.ops.hopper_kernels.precond_dot` (f32 or bf16
+factors, f32 residual, as the reference applies them).
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import torch
 
 from . import assembly as asm
 from .assembly import IPDGParams, DEFAULT_IPDG
+from . import hopper_kernels as hk
 from .hopper_kernels import precond_dot
 from ..la.krylov import lane_dot, pcg_chunked
 from ..utils.timers import GLOBAL_TIMINGS
@@ -246,20 +258,145 @@ def mass_stencil(space, like: SwipdgStencil) -> SwipdgStencil:
                          D_side={k: torch.zeros_like(v) for k, v in like.D_side.items()})
 
 
+def fold_stencils2(space, stencils, dtype, device) -> torch.Tensor:
+    """The tri P1 components ``stencils`` folded per triangle: [Q, K, s, s,
+    2, 4, nb, nb] (triangle t of cell (cy, cx); t = 0 the lower A, 1 the
+    upper B), slot 0 the triangle's own block (volume, the own side of its
+    diagonal, vertical and horizontal faces, the interface in_in / out_out
+    blocks and the Dirichlet strips), slot 1 its coupling to the in-cell
+    partner across the diagonal (Dmp / Dpm), slot 2 to its neighbour across
+    the vertical edge (Vmp / Vpm, or the interface Rio / Roi: the B to the
+    right for A, the A to the left for B), slot 3 across the horizontal
+    edge (Hpm / Hmp, or Uoi / Uio: the B below for A, the A above for B);
+    zero where there is none.  ``A x`` is then, for each triangle, the sum
+    of the four blocks times x on it and its neighbours (the operand of
+    :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil2_apply`); the
+    indexing is :meth:`AssembledStencil.apply`'s on 'tri', summed in
+    ``dtype``."""
+    grid = space.grid
+    K, s, nb = space.K, space.s, space.nb
+    ky, kx = grid.ky, grid.kx
+    P = torch.zeros((len(stencils), ky, kx, s, s, 2, hk.STENCIL2_SLOTS, nb, nb),
+                    dtype=dtype, device=device)
+    for q, st in enumerate(stencils):
+        st = cast(st, dtype)
+
+        def g(t, j):
+            """Triangle t's slot j on the grid: [ky, kx, cy, cx, nb, nb]."""
+            return P[q, :, :, :, :, t, j]
+
+        def f(t, j):
+            """The same per subdomain: [K, cy, cx, nb, nb]."""
+            return g(t, j).view(K, s, s, nb, nb)
+
+        Dmm, Dmp, Dpm, Dpp = (b.to(device) for b in st.D)
+        f(0, 0).add_(st.vol[..., 0, :, :].to(device)).add_(Dmm)
+        f(1, 0).add_(st.vol[..., 1, :, :].to(device)).add_(Dpp)
+        f(0, 1).add_(Dmp)
+        f(1, 1).add_(Dpm)
+        if s > 1:
+            # V: minus (cy, cx, A), plus (cy, cx+1, B); H: minus (cy, cx, B),
+            # plus (cy+1, cx, A)
+            Vmm, Vmp, Vpm, Vpp = (b.to(device) for b in st.V)
+            f(0, 0)[:, :, :-1].add_(Vmm)
+            f(0, 2)[:, :, :-1].add_(Vmp)
+            f(1, 2)[:, :, 1:].add_(Vpm)
+            f(1, 0)[:, :, 1:].add_(Vpp)
+            Hmm, Hmp, Hpm, Hpp = (b.to(device) for b in st.H)
+            f(1, 0)[:, :-1].add_(Hmm)
+            f(1, 3)[:, :-1].add_(Hmp)
+            f(0, 3)[:, 1:].add_(Hpm)
+            f(0, 0)[:, 1:].add_(Hpp)
+        if kx > 1:
+            # minus (iy, ix, cy, s-1, A), plus (iy, ix+1, cy, 0, B)
+            Rii, Rio, Roi, Roo = (b.to(device).reshape(ky, kx - 1, s, nb, nb) for b in st.R)
+            g(0, 0)[:, :-1, :, s - 1].add_(Rii)
+            g(0, 2)[:, :-1, :, s - 1].add_(Rio)
+            g(1, 2)[:, 1:, :, 0].add_(Roi)
+            g(1, 0)[:, 1:, :, 0].add_(Roo)
+        if ky > 1:
+            # minus (iy, ix, s-1, cx, B), plus (iy+1, ix, 0, cx, A)
+            Uii, Uio, Uoi, Uoo = (b.to(device).reshape(ky - 1, kx, s, nb, nb) for b in st.U)
+            g(1, 0)[:-1, :, s - 1].add_(Uii)
+            g(1, 3)[:-1, :, s - 1].add_(Uio)
+            g(0, 3)[1:, :, 0].add_(Uoi)
+            g(0, 0)[1:, :, 0].add_(Uoo)
+        D = {sd: v.to(device).reshape(ky, kx, s, nb, nb) for sd, v in st.D_side.items()}
+        g(1, 0)[:, 0, :, 0].add_(D["left"][:, 0])
+        g(0, 0)[:, kx - 1, :, s - 1].add_(D["right"][:, kx - 1])
+        g(0, 0)[0, :, 0].add_(D["bottom"][0])
+        g(1, 0)[ky - 1, :, s - 1].add_(D["top"][ky - 1])
+    return P.reshape((len(stencils), K, s, s, 2, hk.STENCIL2_SLOTS, nb, nb))
+
+
+class LaneFamily:
+    """What the 2D and 3D affine stencil families share of their lane
+    kernel: the components folded once per dtype and device
+    (:meth:`folded`, built by the family's ``fold``), their set-up
+    (:meth:`prepare`) and :meth:`assemble`, which gives the family's lane
+    form (its ``lane``) for theta [B, Q] where ``lane_kernel`` names a
+    kernel, and the per-lane fields of its ``mix`` otherwise."""
+
+    def __post_init__(self):
+        self._folded = {}                 # (dtype, device) -> self.fold(...)
+
+    def folded(self, dtype, device) -> torch.Tensor:
+        """The family's folded components in ``dtype`` on ``device``, built
+        at the first request and kept."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (dtype, device)
+        P = self._folded.get(key)
+        if P is None:
+            P = self._folded[key] = self.fold(dtype, device)
+        return P
+
+    def prepare(self, dtypes, device) -> None:
+        """The lane kernel's set-up: the components folded in each of
+        ``dtypes`` on ``device`` (nothing without a lane kernel)."""
+        if self.lane_kernel:
+            for dt in dtypes:
+                self.folded(dt, device)
+
+    def assemble(self, theta):
+        """The operator at theta: theta [B, Q] with a ``lane_kernel`` gives
+        the lane form (nothing per lane is built), anything else the
+        family's ``mix``."""
+        theta = torch.as_tensor(theta).to(self.stencils[0].vol)
+        if theta.ndim == 2 and self.lane_kernel:
+            return self.lane(theta.contiguous())
+        return self.mix(theta)
+
+
 @dataclass(eq=False)
-class StencilOperator:
+class StencilOperator(LaneFamily):
     """Affine family of stencils with a fused matrix-free apply."""
     space: object
     stencils: Tuple[SwipdgStencil, ...]
 
-    # the hand kernel of the lane-batched applies: none in 2D, whose lanes
-    # carry per-lane fields (the 3D family's ``lane_kernel`` is one)
-    lane_kernel = None
+    @property
+    def lane_kernel(self):
+        """The hand kernel of this family's lane-batched applies:
+        ``"stencil2_apply"`` on tri P1 (T = 2 and nb = 3, not crisscross),
+        else None (the lanes then carry per-lane fields)."""
+        sp = self.space
+        tri_p1 = sp.T == 2 and sp.nb == hk.STENCIL2_NB and not sp.percell
+        return "stencil2_apply" if tri_p1 else None
 
-    def prepare(self, dtypes, device) -> None:
-        """The lane kernel's set-up: nothing, as there is no lane kernel."""
+    def fold(self, dtype, device) -> torch.Tensor:
+        return fold_stencils2(self.space, self.stencils, dtype, device)
 
-    def assemble(self, theta) -> "AssembledStencil":
+    def lane(self, theta) -> "LaneStencil":
+        return LaneStencil(self, theta)
+
+    def lane_apply(self, theta, x) -> torch.Tensor:
+        """One :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil2_apply`
+        launch: A(theta_b) x_b for every lane b of x [B, K, N] on the card."""
+        g = self.space.grid
+        return hk.stencil2_apply(self.folded(x.dtype, x.device), theta, x, (g.ky, g.kx))
+
+    def mix(self, theta) -> "AssembledStencil":
         """sum_q theta_q * stencil_q; theta [Q], or [B, Q] for lane-batched
         fields (a leading B axis on every field)."""
         st0 = self.stencils[0]
@@ -628,3 +765,48 @@ class AssembledStencil:
         yg[..., ky - 1, :, s - 1, :, tT, :] += bmv(
             Ds["top"][..., ky - 1, :, :, :, :], xg[..., ky - 1, :, s - 1, :, tT, :])
         return yg.reshape(yg.shape[:-6] + (K, sp.N))
+
+
+@dataclass(eq=False)
+class LaneStencil:
+    """A lane-batched operator A(theta_b), b < B, of a family with a lane
+    kernel: the affine family ``op`` and theta [B, Q], nothing per lane.  On
+    the card :meth:`apply` is ``op.lane_apply`` (one launch of the family's
+    hand kernel on ``op.folded`` in x's dtype; f64 after :func:`cast`, which
+    casts theta); on the CPU it is :meth:`materialize`'s apply, bit for bit
+    the per-lane form.  Its cell-Jacobi factors (the default preconditioner
+    of :meth:`solve_pcg`) are :meth:`materialize`'s."""
+    op: object
+    theta: torch.Tensor
+
+    def __post_init__(self):
+        self._plain = None
+
+    @property
+    def space(self):
+        return self.op.space
+
+    def materialize(self):
+        """The per-lane form of ``op.mix`` in theta's dtype (B copies of
+        every field: the plain version of the apply)."""
+        if self._plain is None:
+            op = self.op
+            if op.stencils[0].vol.dtype != self.theta.dtype:
+                op = cast(op, self.theta.dtype)
+            self._plain = op.mix(self.theta)
+        return self._plain
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, K, N] -> A(theta_b) x_b for every lane b (counted by
+        :func:`count_apply`); x of any strides (the kernel reads a dense
+        copy: the greedy's reconstructed U is an einsum's view)."""
+        if x.device.type == "cpu":
+            return self.materialize().apply(x)
+        count_apply(x)
+        return self.op.lane_apply(self.theta, x.contiguous())
+
+    def cell_jacobi_factors(self) -> torch.Tensor:
+        return self.materialize().cell_jacobi_factors()
+
+    # the matrix-free PCG of the single-theta form, over this form's apply
+    solve_pcg = AssembledStencil.solve_pcg

@@ -44,7 +44,7 @@ from . import assembly as asm
 from . import assembly3d as asm3
 from .assembly import IPDGParams, DEFAULT_IPDG
 from . import hopper_kernels as hk
-from .matrixfree import bmv, cast, count_apply, stencil_pcg
+from .matrixfree import LaneFamily, LaneStencil, bmv, cast, count_apply, stencil_pcg
 from .swipdg3d import SIDES, edge_lists3
 
 # (side, k axis, k index of the boundary layer as a function of the grid,
@@ -205,25 +205,10 @@ def fold_stencils3(space, stencils, dtype, device) -> torch.Tensor:
 
 
 @dataclass(eq=False)
-class StencilOperator3:
+class StencilOperator3(LaneFamily):
     """Affine family of 3D stencils with a fused matrix-free apply."""
     space: object
     stencils: Tuple[SwipdgStencil3, ...]
-
-    def __post_init__(self):
-        self._folded = {}                 # (dtype, device) -> fold_stencils3
-
-    def folded(self, dtype, device) -> torch.Tensor:
-        """:func:`fold_stencils3` of this family in ``dtype`` on ``device``,
-        built at the first request and kept."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        key = (dtype, device)
-        P = self._folded.get(key)
-        if P is None:
-            P = self._folded[key] = fold_stencils3(self.space, self.stencils, dtype, device)
-        return P
 
     @property
     def lane_kernel(self):
@@ -232,21 +217,17 @@ class StencilOperator3:
         carry per-lane fields)."""
         return "stencil3_apply" if self.space.nb == hk.STENCIL3_NB else None
 
-    def prepare(self, dtypes, device) -> None:
-        """The lane kernel's set-up: the components folded in each of
-        ``dtypes`` on ``device`` (nothing without a lane kernel)."""
-        if self.lane_kernel:
-            for dt in dtypes:
-                self.folded(dt, device)
+    def fold(self, dtype, device) -> torch.Tensor:
+        return fold_stencils3(self.space, self.stencils, dtype, device)
 
-    def assemble(self, theta):
-        """The operator at theta: theta [B, Q] with a :attr:`lane_kernel`
-        gives a :class:`LaneStencil3` (nothing per lane is built), anything
-        else :meth:`mix`'s :class:`AssembledStencil3`."""
-        theta = torch.as_tensor(theta).to(self.stencils[0].vol)
-        if theta.ndim == 2 and self.lane_kernel:
-            return LaneStencil3(self, theta)
-        return self.mix(theta)
+    def lane(self, theta) -> "LaneStencil3":
+        return LaneStencil3(self, theta)
+
+    def lane_apply(self, theta, x) -> torch.Tensor:
+        """One :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`
+        launch: A(theta_b) x_b for every lane b of x [B, K, N] on the card."""
+        g = self.space.grid
+        return hk.stencil3_apply(self.folded(x.dtype, x.device), theta, x, (g.kz, g.ky, g.kx))
 
     def mix(self, theta) -> "AssembledStencil3":
         """sum_q theta_q * stencil_q; theta [Q], or [B, Q] for lane-batched
@@ -379,47 +360,10 @@ class AssembledStencil3:
                            block_factors, coarse_inv, coarse_basis, return_iters, coarse_f32, x0)
 
 
-@dataclass(eq=False)
-class LaneStencil3:
-    """A lane-batched hex Q1 operator A(theta_b), b < B: the affine family
-    ``op`` and theta [B, Q], nothing per lane.  On the card :meth:`apply`
-    launches :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`
-    on ``op.folded`` (x's dtype; f64 after ``matrixfree.cast``, which
-    casts theta); on the CPU it is :meth:`materialize`'s apply, bit for bit
-    the per-lane :class:`AssembledStencil3`.  Its cell-Jacobi factors (the
-    default preconditioner of :meth:`solve_pcg`) are :meth:`materialize`'s."""
-    op: StencilOperator3
-    theta: torch.Tensor
-
-    def __post_init__(self):
-        self._plain = None
-
-    @property
-    def space(self):
-        return self.op.space
-
-    def materialize(self) -> AssembledStencil3:
-        """The per-lane :class:`AssembledStencil3` of ``op.mix`` in theta's
-        dtype (B copies of every field: the plain version of the apply)."""
-        if self._plain is None:
-            op = self.op
-            if op.stencils[0].vol.dtype != self.theta.dtype:
-                op = cast(op, self.theta.dtype)
-            self._plain = op.mix(self.theta)
-        return self._plain
-
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, K, N] -> A(theta_b) x_b for every lane b (counted by
-        :func:`~pylrbms_tpu_torch.ops.matrixfree.count_apply`)."""
-        if x.device.type == "cpu":
-            return self.materialize().apply(x)
-        count_apply(x)
-        grid = self.space.grid
-        return hk.stencil3_apply(self.op.folded(x.dtype, x.device), self.theta, x,
-                                 (grid.kz, grid.ky, grid.kx))
-
-    def cell_jacobi_factors(self) -> torch.Tensor:
-        return self.materialize().cell_jacobi_factors()
+class LaneStencil3(LaneStencil):
+    """The lane form (``matrixfree.LaneStencil``) of a hex Q1 family: on the
+    card one :func:`~pylrbms_tpu_torch.ops.hopper_kernels.stencil3_apply`
+    launch an apply, on the CPU the per-lane :class:`AssembledStencil3`."""
 
     # the matrix-free PCG of the single-theta form, over this form's apply
     solve_pcg = AssembledStencil3.solve_pcg

@@ -70,11 +70,12 @@ def test_kernels_match_plain_versions(cuda, G, K, N, B):
         assert _rel(z, zp) <= tol, (mdt, vdt)
         assert _rel(rz, rzp) <= tol_rz, (mdt, vdt)
     assert hk.launch_counts() == {"block_matvec": len(DTYPES), "precond_dot": len(DTYPES),
-                                  "stencil3_apply": 0}
+                                  "stencil3_apply": 0,
+                                  "stencil2_apply": 0}
     assert hk.launch_signatures() == {
         "block_matvec": {(G, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
         "precond_dot": {(1, K, N, B, mdt, vdt) for mdt, vdt, *_ in DTYPES},
-        "stencil3_apply": set()}
+        "stencil3_apply": set(), "stencil2_apply": set()}
 
 
 @pytest.mark.parametrize("N,B,fdt,rdt", [(1536, 1, torch.float32, torch.float32),
@@ -246,7 +247,8 @@ def test_cuda_tensors_on_the_tensor_route_never_take_the_plain_path(cuda, monkey
     hk.reset_launch_counts()
     y, (z, rz) = hk.block_matvec(A, x, coef), hk.precond_dot(F, x)
     torch.cuda.synchronize()
-    assert hk.launch_counts() == {"block_matvec": 1, "precond_dot": 1, "stencil3_apply": 0}
+    assert hk.launch_counts() == {"block_matvec": 1, "precond_dot": 1, "stencil3_apply": 0,
+                                  "stencil2_apply": 0}
     assert _rel(y, yp) <= 2e-5 and _rel(z, zp) <= 2e-5 and _rel(rz, rzp) <= 2e-4
 
     class Refusing:
@@ -388,7 +390,8 @@ def test_online_step_on_cuda_matches_cpu(cuda):
         outs.append((U.cpu(), ind.cpu(), hk.launch_counts()))
     (U0, i0, n0), (U1, i1, n1) = outs
     assert _rel(U1, U0) <= 1e-8 and _rel(i1, i0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
 
 
@@ -397,7 +400,8 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
     """f64 model (2x2 subdomains, half 1, nref 2): the stencil online step
     (two lanes) and the matrix-free model solve on CUDA against the same on
     the CPU, to 1e-8 relative; on CUDA the block-Jacobi M of the stencil PCG
-    launches precond_dot, on the CPU nothing is launched."""
+    launches precond_dot and the step's applies stencil2_apply, on the CPU
+    nothing is launched."""
     from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
     from pylrbms_tpu_torch.model import make_online_step
@@ -422,8 +426,11 @@ def test_stencil_path_on_cuda_matches_cpu(cuda, path):
         outs.append((U.cpu(), hk.launch_counts()))
     (U0, n0), (U1, n1) = outs
     assert _rel(U1, U0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0}
     assert n1["precond_dot"] > 0
+    # the step's two lanes take the tri P1 lane kernel; the solve's one theta not
+    assert (n1["stencil2_apply"] > 0) == (path == "stencil_step")
 
 
 # CUDA runtime calls that block the host until the device has caught up
@@ -638,7 +645,8 @@ def test_parabolic_paths_on_cuda_match_cpu(cuda):
         eta, _ = rd.estimate(rd.solve(mus[0]), mus[0])
         out.append((U, U_mf, Ub, rd, eta, hk.launch_counts()))
     (U0, M0, B0, rd0, e0, n0), (U1, M1, B1, rd1, e1, n1) = out
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
     assert U1.is_cuda and _rel(U1.cpu(), U0) <= 1e-10
     assert _rel(M1.cpu(), M0) <= 1e-8 and _rel(B1.cpu(), B0) <= 1e-8
@@ -676,7 +684,8 @@ def test_stencil_apply_and_estimate_on_cuda_match_cpu(cuda, gt, order):
     (y0, U0, e0, n0), (y1, U1, e1, n1) = outs
     assert _rel(y1, y0) <= 1e-12
     assert _rel(U1, U0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0} and n1["precond_dot"] > 0
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0} and n1["precond_dot"] > 0
 
 
 def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
@@ -704,7 +713,8 @@ def test_halo_apply_and_trajectory_on_cuda_match_cpu(cuda):
         outs.append((y.cpu(), traj.cpu(), hk.launch_counts()))
     (y0, t0, n0), (y1, t1, n1) = outs
     assert _rel(y1, y0) <= 1e-12 and _rel(t1, t0) <= 1e-8
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0} and n1["precond_dot"] > 0
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0} and n1["precond_dot"] > 0
 
 
 @pytest.mark.parametrize("order", [1, 2])
@@ -738,7 +748,8 @@ def test_hex3d_stencil_solve_and_estimate_on_cuda_match_cpu(cuda, order):
     (y0, U0, W0, e0, n0), (y1, U1, W1, e1, n1) = outs
     assert _rel(y1, y0) <= 1e-12
     assert _rel(U1, U0) <= 1e-8 and _rel(W1, W0) <= 1e-8 and abs(e1 - e0) <= 1e-8 * abs(e0)
-    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert n0 == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                  "stencil2_apply": 0}
     assert n1["block_matvec"] > 0 and n1["precond_dot"] > 0
 
 
@@ -762,25 +773,29 @@ def spe10_3d_ops():
             .mf_operator() for dt in (torch.float32, torch.float64)}
 
 
-def _stencil3_against_plain(op, B, dtype, seed):
-    """stencil3_apply on op's folded components against the gather in f64
-    and the per-lane assembled apply, as max |diff| over the |.|-sum
-    max sum_q |theta_bq| |S_q| |x_b| (A x cancels at contrast 1e4); y
-    bitwise equal over two launches."""
-    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
+def _stencil_against_plain(op, B, dtype, seed):
+    """The lane kernel of op (``stencil3_apply`` on hex Q1, ``stencil2_apply``
+    on tri P1) on its folded components against the gather in f64 and the
+    per-lane assembled apply, as max |diff| over the |.|-sum max sum_q
+    |theta_bq| |S_q| |x_b| (A x cancels at contrast 1e4); y bitwise equal
+    over two launches."""
     sp, dev = op.space, op.stencils[0].vol.device
-    grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+    if op.lane_kernel == "stencil3_apply":
+        grid = (sp.grid.kz, sp.grid.ky, sp.grid.kx)
+        kernel, gather = hk.stencil3_apply, hk.stencil3_apply_plain
+    else:
+        grid = (sp.grid.ky, sp.grid.kx)
+        kernel, gather = hk.stencil2_apply, hk.stencil2_apply_plain
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     theta = (0.1 + 0.9 * torch.rand((B, len(op.stencils)), generator=g, device=dev,
                                     dtype=torch.float64)).to(dtype)
     x = torch.randn((B, sp.K, sp.N), generator=g, device=dev, dtype=torch.float64).to(dtype)
     P, P64 = op.folded(dtype, dev), op.folded(torch.float64, dev)
-    y, y2 = hk.stencil3_apply(P, theta, x, grid), hk.stencil3_apply(P, theta, x, grid)
-    ref = hk.stencil3_apply_plain(P64, theta.double(), x.double(), grid)
-    scale = hk.stencil3_apply_plain(P64.abs(), theta.double().abs(), x.double().abs(),
-                                    grid).max()
-    plain = LaneStencil3(op, theta).materialize().apply(x)
+    y, y2 = kernel(P, theta, x, grid), kernel(P, theta, x, grid)
+    ref = gather(P64, theta.double(), x.double(), grid)
+    scale = gather(P64.abs(), theta.double().abs(), x.double().abs(), grid).max()
+    plain = op.assemble(theta).materialize().apply(x)
     torch.cuda.synchronize()
     assert torch.equal(y, y2)
     return (float((y.double() - ref).abs().max() / scale),
@@ -794,7 +809,7 @@ def test_stencil3_apply_matches_plain_versions_on_spe10_3d(cuda, spe10_3d_ops, B
     the |.|-sum (the tensor route's 3xTF32 products and f32 sums), f64
     within 1e-12; one launch an apply."""
     hk.reset_launch_counts()
-    errs = _stencil3_against_plain(spe10_3d_ops[dtype], B, dtype, seed=B)
+    errs = _stencil_against_plain(spe10_3d_ops[dtype], B, dtype, seed=B)
     assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), errs
     assert hk.launch_signature_counts()["stencil3_apply"] == {(2, 2, 4, 4, 4, B, dtype): 2}
 
@@ -805,7 +820,7 @@ def test_stencil3_apply_matches_plain_versions_on_small_grids(cuda, kz, ky, kx, 
     import chip_smoke
     op = chip_smoke.random_stencil_op3(torch, cuda, kz, ky, kx, s, 3, dtype)
     for B in (1, 7, 33):
-        errs = _stencil3_against_plain(op, B, dtype, seed=B)
+        errs = _stencil_against_plain(op, B, dtype, seed=B)
         assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), (B, errs)
 
 
@@ -842,19 +857,15 @@ def test_stencil3_apply_refuses_what_it_does_not_take(cuda):
 def test_3d_stencil_step_on_cuda_launches_the_kernel_every_apply(cuda, monkeypatch):
     """The SPE10 3D block (2x2x2, nref 1, f32) online step with 3 lanes on
     the card: every operator apply is one stencil3_apply launch
-    (``stencil.applies`` = the wrapper's launches), no per-lane stencil is built, no blocking CUDA call happens
-    inside an ``operator.apply`` span, the components are folded at set-up
+    (``stencil.applies`` = the wrapper's launches, stencil2_apply none), no
+    per-lane stencil is built, no blocking CUDA call happens inside an
+    ``operator.apply`` span, the components are folded at set-up
     and never in a call, and U and the indicators are the CPU step's to
     1e-4 (f32 solves at tol 1e-6, sums in another order)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg3d import discretize
     from pylrbms_tpu_torch.model import make_online_step
     from pylrbms_tpu_torch.ops import matrixfree3d
-    from pylrbms_tpu_torch.ops.matrixfree3d import LaneStencil3
     from pylrbms_tpu_torch.problems.spe10_3d import init_grid_and_problem
-    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS
 
     cfg = dict(SPE10_3D, num_subdomains=[2, 2, 2], num_refinements=1)
     mus = np.array([0.15, 0.55, 0.95])
@@ -867,35 +878,205 @@ def test_3d_stencil_step_on_cuda_launches_the_kernel_every_apply(cuda, monkeypat
         mu = {"switch": torch.tensor(mus[:, None], dtype=torch.float32, device=dev)}
         outs.append([t.double().cpu() for t in step(th, tf, mu)])
 
+    counters, launches, blocking = _counted_step(step, (th, tf, mu), monkeypatch, matrixfree3d,
+                                                 "fold_stencils3")
+    assert counters["stencil.applies"] > 0
+    assert counters["stencil.applies"] == launches["stencil3_apply"]
+    assert launches["stencil2_apply"] == 0
+    assert blocking == []
+    (U0, i0), (U1, i1) = outs
+    assert _rel(U1, U0) <= 1e-4 and _rel(i1, i0) <= 1e-4
+
+
+# the lane-batched 2D tri P1 stencil kernel: the OS2015 stencil cell's
+# configuration (8x8 subdomains of 8^2 cells of two triangles, K=64, Q=2)
+# and ragged grids (one subdomain along an axis, s = 1, 2, 3, 4; s = 12
+# and 36, more triangles than a block's threads, s = 36 too large for 8
+# lanes' rows in shared memory: one lane a block; random components)
+OS2015_STENCIL = {"num_subdomains": [8, 8], "half_num_fine_elements_per_subdomain_and_dim": 2,
+                  "num_refinements": 2}
+S2_GRIDS = [(1, 1, 1), (1, 1, 4), (2, 1, 2), (1, 3, 1), (1, 2, 3), (2, 3, 2), (3, 2, 1),
+            (2, 1, 12), (1, 1, 36)]
+
+
+@pytest.fixture(scope="module")
+def os2015_stencil_ops():
+    """{dtype: the OS2015 stencil cell's StencilOperator on the card}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    return {dt: discretize(init_grid_and_problem(OS2015_STENCIL), device="cuda", dtype=dt)[0]
+            .mf_operator() for dt in (torch.float32, torch.float64)}
+
+
+@pytest.mark.parametrize("B", [1, 7, 256, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil2_apply_matches_plain_versions_on_os2015(cuda, os2015_stencil_ops, B, dtype):
+    """The OS2015 stencil cell's shape, lane tails included: f32 within 2e-5
+    of the |.|-sum (f32 sums of 4 x 3 x Q terms), f64 within 1e-12; one
+    launch an apply."""
+    hk.reset_launch_counts()
+    errs = _stencil_against_plain(os2015_stencil_ops[dtype], B, dtype, seed=B)
+    assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), errs
+    assert hk.launch_signature_counts()["stencil2_apply"] == {(2, 8, 8, 8, B, dtype): 2}
+    assert hk.launch_counts()["stencil3_apply"] == 0
+
+
+@pytest.mark.parametrize("ky,kx,s", S2_GRIDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil2_apply_matches_plain_versions_on_small_grids(cuda, ky, kx, s, dtype):
+    import chip_smoke
+    op = chip_smoke.random_stencil_op2(torch, cuda, ky, kx, s, 3, dtype)
+    for B in (1, 7, 33):
+        errs = _stencil_against_plain(op, B, dtype, seed=B)
+        assert max(errs) <= (2e-5 if dtype == torch.float32 else 1e-12), (B, errs)
+
+
+def test_stencil2_apply_refuses_what_it_does_not_take(cuda):
+    import chip_smoke
+    op = chip_smoke.random_stencil_op2(torch, cuda, 2, 1, 2, 2, torch.float32)
+    P, grid = op.folded(torch.float32, cuda), (2, 1)
+    theta = torch.rand((4, 2), device=cuda)
+    x = torch.randn((4, 2, 24), device=cuda)
+    with pytest.raises(TypeError):                      # f32 stencils, f64 vectors
+        hk.stencil2_apply(P, theta.double(), x.double(), grid)
+    with pytest.raises(TypeError):                      # vector dtypes differ
+        hk.stencil2_apply(P, theta, x.double(), grid)
+    with pytest.raises(TypeError):                      # bf16
+        hk.stencil2_apply(P.bfloat16(), theta.bfloat16(), x.bfloat16(), grid)
+    with pytest.raises(ValueError):                     # shapes
+        hk.stencil2_apply(P, theta[:3], x, grid)
+    with pytest.raises(ValueError):
+        hk.stencil2_apply(P, theta, x, (1, 1))
+    with pytest.raises(ValueError):                     # not contiguous
+        hk.stencil2_apply(P, theta, torch.randn((4, 2, 48), device=cuda)[..., ::2], grid)
+    with pytest.raises(ValueError):                     # misaligned
+        hk.stencil2_apply(P, theta, torch.randn(4 * 2 * 24 + 1, device=cuda)[1:]
+                          .view(4, 2, 24), grid)
+    with pytest.raises(ValueError):                     # one tensor on the CPU
+        hk.stencil2_apply(P, theta.cpu(), x, grid)
+    lib, stream = hk._lib(), torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.pylrbms_stencil2_apply(hk._DTYPE_CODE[torch.bfloat16], P.data_ptr(),
+                                      theta.data_ptr(), x.data_ptr(), torch.empty_like(x)
+                                      .data_ptr(), 2, *grid, 2, 4, stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_lane_form_takes_lanes_of_any_strides_on_cuda(cuda, dim):
+    """The lane form hands its kernel a dense x: lanes that are a view (the
+    greedy's reconstructed U, an einsum's output) give the per-lane apply's
+    result (f64, 1e-12 of the |.|-sum), one launch."""
+    import chip_smoke
+    op = (chip_smoke.random_stencil_op2(torch, cuda, 2, 1, 2, 2, torch.float64) if dim == 2
+          else chip_smoke.random_stencil_op3(torch, cuda, 1, 2, 1, 2, 2, torch.float64))
+    theta = torch.rand((3, 2), device=cuda, dtype=torch.float64)
+    x = torch.randn((op.space.K, op.space.N, 3), device=cuda,
+                    dtype=torch.float64).permute(2, 0, 1)
+    assert not x.is_contiguous()
+    hk.reset_launch_counts()
+    A = op.assemble(theta)
+    y = A.apply(x)
+    assert hk.launch_counts()[op.lane_kernel] == 1
+    ref = A.materialize().apply(x)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+def _counted_step(step, args, monkeypatch, fold_module, fold_name):
+    """One call of ``step(*args)`` on the card with the timings on, no
+    per-lane stencil allowed (``LaneStencil.materialize`` raises) and no fold
+    (``fold_module.fold_name`` raises): (counters, launch counts, the names
+    of blocking CUDA runtime calls inside ``operator.apply`` spans of a
+    profiled second call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pylrbms_tpu_torch.ops.matrixfree import LaneStencil
+    from pylrbms_tpu_torch.utils.timers import GLOBAL_TIMINGS
+
     def no_plain(self):
         raise AssertionError("a per-lane stencil was built on the card")
 
-    def no_fold(*args):
+    def no_fold(*a):
         raise AssertionError("the components were folded in a call")
-    monkeypatch.setattr(LaneStencil3, "materialize", no_plain)
-    monkeypatch.setattr(matrixfree3d, "fold_stencils3", no_fold)
+    monkeypatch.setattr(LaneStencil, "materialize", no_plain)
+    monkeypatch.setattr(fold_module, fold_name, no_fold)
     hk.reset_launch_counts()
     GLOBAL_TIMINGS.clear()
     GLOBAL_TIMINGS.enable()
     try:
-        step(th, tf, mu)
+        step(*args)
         torch.cuda.synchronize()
         counters = dict(GLOBAL_TIMINGS.counters)
     finally:
         GLOBAL_TIMINGS.disable()
         GLOBAL_TIMINGS.clear()
-    assert counters["stencil.applies"] > 0
-    assert counters["stencil.applies"] == hk.launch_counts()["stencil3_apply"]
+    launches = hk.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(th, tf, mu)
+        step(*args)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     spans = [e.time_range for e in events if e.name == "operator.apply"]
+    assert spans
     blocking = [e.name for e in events if e.name in BLOCKING
-                and any(s.start <= e.time_range.start <= s.end for s in spans)]
-    assert spans and blocking == []
-    (U0, i0), (U1, i1) = outs
+                and any(sp.start <= e.time_range.start <= sp.end for sp in spans)]
+    return counters, launches, blocking
+
+
+def test_2d_stencil_step_on_cuda_matches_cpu(cuda):
+    """The OS2015 block (2x2 subdomains, half 1, nref 2: tri P1, s=4), f32,
+    3 lanes: the default (stencil) online step on the card, whose applies
+    are stencil2_apply launches, against the CPU step (per-lane stencils)
+    to 1e-4 (f32 solves at tol 1e-6, sums in another order)."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+
+    cfg = {"num_subdomains": [2, 2], "half_num_fine_elements_per_subdomain_and_dim": 1,
+           "num_refinements": 2}
+    mus = np.array([0.15, 0.55, 0.95])
+    th, tf = np.stack([np.ones(3), mus], 1), np.ones((3, 1))
+    outs = []
+    for dev in ("cpu", cuda):
+        d, _ = discretize(init_grid_and_problem(cfg), device=dev, dtype=torch.float32)
+        step = make_online_step(d, tol=1e-6, maxiter=400, matrix_free=True,
+                                coarse_space="harvested", coarse_modes=4)
+        mu = {"diffusion": torch.tensor(mus[:, None], dtype=torch.float32, device=dev)}
+        hk.reset_launch_counts()
+        outs.append([t.double().cpu() for t in step(th, tf, mu)] + [hk.launch_counts()])
+    (U0, i0, n0), (U1, i1, n1) = outs
     assert _rel(U1, U0) <= 1e-4 and _rel(i1, i0) <= 1e-4
+    assert n0["stencil2_apply"] == 0 and n1["stencil2_apply"] > 0
+    assert n1["stencil3_apply"] == 0
+
+
+def test_2d_stencil_step_at_the_cells_configuration_launches_the_kernel_every_apply(
+        cuda, monkeypatch):
+    """The OS2015 stencil cell's step (8x8 subdomains, half 2, nref 2, f32,
+    the step's default form and preconditioner), 8 lanes on the card: every
+    operator apply is one stencil2_apply launch (``stencil.applies`` = its
+    launches, stencil3_apply none), no per-lane stencil is built, no
+    blocking CUDA call happens inside an ``operator.apply`` span, and the
+    components are folded at set-up, never in a call."""
+    from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
+    from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
+    from pylrbms_tpu_torch.model import make_online_step
+    from pylrbms_tpu_torch.ops import matrixfree
+
+    d, _ = discretize(init_grid_and_problem(OS2015_STENCIL), device=cuda, dtype=torch.float32)
+    step = make_online_step(d, tol=1e-6, maxiter=400, coarse_space="harvested",
+                            coarse_modes=12)
+    assert "stencils" in step.arrays
+    mus = np.linspace(0.1, 1.0, 8)
+    args = (np.stack([np.ones(8), mus], 1), np.ones((8, 1)),
+            {"diffusion": torch.tensor(mus[:, None], dtype=torch.float32, device=cuda)})
+    counters, launches, blocking = _counted_step(step, args, monkeypatch, matrixfree,
+                                                 "fold_stencils2")
+    assert counters["stencil.applies"] > 0
+    assert counters["stencil.applies"] == launches["stencil2_apply"]
+    assert launches["stencil3_apply"] == 0 and launches["block_matvec"] == 0
+    assert blocking == []
 
 
 @pytest.mark.parametrize("N,B,mdt", [(1728, 1, torch.float32), (1728, 32, torch.float32),

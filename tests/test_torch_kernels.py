@@ -104,7 +104,8 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     x = torch.ones((1, 2, 3), dtype=torch.float64)
     hk.block_matvec(A, x)
     hk.precond_dot(A[0], x)
-    assert hk.launch_counts() == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert hk.launch_counts() == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                                  "stencil2_apply": 0}
 
 
 def test_wrappers_reject_bad_shapes():
@@ -462,7 +463,8 @@ def test_launches_are_counted_per_signature():
     CPU tensors launch nothing, so the counter is driven directly here."""
     hk.reset_launch_counts()
     hk.block_matvec(torch.ones((1, 2, 3, 3)), torch.ones((4, 2, 3)))
-    assert hk.launch_counts() == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0}
+    assert hk.launch_counts() == {"block_matvec": 0, "precond_dot": 0, "stencil3_apply": 0,
+                                  "stencil2_apply": 0}
     sig = (1, 2, 3, 4, torch.float64, torch.float64)
     hk._count(hk.precond_dot, sig)
     hk._count(hk.precond_dot, sig)
@@ -471,7 +473,7 @@ def test_launches_are_counted_per_signature():
     assert hk.launch_signature_counts()["precond_dot"][sig] == 2
     assert hk.launch_signatures() == {"block_matvec": set(),
                                       "precond_dot": {sig, sig[:3] + (8,) + sig[4:]},
-                                      "stencil3_apply": set()}
+                                      "stencil3_apply": set(), "stencil2_apply": set()}
     hk.reset_launch_counts()
     assert hk.launch_signature_counts() == {"block_matvec": {}, "precond_dot": {},
-                                            "stencil3_apply": {}}
+                                            "stencil3_apply": {}, "stencil2_apply": {}}

@@ -451,8 +451,10 @@ def test_certify_on_f32_model(f32_models, matrix_free):
     f32 operator (widened): the returned U, f32 as in JAX, is that solution
     to f32 resolution (1e-7; the plain f32 step at tol 1e-6 is not), and
     the indicators, evaluated in f64 on the polished U, equal the f64
-    estimator on that solution to 1e-8.  Single and 2 lanes; against JAX's
-    certified step on the same (carried) arrays to 1e-6."""
+    estimator on that solution to 1e-8.  Single and 2 lanes (the lanes'
+    operator is the lane form's: on tri P1 the f32 components mixed by
+    theta in f64, the f32 mix elsewhere); against JAX's certified step on
+    the same (carried) arrays to 1e-6."""
     dj, dt = f32_models
     kw = dict(tol=1e-6, maxiter=500, matrix_free=matrix_free, certify=True)
     st = make_online_step(dt, **kw)
@@ -470,15 +472,21 @@ def test_certify_on_f32_model(f32_models, matrix_free):
     assert indb.dtype == f64
     for i, m in enumerate(mus):
         mu = {"diffusion": torch.tensor([m])}
-        A64 = _step_operator_dense(dt, st, matrix_free, torch.tensor(th[i]))
         b64 = dt.rhs(dt.parse_parameter(m)).double()
-        U_ref = torch.linalg.solve(A64, b64.reshape(-1)).reshape(b64.shape)
-        ind_ref = sum(est64.local_quantities_positive(
-            U_ref[None], mu, tensors={"E_bar": st.arrays["E_bar"].double()}))[0]
+
+        def certified(theta):
+            """(U, indicators) of the f64 solve with the step's operator at theta."""
+            A64 = _step_operator_dense(dt, st, matrix_free, theta)
+            U_ref = torch.linalg.solve(A64, b64.reshape(-1)).reshape(b64.shape)
+            return U_ref, sum(est64.local_quantities_positive(
+                U_ref[None], mu, tensors={"E_bar": st.arrays["E_bar"].double()}))[0]
+        U_ref, ind_ref = certified(torch.tensor(th[i]))
+        # the lanes' operator: lane i alone (a one-lane stencil broadcasts)
+        Ub_ref, indb_ref = certified(torch.tensor(th[i:i + 1] if matrix_free is True else th[i]))
         U1, ind1 = st(torch.tensor(th[i]), torch.tensor(tf[i]), mu)
         Uj, indj = sj(jnp.asarray(th[i]), jnp.asarray(tf[i]), {"diffusion": jnp.asarray([m])})
         assert U1.dtype == torch.float32
-        assert rel(U1, U_ref) <= 1e-7 and rel(Ub[i], U_ref) <= 1e-7
-        assert rel(ind1, ind_ref) <= 1e-8 and rel(indb[i], ind_ref) <= 1e-8
+        assert rel(U1, U_ref) <= 1e-7 and rel(Ub[i], Ub_ref) <= 1e-7
+        assert rel(ind1, ind_ref) <= 1e-8 and rel(indb[i], indb_ref) <= 1e-8
         assert rel(U1, Uj) <= 1e-6
         assert rel(ind1, indj) <= 1e-6
