@@ -551,9 +551,14 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
                      matrix_free=None, certify: bool = False,
                      refinements: int = 2, two_level: bool = True,
                      coarse_modes: int = 6, coarse_space: str = "modal",
-                     jacobi_storage: str = None):
+                     jacobi_storage: str = None, enrichment: dict = None):
     """Online step ``(theta, theta_f, mu) -> (U[, indicators])`` on the
     model's device and dtype.
+
+    ``enrichment`` (the keyword settings of :func:`_enrichment_step`, or
+    None: the detailed step below) makes it the reduced step of
+    :func:`_enrichment_step` instead; the other keywords then do not
+    apply.
 
     Single query: theta [Q], theta_f [Qf], mu with scalar-like leaves.
     Batched: theta [B, Q], theta_f [B, Qf], mu leaves [B, ...] — one call,
@@ -588,6 +593,8 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
     operator at theta), ``solve`` (with the refinements of ``certify``) and
     ``estimate`` (the indicators); no-ops while the timings are off.
     """
+    if enrichment is not None:
+        return _enrichment_step(d, **enrichment)
     pin_precision()
     st = d.op.static
     dev = d.device
@@ -727,6 +734,89 @@ def make_online_step(d: StationaryBlockModel, tol: float = 1e-6,
 
     step.iters_probe = iters_probe
     step.arrays = arrays
+    return step
+
+
+def _enrichment_step(d: StationaryBlockModel, *, training: int, greedy_target: float,
+                     max_extensions: int, order: int, target: float,
+                     marking_doerfler_theta: float, marking_max_age: int,
+                     enrichment_steps: int):
+    """The LRBMS reduced online step with adaptive online enrichment:
+    ``(theta, theta_f, mu) -> (U, indicators)``, one query or B lanes
+    answered one after the other.
+
+    Built once here: the offline reduced model, the weak greedy over
+    ``training`` uniform parameters to ``greedy_target`` (at most
+    ``max_extensions`` extensions from order-``order`` bases).  A query is an
+    episode of :class:`~pylrbms_tpu_torch.online_enrichment.AdaptiveEnrichment`
+    (target ``target``, Doerfler ``marking_doerfler_theta``, age
+    ``marking_max_age``, at most ``enrichment_steps`` rounds, batched
+    correctors) from the offline state, which the episode puts back: no
+    query sees another's enrichment.  The parameter comes from ``mu``;
+    theta and theta_f must be its coefficients (else ValueError).
+
+    Returns U [B, K, N] (the reconstruction of the final reduced Galerkin
+    solution) and indicators [B, K] (eta_nc + eta_r + eta_df of it), or
+    [K, N] and [K] for one query, in the model's dtype.  Each call is one
+    ``step`` span of ``GLOBAL_TIMINGS`` around the episodes' ``enrich: ...``
+    spans and counters.  The step carries ``arrays`` (the offline reduced
+    tensors), ``iters_probe(theta, theta_f, mu)`` (the most PCG iterations
+    of a corrector solve over the queries' episodes), ``enrichment`` (the
+    AdaptiveEnrichment) and ``offline`` (its OfflineState)."""
+    from .greedy import weak_greedy
+    from .online_enrichment import AdaptiveEnrichment
+    res = weak_greedy(d, d.parameter_space.sample_uniformly(training),
+                      target_error=greedy_target, max_extensions=max_extensions, order=order)
+    online = AdaptiveEnrichment(None, d, d.space, res.reductor, res.rd,
+                                target_error=target,
+                                marking_doerfler_theta=marking_doerfler_theta,
+                                marking_max_age=marking_max_age)
+    offline = online.offline_state()
+    arrays = {n: getattr(res.rd, n) for n in res.rd._ARRAY_FIELDS
+              if getattr(res.rd, n) is not None}
+
+    def queries(theta, theta_f, mu):
+        """The queries' parameters on the host, each held to its theta."""
+        if mu is None:
+            raise ValueError("the enrichment step reads each query's parameter from mu")
+        theta = torch.as_tensor(theta, dtype=torch.float64).cpu()
+        theta_f = torch.as_tensor(theta_f, dtype=torch.float64).cpu()
+        host = {k: torch.as_tensor(v).to("cpu", torch.float64) for k, v in mu.items()}
+        lanes = theta.ndim == 2
+        out = []
+        for i in range(theta.shape[0] if lanes else 1):
+            m = d.parse_parameter({k: v[i] for k, v in host.items()} if lanes else host)
+            given = torch.cat((theta[i], theta_f[i]) if lanes else (theta, theta_f))
+            want = torch.cat([evaluate_coefficients(c, m, device="cpu")
+                              for c in (d.lambda_coeffs, d.f_coeffs)])
+            if not torch.allclose(given, want, rtol=1e-12, atol=0.0):
+                raise ValueError(f"theta, theta_f {given.tolist()} are not the "
+                                 f"coefficients of mu {m}")
+            out.append(m)
+        return out, lanes
+
+    def step(theta, theta_f, mu=None):
+        """(theta [B, Q], theta_f [B, Qf], mu with [B, ...] leaves) ->
+        (U [B, K, N], indicators [B, K]); single: [K, N], [K]."""
+        with GLOBAL_TIMINGS.span("step"):
+            ms, lanes = queries(theta, theta_f, mu)
+            outs = [online.episode(m, offline, enrichment_steps) for m in ms]
+            U = torch.stack([o[0] for o in outs]).to(d.dtype)
+            ind = torch.stack([o[1] for o in outs]).to(d.dtype)
+            return (U, ind) if lanes else (U[0], ind[0])
+
+    def iters_probe(theta, theta_f, mu=None):
+        """The most PCG iterations of a corrector solve over the episodes
+        of the queries (0 where no round enriched)."""
+        most = 0
+        for m in queries(theta, theta_f, mu)[0]:
+            online.episode(m, offline, enrichment_steps)
+            most = max([most] + online.corrector_iters)
+        return most
+
+    step.iters_probe = iters_probe
+    step.arrays = arrays
+    step.enrichment, step.offline = online, offline
     return step
 
 

@@ -9,11 +9,19 @@ The port of ``pylrbms_tpu/online_enrichment.py``:
 * :class:`AdaptiveEnrichment`: solve -> estimate -> mark (Doerfler +
   age-based) -> enrich marked subdomains (corrector solves) -> re-reduce;
   loop until eta <= target_error or enrichment_steps exhausted; metrics
-  callback hook.
+  callback hook.  :meth:`~AdaptiveEnrichment.solve` grows one basis that
+  later calls share; :meth:`~AdaptiveEnrichment.episode` answers one query
+  from an :class:`OfflineState` and puts that state back afterwards, so
+  queries never see each other's enrichment.  Each round counts
+  ``enrich.rounds``, ``enrich.marked`` (subdomains marked) and
+  ``enrich.columns`` (columns Gram-Schmidt accepted) in
+  ``GLOBAL_TIMINGS``.
 * :class:`ParabolicAdaptiveEnrichment`: the same loop on the parabolic ROM,
   with correctors against the implicit-Euler defect at the worst time step.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,6 +48,15 @@ def doerfler_marking(indicators, theta: float):
     return [int(i) for i in order]
 
 
+@dataclass
+class OfflineState:
+    """What an enrichment episode changes: the reductor's local bases and
+    image cache (:meth:`~pylrbms_tpu_torch.reductor.LRBMSReductor.state`)
+    and the reduced model."""
+    reductor: tuple
+    rd: object
+
+
 class AdaptiveEnrichment:
     """Adaptive online enrichment of a reduced model for one parameter at a
     time; ``batched_correctors`` solves all marked patches in one masked PCG
@@ -61,6 +78,8 @@ class AdaptiveEnrichment:
         self.marking_max_age = int(marking_max_age)
         self.batched_correctors = batched_correctors
         self._corrector = None
+        # PCG iterations of each corrector solve of the last solve()
+        self.corrector_iters = []
         self.logger = getLogger("pylrbms.online_enrichment")
 
     def estimate(self, u, mu, decompose: bool = False):
@@ -87,16 +106,21 @@ class AdaptiveEnrichment:
             with T.span('enrich: corrector solve') as _s:
                 W = self._corrector.solve(marked_sorted, mu, current_solution=u_full)
                 _s["sync"] = W
+            self.corrector_iters.append(self._corrector.last_iters)
+            added = 0
             with T.span('enrich: basis extension'):
                 W = W.detach().cpu().numpy()
                 for i, ii in enumerate(marked_sorted):
                     try:
-                        self.reductor.extend_basis_local(ii, W[i])
+                        added += self.reductor.extend_basis_local(ii, W[i])
                     except ExtensionError:
                         pass
         else:
-            for ii in sorted(marked):
-                self.reductor.enrich_local(ii, u, mu, current_solution=u_full)
+            added = sum(self.reductor.enrich_local(ii, u, mu, current_solution=u_full)
+                        for ii in sorted(marked))
+        T.count("enrich.rounds")
+        T.count("enrich.marked", len(marked))
+        T.count("enrich.columns", added)
         with T.span('enrich: re-reduction') as _s:
             self.rd = self.reductor.reduce()
             _s["sync"] = self.rd.A_red
@@ -104,10 +128,37 @@ class AdaptiveEnrichment:
             age_count[ii] = 1 if ii in marked else age_count[ii] + 1
         return len(marked)
 
+    def offline_state(self) -> OfflineState:
+        """The state an :meth:`episode` starts from and leaves: the current
+        bases, image cache and reduced model."""
+        return OfflineState(reductor=self.reductor.state(), rd=self.rd)
+
+    def restore(self, state: OfflineState) -> None:
+        """Put ``state`` back (copies only: ``state`` stays as it was)."""
+        self.reductor.restore(state.reductor)
+        self.rd = state.rd
+
+    def episode(self, mu, state: OfflineState, enrichment_steps=np.inf):
+        """Answer one query from ``state`` and leave ``state`` behind:
+        :meth:`solve`, then the answer U = V c [K, N] and its indicators
+        eta_nc + eta_r + eta_df [K] (the reduced estimator's local parts of
+        c: the full-order estimator of U), both float64, then
+        :meth:`restore` in an ``enrich: restore`` span."""
+        mu = self.discretization.parse_parameter(mu)
+        try:
+            c, rd, _ = self.solve(mu, enrichment_steps)
+            U = rd.reconstruct(c)
+            nc, r, df = rd.local_quantities(c, mu)
+        finally:
+            with GLOBAL_TIMINGS.span('enrich: restore'):
+                self.restore(state)
+        return U, nc + r + df
+
     def solve(self, mu, enrichment_steps=np.inf, callback=None):
         mu = self.discretization.parse_parameter(mu)
         enrichment_step = 1
         age_count = np.ones(self.block_space.K)
+        self.corrector_iters = []
         local_problem_solves = 0
         rb_size = self.rd.solution_dim
         while True:

@@ -43,6 +43,7 @@ from .hopper_kernels import block_matvec, precond_dot
 from .matrixfree import StencilOperator, bmv
 from .matrixfree3d import StencilOperator3
 from ..la.krylov import default_chunk
+from ..utils.timers import GLOBAL_TIMINGS as T
 
 SIDES = ("left", "right", "bottom", "top")
 SIDES3 = SIDES + ("near", "far")
@@ -152,7 +153,9 @@ class BatchedCorrector:
         self.A0c_q = torch.stack([d.op.assemble(eye[q]).coarse_matrix()
                                   for q in range(Q)]).to(cdt)
         # PCG iterations of the last solve (the lock-step count of its lanes)
-        self.last_iters = None
+        # and each lane's true relative residual ||b - A x|| / ||b|| at its
+        # exit ([B] on the device)
+        self.last_iters = self.last_residual = None
         # default SubdomainMesh of solve (the enrichment sets the reductor's)
         self.mesh = None
 
@@ -163,6 +166,45 @@ class BatchedCorrector:
         return self
 
     # ------------------------------------------------------------------
+    def _graph(self, body, state):
+        """``body(*state) -> state`` as a CUDA graph: one eager call on the
+        capture stream (a real evaluation, which also makes every lazy
+        allocation), then the capture of one more on static copies of its
+        result.  Returns (the eager call's state, ``replay(*state) ->
+        state``), which copies a state it is not handed back into the static
+        inputs and replays; the state it returns is the static tensors,
+        which the next replay overwrites.  Every capture of this corrector
+        runs on one stream into the memory pool of the one before, which
+        the corrector keeps (a pool lives while a graph of it does); a
+        graph is only replayed before the next capture."""
+        dev = state[0].device
+        if getattr(self, "_stream", None) is None:
+            self._stream, self._last_graph = torch.cuda.Stream(dev), None
+        stream, last = self._stream, self._last_graph
+        here = torch.cuda.current_stream(dev)
+        stream.wait_stream(here)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            state = body(*state)
+            static = tuple(t.clone() for t in state)
+            graph.capture_begin(pool=None if last is None else last.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                for t, n in zip(static, body(*static)):
+                    t.copy_(n)
+            finally:
+                graph.capture_end()
+        here.wait_stream(stream)
+        self._last_graph = graph
+
+        def replay(*now):
+            for t, n in zip(static, now):
+                if t is not n:
+                    t.copy_(n)
+            graph.replay()
+            return static
+        return state, replay
+
     def _view(self, e0: int, e1: int):
         """The corrector's pieces on subdomains [e0, e1) (whole rows, the
         interfaces inside them renumbered from 0): static, neighbor table
@@ -375,14 +417,16 @@ class BatchedCorrector:
         b = (rhs_full[None, k0:k1] * pm_b[:, :, None]).contiguous()
         x = torch.zeros_like(b)
         r = b.clone()                                  # b - apply(0)
-        z, rz = M(r)
+        with T.span("precond.apply"):
+            z, rz = M(r)
         rz, rr = total(rz, dot(r, r))
         p = z
-        atol2 = (tol ** 2) * torch.clamp(total(dot(b, b)), min=1e-300)
+        bb = torch.clamp(total(dot(b, b)), min=1e-300)
+        atol2 = (tol ** 2) * bb
         act = torch.ones((B,), dtype=torch.bool, device=dev)
         it = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def go():
+        def go(rr, act, it):
             return torch.any(act & (rr > atol2)) & (it < maxiter)
 
         # truncated CG with a negative-curvature FREEZE: at extreme
@@ -396,32 +440,60 @@ class BatchedCorrector:
         # evaluation is guarded by it on the device, which keeps ``it`` and
         # fully converged states bitwise frozen.  K-sharded, every value it
         # reads is summed over the ranks: all ranks stop together.
-        chunk = default_chunk(dev)
-        while bool(go()):
-            for _ in range(chunk):
-                run = go()
+        def body(x, r, p, rz, rr, act, it):
+            run = go(rr, act, it)
+            with T.span("operator.apply"):
                 Ap = apply(p.contiguous())
-                pAp = total(dot(p, Ap))
-                act_n = act & (pAp > 0)
-                step = act_n.to(x.dtype)
-                alpha = step * rz / torch.where(pAp > 0, pAp, torch.ones_like(pAp))
-                x_n = x + alpha[:, None, None] * p
-                r_n = r - alpha[:, None, None] * Ap
+            pAp = total(dot(p, Ap))
+            act_n = act & (pAp > 0)
+            step = act_n.to(x.dtype)
+            alpha = step * rz / torch.where(pAp > 0, pAp, torch.ones_like(pAp))
+            x_n = x + alpha[:, None, None] * p
+            r_n = r - alpha[:, None, None] * Ap
+            with T.span("precond.apply"):
                 z_n, rz_new = M(r_n)
-                rz_new, rr_n = total(rz_new, dot(r_n, r_n))
-                rz_n = torch.where(act_n, rz_new, rz)
-                # rz <= 0 (indefinite preconditioner at extreme contrast):
-                # restart with p = z instead of scaling by a meaningless
-                # quotient
-                beta = torch.where(rz > 0, step * rz_n / torch.where(rz > 0, rz, torch.ones_like(rz)),
-                                   torch.zeros_like(rz))
-                p_n = z_n * step[:, None, None] + beta[:, None, None] * p
-                x, r, p = (torch.where(run, n, o) for n, o in ((x_n, x), (r_n, r), (p_n, p)))
-                rz = torch.where(run, rz_n, rz)
-                rr = torch.where(run, rr_n, rr)
-                act = torch.where(run, act_n, act)
-                it = it + run.to(it.dtype)
+            rz_new, rr_n = total(rz_new, dot(r_n, r_n))
+            rz_n = torch.where(act_n, rz_new, rz)
+            # rz <= 0 (indefinite preconditioner at extreme contrast):
+            # restart with p = z instead of scaling by a meaningless
+            # quotient
+            beta = torch.where(rz > 0,
+                               step * rz_n / torch.where(rz > 0, rz, torch.ones_like(rz)),
+                               torch.zeros_like(rz))
+            p_n = z_n * step[:, None, None] + beta[:, None, None] * p
+            return (tuple(torch.where(run, n, o) for n, o in
+                          ((x_n, x), (r_n, r), (p_n, p), (rz_n, rz), (rr_n, rr), (act_n, act)))
+                    + (it + run.to(it.dtype),))
+
+        # On a card (unsharded) one body evaluation is a CUDA graph: its
+        # ~200 small launches go out in one replay, so the card and not the
+        # host's dispatch paces the solve.  The replay runs the same kernels
+        # on the same operands as the eager body.
+        state = (x, r, p, rz, rr, act, it)
+        if dev.type == "cuda" and mesh is None:
+            state, body = self._graph(body, state)
+        # The stop is confirmed on the true residual b - A x, from which
+        # CG's recurrence r can drift at high contrast: while a running
+        # lane's true residual is over the tolerance and iterations are
+        # left, CG restarts from the iterates (p = z of the true residual).
+        # A frozen lane keeps its iterate; ``last_residual`` shows it.
+        chunk = default_chunk(dev)
+        while True:
+            while bool(go(*state[4:])):
+                for _ in range(chunk):
+                    state = body(*state)
+            x, _r, _p, _rz, _rr, act, it = state
+            with T.span("operator.apply"):
+                r = b - apply(x)
+            rr = total(dot(r, r))
+            if not bool(go(rr, act, it)):
+                break
+            with T.span("precond.apply"):
+                z, rz = M(r)
+            state = (x, r, z, total(rz), rr, act, it)
         self.last_iters = int(it)
+        self.last_residual = torch.sqrt(rr / bb)
+        T.count("corrector.iters", self.last_iters)
         # each patch's own subdomain
         if mesh is None:
             return x[torch.arange(B, device=dev), marked, :]       # [B, N]
@@ -434,7 +506,14 @@ class BatchedCorrector:
               tol: float = 1e-10, maxiter: int = 300, rhs_full=None,
               two_level: bool = True, mesh=None):
         """marked: list[int] -> corrections [n_marked, N], row i for the
-        i-th smallest marked subdomain.
+        i-th smallest marked subdomain.  Each patch solve stops when its
+        true residual ||b - A x|| (not CG's recurrence, which can drift
+        from it at high contrast) is within ``tol`` of ||b||, or at ``maxiter``
+        iterations; ``last_iters`` and ``last_residual`` hold what it
+        reached.  Each solve adds its PCG iterations to the
+        ``corrector.iters`` counter of ``GLOBAL_TIMINGS``; the patch applies
+        and preconditioner applies are ``operator.apply`` and
+        ``precond.apply`` spans, as in ``la.krylov.pcg_chunked``.
 
         With ``mesh`` (a SubdomainMesh; default ``self.mesh``) the union
         patch solve runs K-banded over its ranks: each rank holds its rows

@@ -56,6 +56,15 @@ from .parameters import evaluate_coefficients
 WIDE = torch.float64
 
 
+def _copy_cache(cache):
+    """A copy of an image cache (``LRBMSReductor._images``) whose stacks
+    may change without touching the original's; None stays None."""
+    if cache is None:
+        return None
+    return {**cache, "sizes": cache["sizes"].copy(), "Wk": cache["Wk"].clone(),
+            "Tk": cache["Tk"].clone()}
+
+
 class ExtensionError(Exception):
     """Basis extension added nothing new (<-> pymor.core.exceptions.ExtensionError)."""
 
@@ -417,6 +426,19 @@ class LRBMSReductor:
         if total == 0:
             raise ExtensionError("no new basis vectors on any subdomain")
         return total
+
+    def state(self) -> tuple:
+        """(bases, image cache) as they stand, for :meth:`restore`.  The
+        bases are append-only host arrays (the list is copied, the arrays
+        shared); the cache's stacks grow in place in the incremental
+        re-reduction, so they are copied."""
+        return list(self.bases), _copy_cache(self._img_cache)
+
+    def restore(self, state: tuple) -> None:
+        """Put back a :meth:`state` (copies of it: it stays as it was)."""
+        bases, cache = state
+        self.bases = list(bases)
+        self._img_cache = _copy_cache(cache)
 
     def _products_device(self):
         """The local products as a float64 tensor on the model's device."""

@@ -508,10 +508,13 @@ def test_corrector_shapes_match_plain_versions(cuda, B):
 
 
 @pytest.mark.parametrize("stencil", [False, True], ids=["dense", "stencil"])
-def test_corrector_on_cuda_matches_dense_patch_solve(cuda, stencil):
+def test_corrector_on_cuda_matches_dense_patch_solve(cuda, stencil, monkeypatch):
     """3x3 subdomains, half 1, nref 2 (N=96), f64: the batched corrector on
     the card against the port's dense patch solve (1e-8 at PCG tol 1e-10);
-    the dense apply launches both kernels, the stencil apply precond_dot."""
+    the dense apply launches both kernels, the stencil apply precond_dot.
+    The PCG body replayed as a CUDA graph against the eager body: 1e-12
+    (the dense apply's ``index_add_`` sums with atomics, in no fixed
+    order)."""
     from pylrbms_tpu_torch.problems.os2015 import init_grid_and_problem
     from pylrbms_tpu_torch.discretize_elliptic_block_swipdg import discretize
     from pylrbms_tpu_torch.ops.corrector import BatchedCorrector
@@ -529,11 +532,22 @@ def test_corrector_on_cuda_matches_dense_patch_solve(cuda, stencil):
     hk.reset_launch_counts()
     W = bc.solve(marked, mu, current_solution=U0)
     n = hk.launch_counts()
-    # one launch per PCG body evaluation (and one for r0); the body runs in
-    # chunks of 16 between convergence checks, frozen once converged
+    # the body is one CUDA graph: the host launches it once eagerly and once
+    # in the capture, then replays it (r0 takes one launch, a restart one)
+    assert 3 <= n["precond_dot"] <= 4 < bc.last_iters
+    # the residual rhs takes one block apply; the dense patch apply one per
+    # body launched and one for the true residual that confirms the stop
+    assert n["block_matvec"] == (1 if stencil else n["precond_dot"] + 1)
+    # the eager body: one launch per PCG body evaluation (and one for r0);
+    # the body runs in chunks of 16 between convergence checks, frozen once
+    # converged
+    monkeypatch.setattr(BatchedCorrector, "_graph", lambda self, body, state: (body(*state), body))
+    hk.reset_launch_counts()
+    W_eager = bc.solve(marked, mu, current_solution=U0)
+    n = hk.launch_counts()
     assert bc.last_iters + 1 <= n["precond_dot"] <= bc.last_iters + 16
-    # the residual rhs takes one block apply; the dense patch apply one per body
-    assert n["block_matvec"] == (1 if stencil else n["precond_dot"])
+    assert n["block_matvec"] == (1 if stencil else n["precond_dot"] + 1)
+    assert _rel(W, W_eager) <= 1e-12
     for i, k in enumerate(marked):
         w = d.solve_for_local_correction(k, None, mu, current_solution=U0)
         assert _rel(W[i], w) <= 1e-8
